@@ -1,0 +1,149 @@
+"""CLI arguments for the sampler, with the args.json round-trip (the port's
+copy of the `cgenerate_args` part of regennet_tpu/utils/parser_util.py).
+
+Training writes the dataset / model / diffusion argument groups to
+args.json beside the checkpoint; the sampler reloads the model and
+diffusion groups from there, overwriting the command line's values.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from argparse import ArgumentParser
+
+
+def parse_and_load_from_model(parser, with_data: bool = True, argv=None):
+    if with_data:
+        add_data_options(parser)
+    add_model_options(parser)
+    add_diffusion_options(parser)
+    args = parser.parse_args(argv)
+    groups = (["dataset"] if with_data else []) + ["model", "diffusion"]
+    args_to_overwrite = []
+    for group_name in groups:
+        args_to_overwrite += get_args_per_group_name(parser, group_name)
+
+    args_path = os.path.join(os.path.dirname(args.model_path), "args.json")
+    if not os.path.exists(args_path):
+        raise FileNotFoundError(f"Arguments json file was not found: {args_path}")
+    with open(args_path, "r") as fr:
+        model_args = json.load(fr)
+
+    for a in args_to_overwrite:
+        if a in model_args:
+            setattr(args, a, model_args[a])
+        elif "cond_mode" in model_args:  # backward compatibility
+            setattr(args, "unconstrained", model_args["cond_mode"] == "no_cond")
+        else:
+            print(
+                f"Warning: was not able to load [{a}], "
+                f"using default value [{args.__dict__[a]}] instead."
+            )
+    if args.cond_mask_prob == 0:
+        args.guidance_param = 1
+    return args
+
+
+def parse_and_load_from_model_wo_data(parser, argv=None):
+    return parse_and_load_from_model(parser, with_data=False, argv=argv)
+
+
+def get_args_per_group_name(parser, group_name):
+    for group in parser._action_groups:
+        if group.title == group_name:
+            return [a.dest for a in group._group_actions]
+    raise ValueError(f"argument group {group_name!r} was not found")
+
+
+def add_base_options(parser):
+    group = parser.add_argument_group("base")
+    group.add_argument("--cuda", default=True, type=bool,
+                       help="Kept for CLI compatibility; see --device.")
+    group.add_argument("--device", default=0, type=int,
+                       help="CUDA device id (the sampler runs on cuda:<id>).")
+    group.add_argument("--seed", default=10, type=int, help="Random seed.")
+    group.add_argument("--batch_size", default=64, type=int,
+                       help="Batch size during training.")
+    group.add_argument("--use_ddim", action="store_true",
+                       help="Use DDIM to accelerate the inference or not.")
+    group.add_argument("--timestep_respacing", default="", type=str,
+                       help="ddim timestep respacing.")
+
+
+def add_diffusion_options(parser):
+    group = parser.add_argument_group("diffusion")
+    group.add_argument("--noise_schedule", default="cosine",
+                       choices=["linear", "cosine"], type=str)
+    group.add_argument("--diffusion_steps", default=1000, type=int)
+    group.add_argument("--sigma_small", default=True, type=bool)
+
+
+def add_model_options(parser):
+    group = parser.add_argument_group("model")
+    group.add_argument("--setting", default="mdm", choices=["mdm", "cmdm"], type=str)
+    group.add_argument("--arch", default="trans_enc",
+                       choices=["trans_enc", "trans_dec", "gru", "mlp", "online",
+                                "offline"], type=str)
+    group.add_argument("--emb_trans_dec", default=False, type=bool)
+    group.add_argument("--wo_pos_emb", action="store_true")
+    group.add_argument("--cm_mode", default="concat",
+                       choices=["add", "concat", "concat2"], type=str)
+    group.add_argument("--layers", default=8, type=int)
+    group.add_argument("--latent_dim", default=512, type=int)
+    group.add_argument("--cond_mask_prob", default=0.1, type=float)
+    group.add_argument("--lambda_rcxyz", default=0.0, type=float)
+    group.add_argument("--lambda_vel", default=0.0, type=float)
+    group.add_argument("--lambda_fc", default=0.0, type=float)
+    group.add_argument("--lambda_orient", default=1.0, type=float)
+    group.add_argument("--lambda_body", default=1.0, type=float)
+    group.add_argument("--lambda_transl", default=1.0, type=float)
+    group.add_argument("--unconstrained", action="store_true")
+
+
+def add_data_options(parser):
+    group = parser.add_argument_group("dataset")
+    group.add_argument("--dataset", default="humanml",
+                       choices=["humanml", "kit", "humanact12", "uestc", "ntu",
+                                "chi3d", "gta", "sbu"], type=str)
+    group.add_argument("--data_dir", default="", type=str)
+    group.add_argument("--num_person", default=1, type=int)
+    group.add_argument("--data_path", default="", type=str)
+    group.add_argument("--pose_rep", default="rot6d", type=str)
+    group.add_argument("--body_model", default="smpl",
+                       choices=["smpl", "smplx"], type=str)
+    group.add_argument("--vel_threshold", default=0.01, type=float)
+    group.add_argument("--shuffle", action="store_true",
+                       help="Shuffle actor-reactor order during training.")
+
+
+def add_sampling_options(parser):
+    group = parser.add_argument_group("sampling")
+    group.add_argument("--model_path", required=True, type=str,
+                       help="Reference-layout torch state dict (.pt) with "
+                            "args.json beside it.")
+    group.add_argument("--output_dir", default="", type=str)
+    group.add_argument("--num_samples", default=10, type=int)
+    group.add_argument("--num_repetitions", default=3, type=int)
+    group.add_argument("--guidance_param", default=2.5, type=float)
+    group.add_argument("--compute_dtype", default="float32",
+                       choices=["float32", "bfloat16"], type=str,
+                       help="Dtype the denoiser computes in.")
+
+
+def add_generate_options(parser):
+    group = parser.add_argument_group("generate")
+    group.add_argument("--motion_length", default=60, type=float)
+    group.add_argument("--input_text", default="", type=str)
+    group.add_argument("--action_file", default="", type=str)
+    group.add_argument("--text_prompt", default="", type=str)
+    group.add_argument("--action_name", default="", type=str)
+
+
+def cgenerate_args(argv=None):
+    parser = ArgumentParser()
+    add_base_options(parser)
+    add_data_options(parser)
+    add_sampling_options(parser)
+    add_generate_options(parser)
+    return parse_and_load_from_model_wo_data(parser, argv)
