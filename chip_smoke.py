@@ -5,17 +5,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit; build every CUDA kernel with nvcc;
-  2. every kernel against its plain PyTorch version on the card, at the
-     sampler's shapes, with the kernel's, the plain version's and one
-     PyTorch library call's times beside the kernel's bound;
-  3. the main path, `regennet_torch.sample.cgenerate.main`, on the flagship
+  2. the sampling attention kernel against its plain PyTorch version on
+     the card, at the sampler's shapes, with the kernel's, the plain
+     version's and one PyTorch library call's times beside its bound;
+  2b. the training attention kernels (forward and backward) against
+     autograd of their plain version fed the same dropout bits, and the
+     backward against its own plain version, at the training shapes; the
+     dropout mask's keep fraction, bit-identical repeats and the adjoint
+     identity; their times at the flagship training shape;
+  3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
      in-memory synthetic clips: f32 batch 16, the same with CFG 2.5, and
      bf16 batch 128, each 1000 DDPM steps, then smoothing and the joint
      decode; the kernels' launch counts over the three requests; one
      denoiser forward through the kernels against the same forward through
-     the plain versions.
+     the plain versions;
+  4. the training path, `regennet_torch.train.train_mdm.main`, on the
+     flagship training configuration (the same model with dropout 0.1,
+     lambda_vel and the orient/body/transl terms on, AdamW lr 1e-4, EMA
+     0.9999, f32 batch 64) for 40 steps in blocks of 8 into a temporary
+     save_dir; the training kernels' launch counts; one training step
+     through the kernels against the same step through the plain
+     attention; the device time per kernel group of a few steps under
+     torch.profiler; cgenerate (DDIM 50) from the trained checkpoint.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -25,6 +38,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -36,6 +50,9 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 CUDA-core
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2.0 ** -6}  # x max(1, max|plain|)
+# the backward kernel against its own plain version, which rounds at the
+# same points: at bf16 one ulp of the largest gradient (rounding flips only)
+TOLERANCE_VJP = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 FLAGSHIP = dict(layers=8, latent_dim=512, heads=4, T=150, steps=1000)
 
 
@@ -63,20 +80,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, T, D, H, dtype, causal, kv_len):
-    """Least time for the attention: q, k, v read once and out written once
-    over the memory rate, or the QK and AV products this mask needs over
-    the peak rate of the dtype; the larger, and which it is."""
+def attention_bound_ms(B, T, D, H, dtype, causal, kv_len, tensors=4, products=2):
+    """Least time for an attention function: its `tensors` [B, T, D]
+    inputs and outputs moved once over the memory rate, or the `products`
+    [pairs x D] matrix products this mask needs (2 flops per multiply-add)
+    over the peak rate of the dtype; the larger, and which it is. The
+    forward moves q, k, v, out (4) and computes QK^T and AV (2); the
+    backward moves q, k, v, dO, dq, dk, dv (7) and computes QK^T, dO V^T,
+    dV, dQ and dK (5)."""
     itemsize = 2 if dtype == "bfloat16" else 4
-    bytes_moved = 4 * B * T * D * itemsize
+    bytes_moved = tensors * B * T * D * itemsize
     pairs = T * (T + 1) // 2 if causal else T * (kv_len or T)
-    flops = 2 * 2 * B * pairs * D  # QK^T and AV over all heads
+    flops = 2 * products * B * pairs * D
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_attention_kernel(report):
+def check_attention_kernel(report, card):
     """Phase 2: the attention kernel against its plain version."""
     import torch
     import torch.nn.functional as F
@@ -131,7 +152,7 @@ def check_attention_kernel(report):
                           f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
                           f"sdpa {case['library_ms']:.4f} ms, bound "
                           f"{case['bound_ms']:.4f} ms ({case['bound_by']}), "
-                          f"max_abs_err {err:.3g}")
+                          f"max_abs_err {err:.3g} [{card}]")
                 cases.append(case)
     print(f"  attention kernel matches its plain version in {len(cases)} cases "
           f"(worst max_abs_err {worst:.3g}; tolerance 1e-5 f32, 2^-6 bf16, "
@@ -140,6 +161,238 @@ def check_attention_kernel(report):
     flagship = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16"
                     and c["B"] == 128)
     return worst, flagship
+
+
+TRAIN = dict(batch=64, steps=40, steps_per_call=8, rate=0.1)
+
+
+def _train_pair(B, T, dtype, causal, kv_len, rate, gen):
+    """The training kernels and autograd of their plain version on one
+    packed [B, T, 3D] input (q, k, v as strided column views), with the
+    same seeds and dO: (out, dq, dk, dv) of the kernels, the same of the
+    plain version, and (dq, dk, dv) of the backward kernel's plain version
+    (the TPU kernel's rounding points)."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    D, H = FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    td = getattr(torch, dtype)
+    packed = torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(td)
+    dout = torch.randn(B, T, D, device="cuda", generator=gen).to(td)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    results = []
+    for fn in (attention.fused_attention_btd_train,
+               attention.attention_btd_train_reference):
+        x = packed.clone().requires_grad_()
+        q, k, v = x.split(D, dim=-1)
+        out = fn(q, k, v, H, rate, seeds, causal, False, kv_len)
+        out.backward(dout)
+        results.append((out.detach(), *x.grad.split(D, dim=-1)))
+    q, k, v = packed.split(D, dim=-1)
+    results.append(attention.attention_btd_train_backward_reference(
+        q, k, v, dout, H, rate, seeds, causal, False, kv_len))
+    return results
+
+
+def check_train_kernels(report, card):
+    """Phase 2b: the training kernels against their plain version, the
+    dropout mask, determinism, the adjoint identity, and timings. The
+    gradients are held against autograd of the plain forward and against
+    the backward kernel's plain version; the latter rounds where the
+    kernel does (autograd rounds the bf16 softmax VJP at more points)."""
+    import torch
+
+    cases, worst = [], {"forward": 0.0, "backward": 0.0, "backward_vjp": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for B in (8, TRAIN["batch"]):
+        for T in (150, 60, 151):
+            for causal in (True, False):
+                kv_len = None if causal else T - 10
+                for dtype in ("float32", "bfloat16"):
+                    for rate in (0.0, 0.1, 0.5):
+                        ours, plain, vjp = _train_pair(B, T, dtype, causal, kv_len,
+                                                       rate, gen)
+                        case = dict(B=B, T=T, dtype=dtype, causal=causal,
+                                    kv_len=kv_len, rate=rate)
+                        pairs = [(name, "", a, b) for name, a, b in
+                                 zip(("out", "dq", "dk", "dv"), ours, plain)]
+                        pairs += [(name, "_vjp", a, b) for name, a, b in
+                                  zip(("dq", "dk", "dv"), ours[1:], vjp)]
+                        for name, ref, a, b in pairs:
+                            err = float((a.float() - b.float()).abs().max())
+                            rel = (TOLERANCE_VJP if ref else TOLERANCE)[dtype]
+                            tol = rel * max(1.0, float(b.float().abs().max()))
+                            if not (err <= tol and math.isfinite(err)):
+                                raise AssertionError(
+                                    f"training attention {name}{ref} disagrees: {case}, "
+                                    f"max_abs_err {err} > {tol}")
+                            case[f"{name}{ref}_err"] = err
+                            which = ("forward" if name == "out" else "backward") + ref
+                            worst[which] = max(worst[which], err)
+                        cases.append(case)
+    print(f"  training attention kernels match their plain version in {len(cases)} "
+          f"cases (worst max_abs_err forward {worst['forward']:.3g}; backward "
+          f"{worst['backward']:.3g} against autograd of the plain forward, "
+          f"{worst['backward_vjp']:.3g} against the plain backward; tolerance "
+          "1e-5 f32, 2^-6 bf16 (2^-7 against the plain backward), x max(1, "
+          "max|plain|))")
+    bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
+    for ref in ("", "_vjp"):
+        top = max(bf16, key=lambda c: max(c[f"d{x}{ref}_err"] for x in "qkv"))
+        print(f"    worst bf16 backward case against "
+              f"{'the plain backward' if ref else 'autograd'}: "
+              + ", ".join(f"d{x} {top[f'd{x}{ref}_err']:.3g}" for x in "qkv")
+              + f" at B={top['B']} T={top['T']} causal={top['causal']} rate {top['rate']}")
+    report["train_attention_cases"] = cases
+    report["train_mask"] = check_train_mask()
+    timing = time_train_kernels(card)
+    report["train_attention_timing"] = timing
+    return worst, timing
+
+
+def check_train_mask():
+    """The kernel's dropout mask, read from its output: with q = k = 0 every
+    weight of a query is 1/T, and v = the identity in each head's columns
+    (T = head dim = 128) makes out[b, i, h, j] the kept weight w_ij or 0.
+    Its keep fraction, its equality with the plain bits, bit-identical
+    repeats, and the adjoint identity of the backward."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, T, D, H = TRAIN["batch"], 128, FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    hd = D // H
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    zeros = torch.zeros(B, T, D, device="cuda")
+    eye = torch.eye(T, hd, device="cuda").view(1, T, 1, hd).expand(B, T, H, hd)
+    v = eye.reshape(B, T, D).contiguous()
+    out = {}
+    for rate in (0.1, 0.5):
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda",
+                              generator=gen, dtype=torch.int32)
+        with torch.no_grad():
+            y = attention.fused_attention_btd_train(zeros, zeros, v, H, rate, seeds,
+                                                    causal=False)
+        kept = (y.view(B, T, H, hd) != 0).permute(0, 2, 1, 3)  # [B, H, i, j]
+        frac = float(kept.double().mean())
+        bits = attention.dropout_bits(seeds, B, H, T) >= attention.dropout_threshold(rate)
+        if abs(frac - (1 - rate)) > 0.005 or not torch.equal(kept, bits):
+            raise AssertionError(f"dropout mask at rate {rate}: keep fraction "
+                                 f"{frac} or its bits differ from dropout_bits")
+        out[f"keep_fraction_{rate}"] = frac
+        print(f"  rate {rate}: keep fraction {frac:.5f} over {kept.numel()} weights "
+              "(within 0.005 of 1 - rate), mask equal to dropout_bits")
+
+    # bit-identical repeats (f32 and bf16) of forward and gradients
+    for dtype in ("float32", "bfloat16"):
+        first = _train_pair(B, 150, dtype, True, None, 0.1,
+                            torch.Generator(device="cuda").manual_seed(3))[0]
+        again = _train_pair(B, 150, dtype, True, None, 0.1,
+                            torch.Generator(device="cuda").manual_seed(3))[0]
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"training kernels not deterministic at {dtype}")
+    print("  a second call with the same seeds gives bit-identical outputs and "
+          "gradients (f32 and bf16)")
+
+    # out is linear in v: <dO, f(v + dv) - f(v)> = <dv, grad_v <dO, f(v)>>
+    # holds only if the backward regenerates the forward's mask
+    q, k, v, do, dv = (torch.randn(B, 150, D, device="cuda", generator=gen)
+                       for _ in range(5))
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+
+    def f(vv):
+        return attention.fused_attention_btd_train(q, k, vv, H, 0.1, seeds)
+
+    vl = v.clone().requires_grad_()
+    (grad_v,) = torch.autograd.grad(f(vl), vl, do)
+    with torch.no_grad():
+        lin = float((do.double() * (f(v + dv).double() - f(v).double())).sum())
+    adj = float((dv.double() * grad_v.double()).sum())
+    rel = abs(lin - adj) / abs(adj)
+    if not rel <= 1e-4:
+        raise AssertionError(f"adjoint identity fails: {lin} vs {adj} (rel {rel})")
+    print(f"  adjoint identity: {lin:.6g} vs {adj:.6g} (relative {rel:.2g} <= 1e-4)")
+    out["adjoint_rel"] = rel
+    return out
+
+
+def _sdpa_backend(q4, k4, v4, rate):
+    """The first SDPA backend, in torch's order of preference, that takes
+    these inputs with this dropout."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=True)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def time_train_kernels(card):
+    """Forward and backward times at the flagship training shape (f32,
+    B = 64, T = 150, rate 0.1, causal): the kernels, autograd of the plain
+    version, and F.scaled_dot_product_attention with dropout (its own mask:
+    a yardstick, not a check)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+
+    from regennet_torch.ops import attention
+
+    B, T, D, H, rate = TRAIN["batch"], FLAGSHIP["T"], FLAGSHIP["latent_dim"], \
+        FLAGSHIP["heads"], TRAIN["rate"]
+    hd = D // H
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(B, T, D, device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    dout = torch.randn(B, T, D, device="cuda", generator=gen)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    q4, k4, v4 = (x.view(B, T, H, hd).transpose(1, 2) for x in (q, k, v))
+    dout4 = dout.view(B, T, H, hd).transpose(1, 2)
+
+    def kernel():
+        return attention.fused_attention_btd_train(q, k, v, H, rate, seeds)
+
+    def plain():
+        return attention.attention_btd_train_reference(q, k, v, H, rate, seeds)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=True)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        backend = _sdpa_backend(q4.detach(), k4.detach(), v4.detach(), rate)
+    res = {"shape": dict(B=B, T=T, D=D, heads=H, dtype="float32", rate=rate,
+                         causal=True), "library_backend": backend}
+    for name, fn, grad_out, iters in (("kernel", kernel, dout, 20),
+                                      ("plain", plain, dout, 5),
+                                      ("library", library, dout4, 20)):
+        with torch.no_grad():
+            res[f"{name}_forward_ms"] = time_ms(fn, iters=iters)
+        out = fn()
+        res[f"{name}_backward_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), grad_out, retain_graph=True), iters=iters)
+    res["forward_bound_ms"], res["forward_bound_by"] = attention_bound_ms(
+        B, T, D, H, "float32", True, None)
+    res["backward_bound_ms"], res["backward_bound_by"] = attention_bound_ms(
+        B, T, D, H, "float32", True, None, tensors=7, products=5)
+    for which in ("forward", "backward"):
+        print(f"  training attention {which}, f32 B={B} T={T} rate {rate} causal: "
+              f"kernel {res['kernel_' + which + '_ms']:.4f} ms, plain "
+              f"{res['plain_' + which + '_ms']:.4f} ms, sdpa ({backend}) "
+              f"{res['library_' + which + '_ms']:.4f} ms, bound "
+              f"{res[which + '_bound_ms']:.4f} ms ({res[which + '_bound_by']}) [{card}]")
+    return res
 
 
 def request_args(out_dir, num_samples, guidance, compute_dtype, seed):
@@ -274,6 +527,282 @@ def check_forward(report, data):
     report["forward_checks"] = out
 
 
+def train_args(save_dir):
+    """The flagship training configuration as train_mdm arguments."""
+    args = request_args("", TRAIN["batch"], 1.0, "float32", seed=0)
+    for name in ("output_dir", "num_samples", "num_repetitions", "guidance_param",
+                 "motion_length", "input_text", "action_file", "text_prompt",
+                 "action_name", "model_path"):
+        delattr(args, name)
+    args.lambda_vel = 1.0
+    vars(args).update(
+        save_dir=str(save_dir), overwrite=False, train_platform_type="NoPlatform",
+        lr=1e-4, weight_decay=0.0, lr_anneal_steps=0, ema_rate=0.9999,
+        eval_batch_size=32, eval_split="test", eval_during_training=False,
+        rec_model_path="", nan_guard=False, eval_rep_times=3, eval_num_samples=1000,
+        log_interval=TRAIN["steps_per_call"], save_interval=TRAIN["steps"],
+        num_steps=TRAIN["steps"], profile_steps=0, profile_start=10,
+        resume_checkpoint="", data_parallel=-1, tensor_parallel=1,
+        param_sharding="replicated", steps_per_call=TRAIN["steps_per_call"],
+    )
+    return args
+
+
+def run_training(report, card, save_dir, device="cuda"):
+    """Phase 4: train_mdm.main on the flagship training configuration
+    (device "cpu" rehearses it at a cut size, through the plain attention,
+    which launches nothing)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.data.get_data import BatchLoader, get_collate_fn
+    from regennet_torch.ops import attention
+    from regennet_torch.train import train_mdm, training_loop
+    from regennet_torch.utils.fixseed import fixseed
+    from regennet_torch.utils.model_util import create_model_and_diffusion
+
+    T, B, steps = FLAGSHIP["T"], TRAIN["batch"], TRAIN["steps"]
+    t0 = time.perf_counter()
+    # steps batches in one epoch: the loop's epoch count is steps // (len + 1)
+    clips = synthetic.make_clips("chi3d", "train", num_clips=B * steps,
+                                 min_len=T + 10, max_len=T + 60)
+    feeder = Feeder(clips=clips, dataname="chi3d", split="train", num_frames=T,
+                    num_person=2, pose_rep="rot6d")
+    loader = BatchLoader(feeder, B, get_collate_fn("chi3d", "cmdm"))
+    data_s = time.perf_counter() - t0
+    args = train_args(save_dir)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+
+    # device-synchronised time of each K-step block (the batches are
+    # collated before the block, outside it)
+    block_ms = []
+    run_block = training_loop.TrainLoop.run_block
+
+    def timed_block(self, items):
+        sync()
+        start = time.perf_counter()
+        per_step = run_block(self, items)
+        sync()
+        block_ms.append((time.perf_counter() - start) * 1e3 / len(items))
+        return per_step
+
+    # progress.json gets one line per logged step (progress.csv keeps the last)
+    os.environ["REGENNET_LOG_FORMAT"] = "human,json"
+    fn = attention.fused_attention_btd_train
+    fn.launches = fn.backward_launches = 0
+    training_loop.TrainLoop.run_block = timed_block
+    try:
+        t0 = time.perf_counter()
+        loop = train_mdm.main(args, device=device, data=loader)
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        training_loop.TrainLoop.run_block = run_block
+    launches = {"forward": fn.launches, "backward": fn.backward_launches}
+    expected = FLAGSHIP["layers"] * steps if device != "cpu" else 0
+    print(f"  training kernel launches over {steps} steps: forward "
+          f"{launches['forward']}, backward {launches['backward']} (layers x steps "
+          f"= {expected} each)")
+    if launches != {"forward": expected, "backward": expected}:
+        raise AssertionError(f"training kernel launches {launches} != {expected}")
+    if loop.state_step != steps or len(block_ms) != steps // TRAIN["steps_per_call"]:
+        raise AssertionError(f"ran {loop.state_step} steps in {len(block_ms)} blocks")
+    for name in (f"model{steps:09d}.pt", f"opt{steps:09d}.pt"):
+        if not (save_dir / name).is_file():
+            raise AssertionError(f"{name} was not written")
+
+    with open(save_dir / "progress.json") as f:
+        logged = [json.loads(line) for line in f]
+    for row in logged:
+        if not (math.isfinite(float(row["loss"])) and math.isfinite(float(row["grad_norm"]))):
+            raise AssertionError(f"non-finite logged step: {row}")
+    first, last = logged[0], logged[-1]
+
+    # the parameters moved from their seeded initialisation, and the EMA
+    # lags them: ema - p0 = (1 - r) sum_k r^(n-k) (p_k - p0), so its
+    # distance from p0 lies between (1 - r) and 1 - r^n of |p_n - p0|
+    fixseed(args.seed)
+    init, _, _ = create_model_and_diffusion(args, loader)
+    init = dict(init.named_parameters())
+    moved, ema_moved, unchanged = 0.0, 0.0, []
+    for name, p in loop.model.named_parameters():
+        d = (p.detach().cpu() - init[name].detach()).double()
+        if not d.abs().max() > 0:
+            unchanged.append(name)
+        moved += float((d ** 2).sum())
+        ema_moved += float(((loop.ema[name].cpu() - init[name].detach()).double() ** 2).sum())
+    rate = args.ema_rate
+    ema_ratio = math.sqrt(ema_moved / moved)
+    if unchanged or not (1 - rate) <= ema_ratio <= 1 - rate ** steps:
+        raise AssertionError(f"unchanged parameters {unchanged} or EMA ratio {ema_ratio}")
+
+    ms_per_step = float(np.mean(block_ms[1:]))
+    row = dict(steps=steps, batch=B, steps_per_call=TRAIN["steps_per_call"],
+               block_ms_per_step=block_ms, ms_per_step=ms_per_step,
+               samples_per_s=B / (ms_per_step / 1e3), wall_s=wall_s,
+               wall_ms_per_step=wall_s * 1e3 / steps, data_build_s=data_s,
+               first_logged=dict(step=int(first["step"]), loss=float(first["loss"]),
+                                 grad_norm=float(first["grad_norm"])),
+               last_logged=dict(step=int(last["step"]), loss=float(last["loss"]),
+                                grad_norm=float(last["grad_norm"])),
+               ema_ratio=ema_ratio, launches=launches)
+    print(f"  {steps} flagship training steps (batch {B}, f32, K = "
+          f"{TRAIN['steps_per_call']}): {ms_per_step:.2f} ms/step and "
+          f"{row['samples_per_s']:.1f} samples/s over the device-synchronised "
+          f"blocks after the first; {row['wall_ms_per_step']:.1f} ms/step wall with "
+          f"batch collation and set-up [{card}]")
+    print(f"  loss {row['first_logged']['loss']:.5f} at step {row['first_logged']['step']}"
+          f", {row['last_logged']['loss']:.5f} at step {row['last_logged']['step']}; "
+          f"grad_norm finite; EMA distance / parameter distance from init "
+          f"{ema_ratio:.5f} (within [{1 - rate:.4g}, {1 - rate ** steps:.4g}])")
+    report["training"] = row
+    return loop, loader, launches
+
+
+def check_train_step(report, loop, loader):
+    """One training step through the kernels against the same step (same
+    weights, batch, t, noise and generator) through the plain versions;
+    and the EMA update of that step."""
+    import torch
+
+    from regennet_torch.models import transformer
+    from regennet_torch.ops import attention
+    from regennet_torch.train import training_loop
+
+    motion, cond = next(iter(loader))
+    batch = loop._to_device(loop._make_host_batch(motion, cond))
+    device = loop.device
+    noise = torch.randn(batch["motion"].shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(11))
+    model = loop.model
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = []
+    for route in ("kernel", "plain"):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        optimizer = training_loop.make_optimizer(model.parameters(), 1e-4, 0.0)
+        ema = {n: (p * 0.5).detach() for n, p in model.named_parameters()}
+        ema_before = {n: e.clone() for n, e in ema.items()}
+        step = training_loop.make_train_step(model, loop.sched, loop.cfg, optimizer,
+                                             loop.rot2xyz_fn, ema)
+        if route == "plain":
+            transformer.fused_attention_btd_train = attention.attention_btd_train_reference
+        try:
+            metrics = step(batch, torch.Generator(device=device).manual_seed(12), 0, noise)
+        finally:
+            transformer.fused_attention_btd_train = attention.fused_attention_btd_train
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.clone() for n, p in model.named_parameters()}))
+        if route == "kernel":
+            # ema <- r ema + (1 - r) p, with the updated parameters
+            for n, p in model.named_parameters():
+                want = 0.9999 * ema_before[n] + (1 - 0.9999) * p.detach()
+                if not torch.allclose(ema[n], want, rtol=1e-6, atol=1e-7):
+                    raise AssertionError(f"EMA update of {n} is off")
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    loss_err = abs(loss_k - loss_p)
+    if not loss_err <= 1e-4 * max(1.0, abs(loss_p)):
+        raise AssertionError(f"training step loss {loss_k} vs plain {loss_p}")
+    worst = 0.0
+    for n, g in grads_p.items():
+        err = float((grads_k[n] - g).abs().max())
+        tol = 1e-4 * max(1.0, float(g.abs().max()))
+        if not (err <= tol and math.isfinite(err)):
+            raise AssertionError(f"gradient of {n}: max_abs_err {err} > {tol}")
+        worst = max(worst, err / max(1.0, float(g.abs().max())))
+    print(f"  one training step through the kernels vs the plain attention: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f}; all {len(grads_p)} parameter gradients "
+          f"within 1e-4 x max(1, max|g|) (worst {worst:.3g}); EMA update exact")
+    report["train_step_check"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                                      worst_grad_err_scaled=worst)
+
+
+TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
+    ("dense GEMMs (cuBLAS)", ("gemm", "Gemm", "xmma", "cutlass")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("random draws (dropout masks, seeds, noise)", ("distribution", "philox", "Philox")),
+    ("AdamW and EMA (foreach)", ("multi_tensor_apply",)),
+    ("indexing (joint decode levels, gathers)", ("index", "gather", "scatter")),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def _kernel_group(name):
+    if "attention_train_cols" in name or (
+            "attention_train_rows" in name and "true>" in name):
+        return "training attention backward"
+    if "attention_train_rows" in name:
+        return "training attention forward"
+    return next((g for g, keys in TRAIN_KERNEL_GROUPS if any(k in name for k in keys)),
+                "other elementwise")
+
+
+def profile_train_step(report, loop, loader, steps=3):
+    """Device time per kernel group of `steps` training steps of the trained
+    loop, under torch.profiler (CUDA activity); the idle share against the
+    untraced ms/step of the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = iter(loader)
+    batches = [loop._to_device(loop._make_host_batch(*next(it))) for _ in range(steps)]
+    step = loop._train_step
+    step(batches[0], loop.generator, loop.state_step)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, batch in enumerate(batches):
+            step(batch, loop.generator, loop.state_step + i)
+        torch.cuda.synchronize()
+    groups, total_us = {}, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = _kernel_group(evt.key)
+        groups[group] = groups.get(group, 0.0) + evt.device_time_total
+        total_us += evt.device_time_total
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    per_step = {g: us / 1e3 / steps for g, us in sorted(groups.items(), key=lambda kv: -kv[1])}
+    busy = total_us / 1e3 / steps
+    wall = report["training"]["ms_per_step"]
+    print(f"  device time per training step under torch.profiler: busy {busy:.2f} ms "
+          f"of {wall:.2f} ms untraced (idle share {1 - busy / wall:.3f})")
+    for g, ms in per_step.items():
+        print(f"    {g}: {ms:.3f} ms ({ms / busy:.1%})")
+    report["training_profile"] = dict(steps=steps, busy_ms=busy, idle_share=1 - busy / wall,
+                                      groups_ms=per_step)
+
+
+def sample_trained(report, save_dir, data, device="cuda"):
+    """cgenerate from the trained checkpoint: DDIM 50, batch 16, f32."""
+    import numpy as np
+
+    from regennet_torch.sample import cgenerate
+    from regennet_torch.utils import parser_util
+
+    ckpt = save_dir / f"model{TRAIN['steps']:09d}.pt"
+    args = parser_util.cgenerate_args([
+        "--model_path", str(ckpt), "--output_dir", str(save_dir / "samples"),
+        "--dataset", "chi3d", "--num_person", "2", "--body_model", "smplx",
+        "--num_samples", "16", "--num_repetitions", "1", "--seed", "3",
+        "--use_ddim", "--timestep_respacing", "ddim50",
+    ])
+    times = []
+    res = np.load(cgenerate.main(args, device=device, data=data, generate_ms=times),
+                  allow_pickle=True).item()
+    T = FLAGSHIP["T"]
+    for key, shape in {"output": (16, 56, 6, T), "motion": (16, 55, 3, T)}.items():
+        if res[key].shape != shape or not np.isfinite(res[key]).all():
+            raise AssertionError(f"trained-checkpoint sample {key}: {res[key].shape}")
+    print(f"  cgenerate from {ckpt.name} (DDIM 50, batch 16, {args.activation}): "
+          f"outputs {res['output'].shape} finite, generate {times[0]:.1f} ms")
+    report["trained_sample"] = dict(checkpoint=ckpt.name, generate_ms=times[0],
+                                    activation=args.activation)
+
+
 def main() -> int:
     try:
         import torch
@@ -305,16 +834,25 @@ def main() -> int:
                 print(f"    {line.strip()}")
     report["build_s"] = {k: v["seconds"] for k, v in built.items()}
 
-    print("phase 2: kernels against their plain versions")
-    worst, flagship = check_attention_kernel(report)
+    print("phase 2: the sampling attention kernel against its plain version")
+    worst, flagship = check_attention_kernel(report, card)
+    print("phase 2b: the training attention kernels against their plain version")
+    train_worst, train_timing = check_train_kernels(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
+    print("phase 4: train_mdm on the flagship training configuration")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_dir = Path(tmp) / "train"
+        loop, loader, train_launches = run_training(report, card, save_dir)
+        check_train_step(report, loop, loader)
+        profile_train_step(report, loop, loader)
+        sample_trained(report, save_dir, data)
 
     kernel_rows = [{
         "name": "fused_attention_btd",
         "route": "cuda",
-        "source": "regennet_torch/csrc/attention_btd.cu",
+        "source": "regennet_torch/csrc/attention_btd_train.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:222",
         "launches": launches,
         "max_abs_err": worst,
@@ -324,6 +862,20 @@ def main() -> int:
         "bound_by": flagship["bound_by"],
         "library_ms": flagship["library_ms"],
     }]
+    for which, line in (("forward", 382), ("backward", 415)):
+        kernel_rows.append({
+            "name": f"fused_attention_btd_train ({which})",
+            "route": "cuda",
+            "source": "regennet_torch/csrc/attention_btd_train.cu",
+            "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
+            "launches": train_launches[which],
+            "max_abs_err": train_worst["forward" if which == "forward" else "backward_vjp"],
+            "ms": train_timing[f"kernel_{which}_ms"],
+            "plain_ms": train_timing[f"plain_{which}_ms"],
+            "bound_ms": train_timing[f"{which}_bound_ms"],
+            "bound_by": train_timing[f"{which}_bound_by"],
+            "library_ms": train_timing[f"library_{which}_ms"],
+        })
     report["kernels"] = kernel_rows
     report["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

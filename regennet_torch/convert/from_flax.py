@@ -1,4 +1,5 @@
-"""Flax CMDM params -> the port's (reference torch) state dict.
+"""Flax CMDM params -> the port's (reference torch) state dict, and a
+JAX train state -> the port's training state.
 
 The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for the
 online / trans_dec trunk. It takes the param tree as nested dicts of
@@ -62,3 +63,45 @@ def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
         for n in ("norm1", "norm2", "norm3"):
             _layernorm(sd, f"{p}.{n}", layer[n])
     return sd
+
+
+def _adam_state(opt_state):
+    """(count, mu, nu) of optax's scale_by_adam inside an adamw chain state
+    (nested tuples of named tuples, or dicts), or None."""
+    if isinstance(opt_state, Mapping):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state["count"], opt_state["mu"], opt_state["nu"]
+        children = list(opt_state.values())
+    elif all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    elif isinstance(opt_state, (tuple, list)):
+        children = opt_state
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_flax(state: Mapping) -> Dict:
+    """A JAX train state {params, ema_params, opt_state (optax adamw), step}
+    as numpy trees -> the port's training state:
+      {"model": state dict, "ema": state dict, "exp_avg": state dict,
+       "exp_avg_sq": state dict, "adam_step": int, "step": int}.
+    The AdamW moments are param-shaped trees, so they go through the same
+    mapping as the parameters. `training_loop.load_train_state` puts the
+    result into a model, its AdamW optimizer and an EMA dict."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("opt_state holds no optax scale_by_adam state")
+    count, mu, nu = adam
+    return {
+        "model": cmdm_state_dict_from_flax(state["params"]),
+        "ema": cmdm_state_dict_from_flax(state["ema_params"]),
+        "exp_avg": cmdm_state_dict_from_flax(mu),
+        "exp_avg_sq": cmdm_state_dict_from_flax(nu),
+        "adam_step": int(np.asarray(count)),
+        "step": int(np.asarray(state["step"])),
+    }

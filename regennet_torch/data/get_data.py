@@ -1,12 +1,59 @@
-"""Dataset factory (the port's copy of the part of
-regennet_tpu/data/get_data.py that the sampler uses: the NTU / Chi3D /
-GTA feeder). The collate selection and the epoch iterator that training
-uses are not ported yet.
+"""Dataset and loader factory (the port's copy of
+regennet_tpu/data/get_data.py for the NTU / Chi3D / GTA feeder).
+
+`BatchLoader` is the epoch iterator training uses: shuffled, drop-last
+minibatches of numpy arrays through a collate. Datasets are small and
+held in RAM, so there is no worker-process machinery.
 """
 
 from __future__ import annotations
 
+import random
+from typing import Callable, Iterator, Tuple
+
+import numpy as np
+
+from regennet_torch.data.collate import ccollate
 from regennet_torch.data.feeder import Feeder
+
+
+def get_collate_fn(name: str, setting: str = "cmdm"):
+    if name in ("humanml", "kit") or setting != "cmdm":
+        raise NotImplementedError(
+            f"the collate of dataset {name!r}, setting {setting!r} is not ported"
+        )
+    return ccollate
+
+
+class BatchLoader:
+    """Shuffled, drop-last minibatch iterator yielding (motion, cond) numpy."""
+
+    def __init__(self, dataset, batch_size: int, collate_fn: Callable,
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._epoch = 0
+        self._seed = seed
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, dict]]:
+        order = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self._seed + self._epoch).shuffle(order)
+        self._epoch += 1
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                break
+            yield self.collate_fn([self.dataset[i] for i in idx])
 
 
 def get_dataset(
@@ -37,4 +84,33 @@ def get_dataset(
         shard=shard,
         num_shards=num_shards,
         **kwargs,
+    )
+
+
+def get_dataset_loader(
+    name: str,
+    batch_size: int,
+    num_frames: int,
+    num_person: int = 1,
+    data_path: str = "",
+    split: str = "train",
+    setting: str = "cmdm",
+    pose_rep: str = "rot6d",
+    body_model: str = "smpl",
+    shuffle: bool = False,
+    shard: int = 0,
+    num_shards: int = 1,
+    loader_shuffle: bool = True,
+    drop_last: bool = True,
+) -> BatchLoader:
+    dataset = get_dataset(
+        name, num_frames, num_person, data_path, split, setting, pose_rep,
+        body_model, shuffle, shard, num_shards,
+    )
+    return BatchLoader(
+        dataset,
+        batch_size,
+        get_collate_fn(name, setting),
+        shuffle=loader_shuffle,
+        drop_last=drop_last,
     )

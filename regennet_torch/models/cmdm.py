@@ -8,7 +8,9 @@ the reference torch checkpoints (`input_process.poseEmbedding`,
 released state dict loads with `load_state_dict` once its frozen CLIP,
 body-model and positional-table keys are stripped (train/checkpoint.py).
 The model computes in the dtype of its parameters: `.to(torch.bfloat16)`
-gives the bf16 sampler.
+gives the bf16 sampler. `forward(..., train=True, generator=g)` is the
+training forward: condition dropout, positional, residual and attention
+dropout, each drawn from the torch.Generator `g`.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ class CMDM(nn.Module):
             self.embed_action = EmbedAction(num_actions, latent_dim)
         self.seqTransDecoder = tfm.Decoder(
             num_layers, latent_dim, num_heads, ff_size,
-            tfm.ACTIVATIONS[activation],
+            tfm.ACTIVATIONS[activation], dropout,
         )
         self.output_process = OutputProcess(latent_dim, input_feats)
         self.register_buffer("pos_table", tfm.sinusoidal_table(5000, latent_dim),
@@ -120,14 +122,20 @@ class CMDM(nn.Module):
         B, J, F, T = v.shape
         return v.permute(0, 3, 1, 2).reshape(B, T, J * F)
 
-    @staticmethod
-    def _mask_cond(cond_emb, uncond):
-        """Zero the condition embedding of unconditioned examples (CFG)."""
-        if uncond is None:
-            return cond_emb
+    def _mask_cond(self, cond_emb, uncond, generator=None):
+        """Zero the condition embedding of unconditioned examples (CFG);
+        in training (`generator` given) each example is also dropped with
+        probability cond_mask_prob."""
         B = cond_emb.shape[0]
-        forced = torch.as_tensor(uncond, device=cond_emb.device).expand(B)
-        return cond_emb * (1.0 - forced.to(cond_emb.dtype))[:, None]
+        keep = torch.ones((B,), dtype=cond_emb.dtype, device=cond_emb.device)
+        if generator is not None and self.cond_mask_prob > 0.0:
+            drop = torch.rand((B,), generator=generator,
+                              device=cond_emb.device) < self.cond_mask_prob
+            keep = keep * (1.0 - drop.to(cond_emb.dtype))
+        if uncond is not None:
+            forced = torch.as_tensor(uncond, device=cond_emb.device).expand(B)
+            keep = keep * (1.0 - forced.to(cond_emb.dtype))
+        return cond_emb * keep[:, None]
 
     def prepare_cond(self, cond: Optional[Dict]) -> Optional[Dict]:
         """Precompute the loop-invariant actor conditioning once per sampling
@@ -158,8 +166,11 @@ class CMDM(nn.Module):
         """Actor/reactor fusion -> [B, T, D] in the compute dtype."""
         pre_emb = cond.get("cond_emb_seq")
         if pre_emb is not None and self.cm_mode == "concat":
-            top = torch.matmul(x_feats, cond["fold_in_kernel"])
-            return (top.float() + pre_emb).to(x_feats.dtype)
+            # accumulated in f32 and rounded once, as the JAX package's
+            # dot_general with an f32 result: the operands widened to f32
+            # are exact, and f32 matmuls run without TF32
+            top = torch.matmul(x_feats.float(), cond["fold_in_kernel"].float())
+            return (top + pre_emb).to(x_feats.dtype)
         x_seq = self.input_process.poseEmbedding(x_feats)
         if pre_emb is not None:  # add
             return x_seq + pre_emb.to(x_seq.dtype)
@@ -170,23 +181,34 @@ class CMDM(nn.Module):
             return x_seq + cmx_seq
         return self.fuse_process(torch.cat([x_seq, cmx_seq], dim=-1))
 
-    def forward(self, x, timesteps, cond: Optional[Dict] = None):
+    def forward(self, x, timesteps, cond: Optional[Dict] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """train=True needs `generator`, the source of every dropout draw;
+        it uses no prepare_cond fold (the weights change every step)."""
         cond = cond or {}
+        if train:
+            if generator is None:
+                raise ValueError("the training forward needs a torch.Generator")
+            cond = {k: v for k, v in cond.items()
+                    if k not in ("cond_emb_seq", "fold_in_kernel")}
+        else:
+            generator = None
         B, J, F, T = x.shape
         dtype = self.dtype
         emb = self.embed_timestep(timesteps)  # [B, D]
         if "action" in self.cond_mode:
             idx = cond["action"][:, 0].long()
             action_emb = self.embed_action.action_embedding[idx]
-            emb = emb + self._mask_cond(action_emb, cond.get("uncond"))
+            emb = emb + self._mask_cond(action_emb, cond.get("uncond"), generator)
 
         xseq = self._fuse(self._to_seq(x).to(dtype), cond)
         memory = emb[:, None, :]  # the single conditioning token
         if self.emb_trans_dec:
             xseq = torch.cat([memory, xseq], dim=1)
         if not self.wo_pos_emb:
-            xseq = xseq + self.pos_table[: xseq.shape[1]].to(dtype)
-        out = self.seqTransDecoder(xseq, memory, causal=True)
+            xseq = tfm.dropout(xseq + self.pos_table[: xseq.shape[1]].to(dtype),
+                               self.dropout, generator)
+        out = self.seqTransDecoder(xseq, memory, True, generator)
         if self.emb_trans_dec:
             out = out[:, 1:]
         out = self.output_process.poseFinal(out).float()

@@ -4,38 +4,66 @@ regennet_tpu/models/transformer.py).
 Post-LayerNorm layers (eps 1e-5) with the reference torch module and
 parameter names (`self_attn`, `multihead_attn` with a packed
 `in_proj_weight`, `linear1/2`, `norm1/2/3`), batch-first [B, T, D].
-Self-attention always goes through ops.attention.fused_attention_btd:
-the CUDA kernel on the GPU, its plain version on the CPU; its softmax
-runs in the compute dtype (the JAX package's default bf16 softmax).
+Self-attention goes through ops.attention: `fused_attention_btd` when
+sampling, `fused_attention_btd_train` (attention-weight dropout, with a
+gradient) in train mode, at every dropout rate, 0 included. Each is the
+CUDA kernel on the GPU and its plain version on the CPU; the softmax runs
+in the compute dtype (the JAX package's default bf16 softmax).
+
+Train mode (`generator` given) applies the JAX package's dropouts:
+attention weights, the feed-forward hidden layer, and each residual
+branch, at the layer's rate, with every random draw taken from the
+caller's torch.Generator.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from regennet_torch.ops.attention import fused_attention_btd
+from regennet_torch.ops.attention import fused_attention_btd, fused_attention_btd_train
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep each entry with probability 1 - rate and scale
+    kept entries by 1/(1 - rate); identity without a generator (not
+    training) or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def row_seeds(batch: int, generator: torch.Generator, device) -> torch.Tensor:
+    """Per-row int32 seeds [B, 2] of the training attention's dropout bits."""
+    return torch.randint(-2 ** 31, 2 ** 31, (batch, 2), generator=generator,
+                         device=device, dtype=torch.int32)
 
 
 class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention in the layout of torch's
     nn.MultiheadAttention (in_proj_weight [3D, D], in_proj_bias, out_proj)."""
 
-    def __init__(self, latent_dim: int, num_heads: int):
+    def __init__(self, latent_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * latent_dim, latent_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * latent_dim))
         self.out_proj = nn.Linear(latent_dim, latent_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in, kv_in, causal: bool = False):
+    def forward(self, q_in, kv_in, causal: bool = False,
+                generator: Optional[torch.Generator] = None):
         D = q_in.shape[-1]
+        B, Tq = q_in.shape[:2]
         if kv_in.shape[1] == 1:
             # single-key cross-attention (the timestep/action token): a
             # softmax over one logit is exactly 1, so the output is
@@ -43,17 +71,29 @@ class MultiheadAttention(nn.Module):
             # of in_proj exist only for the checkpoint layout
             v = F.linear(kv_in, self.in_proj_weight[2 * D:],
                          self.in_proj_bias[2 * D:])
-            return self.out_proj(v).expand(q_in.shape[0], q_in.shape[1], D)
+            if generator is None:
+                return self.out_proj(v).expand(B, Tq, D)
+            # training: the weight 1 of each (batch, head, query) goes
+            # through the attention dropout, 1/(1 - rate) or 0
+            H = self.num_heads
+            w = dropout(torch.ones((B, H, Tq, 1), dtype=v.dtype, device=v.device),
+                        self.dropout, generator)
+            out = w * v.view(B, 1, H, D // H).transpose(1, 2)  # [B, H, Tq, hd]
+            return self.out_proj(out.transpose(1, 2).reshape(B, Tq, D))
         if not (causal or q_in is kv_in):
             raise NotImplementedError(
                 "cross-attention over more than one key is not ported"
             )
         # self-attention: one packed projection; q, k, v are column views
         qkv = F.linear(q_in, self.in_proj_weight, self.in_proj_bias)
-        out = fused_attention_btd(
-            qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
-            self.num_heads, causal=causal,
-        )
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        if generator is None:
+            out = fused_attention_btd(q, k, v, self.num_heads, causal=causal)
+        else:
+            out = fused_attention_btd_train(
+                q, k, v, self.num_heads, self.dropout,
+                row_seeds(B, generator, q_in.device), causal=causal,
+            )
         return self.out_proj(out)
 
 
@@ -62,36 +102,42 @@ class DecoderLayer(nn.Module):
     memory)); x = LN(x + FF(x))."""
 
     def __init__(self, latent_dim: int, num_heads: int, ff_size: int,
-                 activation: Callable):
+                 activation: Callable, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(latent_dim, num_heads)
-        self.multihead_attn = MultiheadAttention(latent_dim, num_heads)
+        self.self_attn = MultiheadAttention(latent_dim, num_heads, dropout)
+        self.multihead_attn = MultiheadAttention(latent_dim, num_heads, dropout)
         self.linear1 = nn.Linear(latent_dim, ff_size)
         self.linear2 = nn.Linear(ff_size, latent_dim)
         self.norm1 = nn.LayerNorm(latent_dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(latent_dim, eps=1e-5)
         self.norm3 = nn.LayerNorm(latent_dim, eps=1e-5)
         self.activation = activation
+        self.dropout = dropout
 
-    def forward(self, x, memory, causal: bool = False):
-        x = self.norm1(x + self.self_attn(x, x, causal=causal))
-        x = self.norm2(x + self.multihead_attn(x, memory))
-        ff = self.linear2(self.activation(self.linear1(x)))
-        return self.norm3(x + ff)
+    def forward(self, x, memory, causal: bool = False,
+                generator: Optional[torch.Generator] = None):
+        def drop(h):
+            return dropout(h, self.dropout, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, causal, generator)))
+        x = self.norm2(x + drop(self.multihead_attn(x, memory, False, generator)))
+        ff = self.linear2(drop(self.activation(self.linear1(x))))
+        return self.norm3(x + drop(ff))
 
 
 class Decoder(nn.Module):
     def __init__(self, num_layers: int, latent_dim: int, num_heads: int,
-                 ff_size: int, activation: Callable):
+                 ff_size: int, activation: Callable, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(latent_dim, num_heads, ff_size, activation)
+            DecoderLayer(latent_dim, num_heads, ff_size, activation, dropout)
             for _ in range(num_layers)
         )
 
-    def forward(self, x, memory, causal: bool = False):
+    def forward(self, x, memory, causal: bool = False,
+                generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, memory, causal=causal)
+            x = layer(x, memory, causal, generator)
         return x
 
 

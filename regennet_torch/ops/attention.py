@@ -1,14 +1,26 @@
 """Multi-head self-attention on [B, T, D] (counterpart of
-regennet_tpu/ops/pallas_attention.py::fused_attention_btd).
+regennet_tpu/ops/pallas_attention.py::fused_attention_btd and
+::fused_attention_btd_train).
 
-`fused_attention_btd` launches the CUDA kernel `csrc/attention_btd.cu`
-for tensors on the GPU and runs its plain version,
-`attention_btd_reference`, for tensors on the CPU. Both compute what the
-TPU kernel computes: heads are column slices of D, q is scaled by
-1/sqrt(hd) in the input dtype before QK, scores accumulate in f32 and
-are rounded to the input dtype unless `softmax_f32`, masked scores are
--1e30, and the weights are cast to v's dtype before AV (f32
-accumulation).
+Both wrappers launch the CUDA kernels of `csrc/attention_btd_train.cu`
+for tensors on the GPU and run their plain versions for tensors on the
+CPU. All compute what the TPU kernels compute: heads are column slices of
+D, q is scaled by 1/sqrt(hd) in the input dtype before QK, scores
+accumulate in f32 and are rounded to the input dtype unless
+`softmax_f32`, masked scores are -1e30, and the weights are cast to v's
+dtype before AV (f32 accumulation).
+
+`fused_attention_btd` is the sampling attention: the forward kernel with
+nothing dropped; plain version `attention_btd_reference`.
+
+`fused_attention_btd_train` adds attention-weight dropout and a gradient:
+on the GPU an autograd Function whose forward and backward are kernels;
+on the CPU its plain version `attention_btd_train_reference`,
+differentiated by autograd. `attention_btd_train_backward_reference` is
+the backward kernel's plain version, with its rounding points. The
+dropout bits are Philox4x32-10 keyed by each batch row's two int32 seed
+words, with counter (key, query, head, 0): `dropout_bits` computes them
+in plain torch, bit for bit as the kernels do.
 """
 
 from __future__ import annotations
@@ -16,8 +28,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from regennet_torch.ops import kernels
@@ -39,28 +52,44 @@ def _valid_mask(T: int, causal: bool, kv_len: Optional[int], device):
     return valid
 
 
-def attention_btd_reference(q, k, v, num_heads: int, causal: bool = True,
-                            softmax_f32: bool = False,
-                            kv_len: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [B, T, D] x3 -> [B, T, D]."""
-    B, T, D = q.shape
-    hd = D // num_heads
+def _heads(x, num_heads: int):
+    """[B, T, D] -> [B, H, T, hd]."""
+    B, T, D = x.shape
+    return x.reshape(B, T, num_heads, D // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    """[B, H, T, hd] -> [B, T, D]."""
+    B, H, T, hd = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * hd)
+
+
+def _softmax_weights(q, k, num_heads, causal, softmax_f32, kv_len):
+    """The softmax weights P [B, H, T(query), T(key)] in the score dtype
+    (q's dtype unless softmax_f32), at the kernels' rounding points."""
+    T = q.shape[1]
+    hd = q.shape[2] // num_heads
     scale = torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype, device=q.device)
-
-    def heads(x):
-        return x.reshape(B, T, num_heads, hd).transpose(1, 2)
-
     # bf16 x bf16 products are exact in f32, so f32 matmuls of the widened
     # inputs are the kernel's f32-accumulated products
-    s = torch.matmul(heads(q * scale).float(), heads(k).float().transpose(-1, -2))
+    s = torch.matmul(_heads(q * scale, num_heads).float(),
+                     _heads(k, num_heads).float().transpose(-1, -2))
     s = s if softmax_f32 else s.to(q.dtype)
     valid = _valid_mask(T, causal, kv_len, q.device)
     if valid is not None:
         s = s.masked_fill(~valid, NEG_FILL)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-    out = torch.matmul(w.float(), heads(v).float()).to(q.dtype)
-    return out.transpose(1, 2).reshape(B, T, D)
+    # the max only shifts the exponent: no gradient flows through it
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def attention_btd_reference(q, k, v, num_heads: int, causal: bool = True,
+                            softmax_f32: bool = False,
+                            kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: [B, T, D] x3 -> [B, T, D]."""
+    w = _softmax_weights(q, k, num_heads, causal, softmax_f32, kv_len).to(v.dtype)
+    out = torch.matmul(w.float(), _heads(v, num_heads).float()).to(q.dtype)
+    return _merge_heads(out)
 
 
 def _check(q, k, v, num_heads, kv_len):
@@ -83,6 +112,21 @@ def _check(q, k, v, num_heads, kv_len):
         raise ValueError(f"kv_len must be >= 1, got {kv_len}")
 
 
+def _check_kernel_inputs(q, k, v, num_heads):
+    """What the CUDA kernels take beyond _check: head dim, grid, layout."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    B, _, D = q.shape
+    hd = D // num_heads
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
+    if B > 65535 or num_heads > 65535:
+        raise ValueError(f"batch {B} or heads {num_heads} exceed the grid limit")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(2) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dimension")
+
+
 def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
                         softmax_f32: bool = False,
                         kv_len: Optional[int] = None) -> torch.Tensor:
@@ -96,35 +140,11 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
     if q.device.type == "cpu":
         return attention_btd_reference(q, k, v, num_heads, causal,
                                        softmax_f32, kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    B, T, D = q.shape
-    hd = D // num_heads
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
-    if B > 65535 or num_heads > 65535:
-        raise ValueError(f"batch {B} or heads {num_heads} exceed the grid limit")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(2) != 1:
-            raise ValueError(f"{name} must be contiguous in its last dimension")
-    lib = _library()
-    out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
-    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.attention_btd_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, T, num_heads, hd,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), scale, int(causal),
-            0 if kv_len is None else int(kv_len), int(softmax_f32), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"attention_btd launch failed for B={B} T={T} D={D} "
-            f"heads={num_heads} {q.dtype}: "
-            f"{lib.attention_btd_error_string(rc).decode()}"
-        )
+    _check_kernel_inputs(q, k, v, num_heads)
+    cfg = _TrainConfig(num_heads, 0.0, bool(causal), bool(softmax_f32),
+                       0 if kv_len is None else int(kv_len))
+    # the training forward with nothing dropped: no seed is read
+    out = _launch_forward(q, k, v, None, cfg, "attention_btd")
     fused_attention_btd.launches += 1
     return out
 
@@ -132,15 +152,285 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
 fused_attention_btd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Training attention with dropout
+# ---------------------------------------------------------------------------
+
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 tensors a in [0, 2^32) and a
+    32-bit constant m; m is split into 16-bit halves so nothing overflows."""
+    p_lo = a * (m & 0xFFFF)  # < 2^48
+    p_hi = a * (m >> 16)     # < 2^48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors holding uint32 words: counter is four
+    broadcastable tensors, key two. Returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & _U32
+        k1 = (k1 + PHILOX_W1) & _U32
+    return c0, c1, c2, c3
+
+
+def _seed_words(seed: torch.Tensor, B: int):
+    """Philox key words [B, 1, 1, 1] (int64) of each batch row: the row's
+    two seed words for a [B, 2] seed; for a [2] seed, the row index times
+    0x9E3779B9 is added to the first word so that rows differ."""
+    s = seed.to(torch.int64) & _U32
+    if s.shape == (2,):
+        rows = torch.arange(B, dtype=torch.int64, device=seed.device)
+        k0 = (s[0] + rows * PHILOX_W0) & _U32
+        k1 = s[1].expand(B)
+    else:
+        k0, k1 = s[:, 0], s[:, 1]
+    return k0.view(B, 1, 1, 1), k1.reshape(B, 1, 1, 1)
+
+
+def dropout_bits(seed: torch.Tensor, B: int, H: int, T: int) -> torch.Tensor:
+    """The 32 random bits of every attention weight, [B, H, T(query),
+    T(key)] as int64 values in [0, 2^32): the first Philox4x32-10 word for
+    counter (key, query, head, 0) under the row's seed key."""
+    _check_seed(seed, B)
+    dev = seed.device
+    j = torch.arange(T, dtype=torch.int64, device=dev).view(1, 1, 1, T)
+    i = torch.arange(T, dtype=torch.int64, device=dev).view(1, 1, T, 1)
+    h = torch.arange(H, dtype=torch.int64, device=dev).view(1, H, 1, 1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    words = philox4x32_10((j, i, h, zero), _seed_words(seed, B))
+    return words[0].expand(B, H, T, T)
+
+
+def dropout_threshold(rate: float) -> int:
+    """A weight is dropped iff its bits are below this (uint32 compare)."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _check_seed(seed, B):
+    if seed.dtype != torch.int32 or seed.shape not in ((2,), (B, 2)):
+        raise ValueError(
+            f"seed must be int32 of shape [2] or [{B}, 2], got "
+            f"{seed.dtype} {tuple(seed.shape)}"
+        )
+
+
+def attention_btd_train_reference(q, k, v, num_heads: int, dropout_rate: float,
+                                  seed: torch.Tensor, causal: bool = True,
+                                  softmax_f32: bool = False,
+                                  kv_len: Optional[int] = None,
+                                  bits: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the training kernel, differentiable by
+    autograd. bits ([B, H, T, T] values in [0, 2^32)) overrides the
+    Philox bits of `seed`, so tests can feed another stream."""
+    w = _softmax_weights(q, k, num_heads, causal, softmax_f32, kv_len).to(v.dtype)
+    if dropout_rate > 0.0:
+        w = _drop(w, _keep_mask(q, num_heads, dropout_rate, seed, bits),
+                  dropout_rate)
+    out = torch.matmul(w.float(), _heads(v, num_heads).float()).to(q.dtype)
+    return _merge_heads(out)
+
+
+def _keep_mask(q, num_heads, rate, seed, bits):
+    B, T, _ = q.shape
+    if bits is None:
+        bits = dropout_bits(seed, B, num_heads, T)
+    return bits.to(q.device) >= dropout_threshold(rate)
+
+
+def _drop(x, keep, rate):
+    """Dropped entries 0, kept ones times 1/(1-rate) taken in x's dtype."""
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_btd_train_backward_reference(q, k, v, dout, num_heads: int,
+                                           dropout_rate: float, seed: torch.Tensor,
+                                           causal: bool = True,
+                                           softmax_f32: bool = False,
+                                           kv_len: Optional[int] = None,
+                                           bits: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) of the
+    training attention at output gradient dout, with the rounding points
+    of the TPU kernel's backward: dO in q's dtype; dV = (P.M)^T dO;
+    dP = (dO V^T).M with the keep-scale in f32; dS = P (dP - rowsum(dP P))
+    in f32 on the undropped P, rounded to q's dtype once; dQ = scale dS K
+    and dK = scale dS^T Q with the unscaled Q and the f32 scale. (Autograd
+    of attention_btd_train_reference rounds the softmax VJP to the score
+    dtype at more points.)"""
+    H = num_heads
+    hd = q.shape[2] // H
+    with torch.no_grad():
+        p = _softmax_weights(q, k, H, causal, softmax_f32, kv_len)
+        wd = p.to(v.dtype)
+        do = _heads(dout.to(q.dtype), H).float()
+        dp = torch.matmul(do, _heads(v, H).float().transpose(-1, -2))
+        if dropout_rate > 0.0:
+            keep = _keep_mask(q, H, dropout_rate, seed, bits)
+            wd, dp = _drop(wd, keep, dropout_rate), _drop(dp, keep, dropout_rate)
+        pf = p.float()
+        ds = (pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+        scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32, device=q.device)
+        dq = torch.matmul(ds, _heads(k, H).float()) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), _heads(q, H).float()) * scale
+        dv = torch.matmul(wd.float().transpose(-1, -2), do)
+    return tuple(_merge_heads(x).to(q.dtype) for x in (dq, dk, dv))
+
+
+def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
+                              seed: torch.Tensor, causal: bool = True,
+                              softmax_f32: bool = False,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """Differentiable multi-head self-attention on [B, T, D] inputs with
+    attention-weight dropout at `dropout_rate` (0 <= rate < 1).
+
+    seed: int32 [B, 2] (per-row seeds, as the model draws them) or [2].
+    On the GPU the forward and the backward are CUDA kernels on the current
+    stream (or this raises); the backward regenerates the mask from the
+    seed and saves nothing [B, H, T, T]. On the CPU the plain version runs
+    under autograd. `fused_attention_btd_train.launches` and
+    `.backward_launches` count kernel launches."""
+    _check(q, k, v, num_heads, kv_len)
+    _check_seed(seed, q.shape[0])
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
+    if seed.device != q.device:
+        raise ValueError("seed must lie on the device of q, k, v")
+    if q.device.type == "cpu":
+        return attention_btd_train_reference(
+            q, k, v, num_heads, dropout_rate, seed, causal, softmax_f32, kv_len)
+    _check_kernel_inputs(q, k, v, num_heads)
+    cfg = _TrainConfig(num_heads, float(dropout_rate), bool(causal),
+                       bool(softmax_f32), 0 if kv_len is None else int(kv_len))
+    return _AttentionTrain.apply(q, k, v, seed.contiguous(), cfg)
+
+
+fused_attention_btd_train.launches = 0
+fused_attention_btd_train.backward_launches = 0
+
+
+class _TrainConfig(NamedTuple):
+    num_heads: int
+    rate: float
+    causal: bool
+    softmax_f32: bool
+    kv_len: int  # 0: no key-length mask
+
+
+def _train_scalars(cfg: _TrainConfig, dtype: torch.dtype, hd: int):
+    """(threshold, keep scale in the dtype, keep scale in f32, 1/sqrt(hd)
+    in the dtype, 1/sqrt(hd) in f32) as the kernels take them."""
+    keep = 1.0 / (1.0 - cfg.rate)
+    scale = 1.0 / math.sqrt(hd)
+    return (
+        dropout_threshold(cfg.rate) if cfg.rate > 0.0 else 0,
+        float(torch.tensor(keep, dtype=dtype)), float(np.float32(keep)),
+        float(torch.tensor(scale, dtype=dtype)), float(np.float32(scale)),
+    )
+
+
+def _strides(q, k, v):
+    return (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1))
+
+
+def _launch_forward(q, k, v, seed, cfg, what):
+    """The forward kernel into a new [B, T, D] tensor; seed None with rate 0."""
+    B, T, D = q.shape
+    hd = D // cfg.num_heads
+    threshold, keep_w, _, scale_q, _ = _train_scalars(cfg, q.dtype, hd)
+    lib = _library()
+    out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_train_forward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), None if seed is None else seed.data_ptr(),
+            int(seed is not None and seed.dim() == 2), threshold, keep_w, B, T,
+            cfg.num_heads, hd, *_strides(q, k, v), scale_q, int(cfg.causal),
+            cfg.kv_len, int(cfg.softmax_f32), stream,
+        )
+    _raise_on_error(lib, rc, what, q, cfg)
+    return out
+
+
+class _AttentionTrain(torch.autograd.Function):
+    """The training kernels under autograd: saves (q, k, v, seed) only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, cfg):
+        out = _launch_forward(q, k, v, seed, cfg, "attention_btd_train forward")
+        fused_attention_btd_train.launches += 1
+        ctx.save_for_backward(q, k, v, seed)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seed = ctx.saved_tensors
+        cfg = ctx.cfg
+        B, T, D = q.shape
+        hd = D // cfg.num_heads
+        threshold, keep_w, keep_f32, scale_q, scale_f32 = _train_scalars(
+            cfg, q.dtype, hd)
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.empty((B, T, D), dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+        stats = torch.empty((3, B, cfg.num_heads, T), dtype=torch.float32,
+                            device=q.device)
+        lib = _library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.attention_train_backward(
+                _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                stats.data_ptr(), seed.data_ptr(), int(seed.dim() == 2),
+                threshold, keep_w, keep_f32, B, T, cfg.num_heads, hd,
+                *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
+                cfg.kv_len, int(cfg.softmax_f32), stream,
+            )
+        _raise_on_error(lib, rc, "attention_btd_train backward", q, cfg)
+        fused_attention_btd_train.backward_launches += 1
+        return dq, dk, dv, None, None
+
+
+def _raise_on_error(lib, rc, what, q, cfg):
+    if rc != 0:
+        B, T, D = q.shape
+        raise RuntimeError(
+            f"{what} launch failed for B={B} T={T} D={D} "
+            f"heads={cfg.num_heads} {q.dtype}: "
+            f"{lib.attention_train_error_string(rc).decode()}"
+        )
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = kernels.load_library("attention_btd")
+    lib = kernels.load_library("attention_btd_train")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.attention_btd_launch.argtypes = [
-        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-        i64, i64, i64, i64, i64, i64, ctypes.c_float, i32, i32, i32, ptr,
+    f32, u32 = ctypes.c_float, ctypes.c_uint
+    strides = [i64] * 6
+    lib.attention_train_forward.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, i32, u32, f32, i32, i32, i32, i32,
+        *strides, f32, i32, i32, i32, ptr,
     ]
-    lib.attention_btd_launch.restype = i32
-    lib.attention_btd_error_string.argtypes = [i32]
-    lib.attention_btd_error_string.restype = ctypes.c_char_p
+    lib.attention_train_forward.restype = i32
+    lib.attention_train_backward.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, u32, f32, f32,
+        i32, i32, i32, i32, *strides, f32, f32, i32, i32, i32, ptr,
+    ]
+    lib.attention_train_backward.restype = i32
+    lib.attention_train_error_string.argtypes = [i32]
+    lib.attention_train_error_string.restype = ctypes.c_char_p
     return lib

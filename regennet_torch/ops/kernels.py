@@ -24,7 +24,7 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 
 # every kernel source of the port, by name
-KERNELS = ("attention_btd",)
+KERNELS = ("attention_btd_train",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

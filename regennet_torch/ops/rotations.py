@@ -1,5 +1,6 @@
-"""3-D rotation conversions used by the pose decode (counterpart of part of
-regennet_tpu/ops/rotations.py; PyTorch3D conventions, wxyz quaternions).
+"""3-D rotation conversions used by the pose decode and the orient loss
+(counterpart of part of regennet_tpu/ops/rotations.py; PyTorch3D
+conventions, wxyz quaternions).
 
 Functions act on trailing dims and broadcast over leading batch dims.
 """
@@ -55,3 +56,69 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     b2 = a2_proj / torch.linalg.vector_norm(a2_proj, dim=-1, keepdim=True).clamp_min(_EPS)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(0, x)) with a gradient of 0 (not NaN) where x <= 0: the
+    double where keeps sqrt'(0) = inf out of the backward."""
+    positive = x > 0.0
+    safe = torch.where(positive, x, torch.ones_like(x))
+    return torch.where(positive, torch.sqrt(safe), torch.zeros_like(x))
+
+
+def standardize_quaternion(quaternions: torch.Tensor) -> torch.Tensor:
+    """Make the real part non-negative (each rotation has two unit-quat covers)."""
+    return torch.where(quaternions[..., :1] < 0, -quaternions, quaternions)
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (..., 4), wxyz, by
+    the "largest denominator" construction, selected without branching."""
+    m00, m01, m02 = matrix[..., 0, 0], matrix[..., 0, 1], matrix[..., 0, 2]
+    m10, m11, m12 = matrix[..., 1, 0], matrix[..., 1, 1], matrix[..., 1, 2]
+    m20, m21, m22 = matrix[..., 2, 0], matrix[..., 2, 1], matrix[..., 2, 2]
+    q_abs = torch.stack(
+        [
+            _sqrt_positive_part(1.0 + m00 + m11 + m22),
+            _sqrt_positive_part(1.0 + m00 - m11 - m22),
+            _sqrt_positive_part(1.0 - m00 + m11 - m22),
+            _sqrt_positive_part(1.0 - m00 - m11 + m22),
+        ],
+        dim=-1,
+    )
+    # candidate quaternions, one per dominant component (each 2|q_i| q)
+    candidates = torch.stack(
+        [
+            torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+        ],
+        dim=-2,
+    )
+    # the floor keeps the rows that are not selected finite
+    candidates = candidates / (2.0 * q_abs.clamp_min(0.1))[..., None]
+    onehot = torch.nn.functional.one_hot(q_abs.argmax(dim=-1), 4).to(matrix.dtype)
+    quat = (candidates * onehot[..., None]).sum(dim=-2)
+    return standardize_quaternion(
+        quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+    )
+
+
+def quaternion_to_axis_angle(quaternions: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (..., 4), wxyz -> axis-angle vectors (..., 3), with a
+    Taylor branch near the identity whose gradient stays finite."""
+    xyz = quaternions[..., 1:]
+    sq = (xyz * xyz).sum(-1, keepdim=True)
+    small = sq < 1e-12
+    norms = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    half_angles = torch.atan2(norms, quaternions[..., :1])
+    sin_half_over_angle = torch.where(
+        small, 0.5 - sq / 12.0, torch.sin(half_angles) / (2.0 * half_angles)
+    )
+    return xyz / sin_half_over_angle
+
+
+def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle vectors (..., 3)."""
+    return quaternion_to_axis_angle(matrix_to_quaternion(matrix))

@@ -1,16 +1,22 @@
-"""Checkpoint load/save in the reference torch layout (counterpart of the
-loading side of regennet_tpu/train/checkpoint.py).
+"""Checkpoints in the reference torch layout (counterpart of
+regennet_tpu/train/checkpoint.py).
 
-A checkpoint is a torch state dict file (`model######.pt`) with the
-run's args.json beside it. Released reference files carry keys the
-denoiser does not own (the frozen CLIP tower, body-model buffers, the
-positional tables); they are dropped before `load_state_dict(strict=True)`.
+A training checkpoint of step N is two files in the run's directory, with
+the run's args.json beside them:
+  * `model{N:09d}.pt`: the denoiser's state dict (reference layout), which
+    `load_model` and the sampler read as they are;
+  * `opt{N:09d}.pt`: the AdamW state, the EMA parameters by name, the step,
+    and the host samplers' RNG states.
+Released reference files carry keys the denoiser does not own (the frozen
+CLIP tower, body-model buffers, the positional tables); they are dropped
+before `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+import re
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -18,6 +24,20 @@ from torch import nn
 IGNORABLE_PREFIXES = ("clip_model.", "rot2xyz.")
 IGNORABLE_SUFFIXES = ("num_batches_tracked", "sequence_pos_encoder.pe", ".pe")
 IGNORABLE_EXACT = ("pe",)
+CKPT_RE = re.compile(r"model(\d+)(\.pt)?$")
+
+
+def ckpt_name(step: int) -> str:
+    return f"model{step:09d}.pt"
+
+
+def opt_name(step: int) -> str:
+    return f"opt{step:09d}.pt"
+
+
+def parse_step_from_path(path: str) -> int:
+    m = CKPT_RE.search(os.path.basename(path.rstrip("/")))
+    return int(m.group(1)) if m else 0
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -43,3 +63,64 @@ def load_model(model: nn.Module, path: str) -> nn.Module:
         )
     model.load_state_dict(load_state_dict(path), strict=True)
     return model
+
+
+def _cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def save_checkpoint(save_dir: str, step: int, model: nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    ema: Dict[str, torch.Tensor],
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write model{step}.pt and opt{step}.pt; returns the model file's path."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(save_dir, ckpt_name(step)))
+    torch.save(_cpu(model.state_dict()), path)
+    train_state = {"optimizer": _cpu(optimizer.state_dict()), "ema": _cpu(ema),
+                   "step": int(step), **(extra or {})}
+    torch.save(train_state, os.path.join(save_dir, opt_name(step)))
+    return path
+
+
+def latest_checkpoint(save_dir: str) -> Optional[str]:
+    """The model file of the highest step in save_dir, or None."""
+    if not os.path.isdir(save_dir):
+        return None
+    steps = []
+    for name in os.listdir(save_dir):
+        m = CKPT_RE.match(name)
+        if m and m.group(2) and os.path.isfile(os.path.join(save_dir, name)):
+            steps.append((int(m.group(1)), name))
+    if not steps:
+        return None
+    return os.path.join(save_dir, max(steps)[1])
+
+
+def load_checkpoint(path: str, model: nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    ema: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """Load model{N}.pt into `model` and, when opt{N}.pt lies beside it,
+    the AdamW state into `optimizer` and the EMA into `ema` (in place).
+    Returns the opt file's other entries ({"step": N} without one)."""
+    load_model(model, path)
+    step = parse_step_from_path(path)
+    opt_path = os.path.join(os.path.dirname(path), opt_name(step))
+    if not os.path.isfile(opt_path):
+        return {"step": step}
+    state = torch.load(opt_path, map_location="cpu", weights_only=True)
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    if ema is not None:
+        if set(state["ema"]) != set(ema):
+            raise ValueError(f"{opt_path}: EMA names differ from the model's")
+        with torch.no_grad():
+            for name, value in state["ema"].items():
+                ema[name].copy_(value)
+    return {k: v for k, v in state.items() if k not in ("optimizer", "ema")}

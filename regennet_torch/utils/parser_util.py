@@ -1,9 +1,10 @@
-"""CLI arguments for the sampler, with the args.json round-trip (the port's
-copy of the `cgenerate_args` part of regennet_tpu/utils/parser_util.py).
+"""CLI arguments of the trainer and the sampler, with the args.json
+round-trip (the port's copy of the `train_args` and `cgenerate_args` parts
+of regennet_tpu/utils/parser_util.py).
 
-Training writes the dataset / model / diffusion argument groups to
-args.json beside the checkpoint; the sampler reloads the model and
-diffusion groups from there, overwriting the command line's values.
+Training writes its arguments to args.json beside the checkpoints; the
+sampler reloads the model and diffusion groups from there, overwriting
+the command line's values, and the activation the trainer recorded.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ def parse_and_load_from_model(parser, with_data: bool = True, argv=None):
                 f"Warning: was not able to load [{a}], "
                 f"using default value [{args.__dict__[a]}] instead."
             )
+    # a run of the port's trainer records the activation it trained with
+    if model_args.get("activation"):
+        args.activation = model_args["activation"]
     if args.cond_mask_prob == 0:
         args.guidance_param = 1
     return args
@@ -138,6 +142,90 @@ def add_generate_options(parser):
     group.add_argument("--action_file", default="", type=str)
     group.add_argument("--text_prompt", default="", type=str)
     group.add_argument("--action_name", default="", type=str)
+
+
+def save_args(args, save_dir: str):
+    """Write args to {save_dir}/args.json (the training side of the contract)."""
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "args.json"), "w") as fw:
+        json.dump(vars(args), fw, indent=4, sort_keys=True)
+
+
+def add_training_options(parser):
+    group = parser.add_argument_group("training")
+    group.add_argument("--save_dir", required=True, type=str)
+    group.add_argument("--overwrite", action="store_true")
+    group.add_argument("--train_platform_type", default="NoPlatform",
+                       choices=["NoPlatform", "ClearmlPlatform",
+                                "TensorboardPlatform"], type=str,
+                       help="Only NoPlatform is ported.")
+    group.add_argument("--lr", default=1e-4, type=float)
+    group.add_argument("--weight_decay", default=0.0, type=float)
+    group.add_argument("--lr_anneal_steps", default=0, type=int)
+    group.add_argument("--ema_rate", default=0.9999, type=float,
+                       help="EMA decay of the averaged parameters.")
+    group.add_argument("--eval_batch_size", default=32, type=int)
+    group.add_argument("--eval_split", default="test", choices=["val", "test"])
+    group.add_argument("--eval_during_training", action="store_true",
+                       help="Not ported: in-training evaluation raises.")
+    group.add_argument("--rec_model_path", default="", type=str)
+    group.add_argument("--nan_guard", action="store_true",
+                       help="Drop non-finite training steps (loss or grad "
+                            "norm) and roll back to the state before them; "
+                            "the host waits for every step and keeps a copy "
+                            "of the training state.")
+    group.add_argument("--eval_rep_times", default=3, type=int)
+    group.add_argument("--eval_num_samples", default=1_000, type=int)
+    group.add_argument("--log_interval", default=1_000, type=int)
+    group.add_argument("--save_interval", default=10_000, type=int)
+    group.add_argument("--num_steps", default=600_000, type=int)
+    group.add_argument("--num_frames", default=60, type=int)
+    group.add_argument("--profile_steps", default=0, type=int,
+                       help="Not ported: a value above 0 raises.")
+    group.add_argument("--profile_start", default=10, type=int)
+    group.add_argument("--resume_checkpoint", default="", type=str)
+    group.add_argument("--data_parallel", default=-1, type=int,
+                       help="Single device only: -1 or 1.")
+    group.add_argument("--tensor_parallel", default=1, type=int,
+                       help="Single device only: 1.")
+    group.add_argument("--param_sharding", default="replicated",
+                       choices=["replicated", "fsdp"], type=str,
+                       help="Single device only: replicated.")
+    group.add_argument("--compute_dtype", default="float32",
+                       choices=["float32", "bfloat16"], type=str,
+                       help="Training runs in float32 only.")
+    group.add_argument("--steps_per_call", default=8, type=int,
+                       help="Steps per loop iteration: K single optimizer "
+                            "steps run back to back; saves and evaluation "
+                            "fall at the first K-step boundary at or after "
+                            "their step, and --nan_guard rolls back whole "
+                            "K-step blocks.")
+
+
+def train_args(argv=None):
+    parser = ArgumentParser()
+    add_base_options(parser)
+    add_data_options(parser)
+    add_model_options(parser)
+    add_diffusion_options(parser)
+    add_training_options(parser)
+    return parser.parse_args(argv)
+
+
+def check_single_device_training(args):
+    """Raise for the options this port does not train with: more than one
+    device, a sharded state, or bf16 compute."""
+    if getattr(args, "data_parallel", -1) not in (-1, 1):
+        raise NotImplementedError("distributed training is not ported: "
+                                  "--data_parallel must be -1 or 1")
+    if getattr(args, "tensor_parallel", 1) != 1:
+        raise NotImplementedError("tensor parallelism is not ported: "
+                                  "--tensor_parallel must be 1")
+    if getattr(args, "param_sharding", "replicated") != "replicated":
+        raise NotImplementedError("--param_sharding fsdp is not ported")
+    if getattr(args, "compute_dtype", "float32") != "float32":
+        raise NotImplementedError("bf16 training is not ported: "
+                                  "--compute_dtype must be float32")
 
 
 def cgenerate_args(argv=None):

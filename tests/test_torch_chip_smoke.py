@@ -1,0 +1,67 @@
+"""chip_smoke.py off the card: without CUDA it exits non-zero and prints no
+result; its training phase (phase 4) runs end to end on the CPU at a cut
+size, so its control flow is checked before it reaches a GPU (the CPU
+runs the plain attention, which launches nothing)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_exits_nonzero_without_cuda():
+    assert not torch.cuda.is_available()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_training_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    for key, value in dict(layers=2, latent_dim=64, heads=2, T=24).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    for key, value in dict(batch=4, steps=8, steps_per_call=2).items():
+        monkeypatch.setitem(cs.TRAIN, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=16,
+                                             min_len=34, max_len=48),
+                  dataname="chi3d", split="test", num_frames=24, num_person=2,
+                  pose_rep="rot6d")
+    report = {}
+    save_dir = tmp_path / "train"
+    loop, loader, launches = cs.run_training(report, "cpu", save_dir, device="cpu")
+    assert launches == {"forward": 0, "backward": 0}
+    assert loop.state_step == 8
+    cs.check_train_step(report, loop, loader)
+    cs.sample_trained(report, save_dir, data, device="cpu")
+    row = report["training"]
+    assert row["first_logged"]["step"] == 0 and row["last_logged"]["step"] == 6
+    assert report["train_step_check"]["loss_kernel"] == pytest.approx(
+        report["train_step_check"]["loss_plain"], rel=1e-6)
+    assert report["trained_sample"]["checkpoint"] == "model000000008.pt"
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::attention_train_rows<float, 16, false>(float const*)",
+     "training attention forward"),
+    ("void (anonymous namespace)::attention_train_rows<float, 16, true>(float const*)",
+     "training attention backward"),
+    ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16>(x)",
+     "training attention backward"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x16", "dense GEMMs (cuBLAS)"),
+    ("void at::native::vectorized_elementwise_kernel<4>(...)", "other elementwise"),
+])
+def test_profile_kernel_groups(monkeypatch, name, group):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    assert cs._kernel_group(name) == group

@@ -187,3 +187,50 @@ def test_reference_checkpoint_file_loads(tmp_path):
         torch.testing.assert_close(dst.state_dict()[k], v, rtol=0, atol=0)
     with pytest.raises(ValueError, match="state dict file"):
         checkpoint.load_model(cmdm.CMDM(**_kwargs()), str(tmp_path))
+
+
+def test_bf16_prepared_fold_rounds_once_as_jax(monkeypatch):
+    """bf16 forward with prepare_cond: x_feats @ fold_in_kernel accumulates
+    in f32 and is rounded to bf16 once, after adding cond_emb_seq, as the
+    JAX package's dot_general with an f32 result. The decoder's input
+    (fused sequence plus positional table, bf16) agrees with the JAX
+    package's within one bf16 ulp of each element."""
+    import flax.linen as fnn
+
+    from regennet_tpu.models import transformer as jtfm
+
+    monkeypatch.setenv("REGENNET_PALLAS_ATTN", "1")
+    Bb, Tt = 4, 12
+    kw = _kwargs(num_frames=Tt)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(Bb, J, F, Tt)).astype(np.float32)
+    cm = (rng.normal(size=(Bb, J, F, Tt)) * 0.5).astype(np.float32)
+    t, action = np.array([3, 250, 600, 999]), np.array([[1], [5], [7], [0]])
+    jm = jcmdm.CMDM(**kw, dtype=jnp.bfloat16)
+    params = jm.init(jax.random.PRNGKey(2), jnp.asarray(x), jnp.asarray(t),
+                     _jcond(cm, action))["params"]
+    sd = cmdm_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    tm = cmdm.CMDM(**kw)
+    tm.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+    tm = tm.to(torch.bfloat16).eval()
+
+    captured = {}
+
+    def intercept(next_fun, args, kwargs, context):
+        if isinstance(context.module, jtfm.Decoder):
+            captured["jax"] = np.asarray(args[0].astype(jnp.float32))
+        return next_fun(*args, **kwargs)
+
+    jfn = jcmdm.make_model_fn(jm, params)
+    with fnn.intercept_methods(intercept):
+        jfn(jnp.asarray(x), jnp.asarray(t), jfn.prepare(_jcond(cm, action)))
+    tm.seqTransDecoder.register_forward_pre_hook(
+        lambda mod, args: captured.__setitem__("port", args[0].float().numpy()))
+    fn = cmdm.make_model_fn(tm)
+    fn(torch.tensor(x), torch.tensor(t), fn.prepare(_tcond(cm, action)))
+
+    ref = captured["jax"][:, :Tt]  # the JAX trunk pads T to the bf16 tile
+    ours = captured["port"]
+    assert ours.shape == ref.shape == (Bb, Tt, 64)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
+    assert (np.abs(ours - ref) <= ulp).all(), float(np.max(np.abs(ours - ref) / ulp))

@@ -48,3 +48,76 @@ def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
         atol=_tolerance(dtype, ref_np),
     )
     assert math.isfinite(float(out.float().abs().max()))
+
+
+def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0):
+    """Kernel and plain version of the training attention on the same
+    packed inputs: (out, grads) of each, then the grads of the backward
+    kernel's plain version."""
+    dmodel, heads = 512, 4
+    gen = torch.Generator(device="cuda").manual_seed(seed + T)
+    td = getattr(torch, dtype)
+    packed = torch.randn(B, T, 3 * dmodel, device="cuda", generator=gen).to(td)
+    dout = torch.randn(B, T, dmodel, device="cuda", generator=gen).to(td)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 2), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    results = []
+    for fn in (attention.fused_attention_btd_train,
+               attention.attention_btd_train_reference):
+        x = packed.clone().requires_grad_()
+        q, k, v = x.split(dmodel, dim=-1)
+        out = fn(q, k, v, heads, rate, seeds, causal, softmax_f32, kv_len)
+        out.backward(dout)
+        results.append((out.detach(), x.grad.split(dmodel, dim=-1)))
+    q, k, v = packed.split(dmodel, dim=-1)
+    results.append(attention.attention_btd_train_backward_reference(
+        q, k, v, dout, heads, rate, seeds, causal, softmax_f32, kv_len))
+    return results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [60, 151])
+@pytest.mark.parametrize("mask", ["causal", "kv_len"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_cuda_train_kernels_match_plain_version(T, mask, dtype, rate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    causal = mask == "causal"
+    kv_len = None if causal else T - 10
+    before = (attention.fused_attention_btd_train.launches,
+              attention.fused_attention_btd_train.backward_launches)
+    (out, grads), (ref, ref_grads), plain_grads = _train_case(
+        8, T, dtype, causal, kv_len, rate)
+    torch.cuda.synchronize()
+    assert (attention.fused_attention_btd_train.launches,
+            attention.fused_attention_btd_train.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, ours, theirs in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                                  (ref, *ref_grads)):
+        theirs_np = theirs.float().cpu().numpy()
+        np.testing.assert_allclose(
+            ours.float().cpu().numpy(), theirs_np, rtol=0,
+            atol=_tolerance(dtype, theirs_np), err_msg=name,
+        )
+    for name, ours, theirs in zip(("dq", "dk", "dv"), grads, plain_grads):
+        theirs_np = theirs.float().cpu().numpy()
+        np.testing.assert_allclose(
+            ours.float().cpu().numpy(), theirs_np, rtol=0,
+            atol=_tolerance(dtype, theirs_np), err_msg=f"plain backward {name}",
+        )
+
+
+@pytest.mark.cuda
+def test_cuda_train_kernels_are_deterministic_and_match_plain_bits():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    first = _train_case(4, 150, "float32", True, None, 0.1)[0]
+    again = _train_case(4, 150, "float32", True, None, 0.1)[0]
+    for a, b in zip((first[0], *first[1]), (again[0], *again[1])):
+        assert torch.equal(a, b)
+    # the plain bits computed on the card equal those computed on the CPU
+    seeds = torch.tensor([[5, -3], [2 ** 30, 7]], dtype=torch.int32)
+    torch.testing.assert_close(
+        attention.dropout_bits(seeds.cuda(), 2, 4, 33).cpu(),
+        attention.dropout_bits(seeds, 2, 4, 33), rtol=0, atol=0)

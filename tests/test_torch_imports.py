@@ -54,3 +54,14 @@ def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cgenerate.main(args)
     assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+def test_train_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
+    from regennet_torch.train import train_mdm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    save_dir = tmp_path / "run"
+    args = Namespace(seed=0, device=0, save_dir=str(save_dir), overwrite=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mdm.main(args)
+    assert not save_dir.exists() and not os.listdir(tmp_path)  # nothing written
