@@ -13,6 +13,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      backward against its own plain version, at the training shapes; the
      dropout mask's keep fraction, bit-identical repeats and the adjoint
      identity; their times at the flagship training shape;
+  2c. the [B, H, T, hd] attention kernel (fused_causal_attention, which no
+     model path reaches) driven through its entry point at its path's
+     shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
+     151, causal or not, f32 and bf16), each call against its plain
+     version, and timed at bf16 [128, 4, 150, 128];
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
@@ -28,7 +33,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      save_dir; the training kernels' launch counts; one training step
      through the kernels against the same step through the plain
      attention; the device time per kernel group of a few steps under
-     torch.profiler; cgenerate (DDIM 50) from the trained checkpoint.
+     torch.profiler; cgenerate (DDIM 50) from the trained checkpoint;
+  5. the offline CMDM (trans_enc, the CLIs' default --arch) at the same
+     width: train_mdm for 16 steps, a step through the kernels against the
+     plain attention, a DDPM-1000 cgenerate request (f32 batch 16) from its
+     checkpoint, one denoiser forward through the kernels against the
+     plain one at f32 and bf16;
+  6. the evaluation CLI, `regennet_torch.eval.eval_cmdm.main`, in debug
+     mode on phase 4's checkpoint with CFG 2.5 and a random ST-GCN, on 128
+     in-memory clips: metrics, results file, times, launches; then the
+     ST-GCN on the card against a CPU copy.
+Each kernel's launches are read around each path that runs it (phases 3,
+5 and 6 for B1; 4 and 5 for B2; 2c for B3) and summed in the kernel line.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -53,6 +69,9 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2.0 ** -6}  # x max(1, max|plain|)
 # the backward kernel against its own plain version, which rounds at the
 # same points: at bf16 one ulp of the largest gradient (rounding flips only)
 TOLERANCE_VJP = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# fused_causal_attention rounds where its plain version does: at bf16 one
+# output ulp (2^-8 below 1), not the sampling kernel's 2^-6
+TOLERANCE_B3 = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 FLAGSHIP = dict(layers=8, latent_dim=512, heads=4, T=150, steps=1000)
 
 
@@ -114,14 +133,16 @@ def check_attention_kernel(report, card):
         ("bfloat16", False, False, 10),
     ]
     # the shapes the sampler gives the kernel: f32 batch 16 and 32 (CFG),
-    # bf16 batch 128 (and 256 under CFG), T = 150 (Chi3D), 60 (NTU), 151
-    timed = {("float32", 16), ("float32", 32), ("bfloat16", 128), ("bfloat16", 256)}
+    # 64 (the evaluation's batch 32 under CFG), bf16 batch 128 (and 256
+    # under CFG), T = 150 (Chi3D), 60 (NTU), 151 (the offline trunk)
+    timed = {("float32", 16), ("float32", 32), ("float32", 64), ("bfloat16", 128),
+             ("bfloat16", 256)}
     cases, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B in (16, 32, 128, 256):
+    for B in (16, 32, 64, 128, 256):
         for T in (150, 60, 151):
             for dtype, causal, softmax_f32, kv_off in modes:
-                if B in (16, 32) and (dtype != "float32" or T != 150):
+                if B in (16, 32, 64) and (dtype != "float32" or T != 150):
                     continue
                 kv_len = None if kv_off is None else T - kv_off
                 td = getattr(torch, dtype)
@@ -161,6 +182,74 @@ def check_attention_kernel(report, card):
     flagship = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16"
                     and c["B"] == 128)
     return worst, flagship
+
+
+# B3's own entry point is its path (no model reaches it): the shapes the
+# JAX package's tests give it (tests/test_pallas_attention.py), then B in
+# {2, 128}, H = 4, hd = 128, T in {16, 150, 151}, causal and not, f32 and
+# bf16; (B, H, T, hd, causal, dtype)
+CAUSAL_PATH = [(1, 2, 24, 128, False, "float32"), (1, 2, 20, 128, True, "float32")] + [
+    (B, 4, T, 128, causal, dtype) for B in (2, 128) for T in (16, 150, 151)
+    for causal in (True, False) for dtype in ("float32", "bfloat16")]
+
+
+def check_causal_attention(report, card):
+    """Phase 2c: kernel B3, fused_causal_attention on [B, H, T, hd]: its
+    entry point driven at every shape of CAUSAL_PATH with the launch count
+    read around the loop, each call against its plain version at
+    TOLERANCE_B3; then its time at bf16 [128, 4, 150, 128] causal beside
+    the plain version's, SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from regennet_torch.ops import attention
+
+    fn = attention.fused_causal_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(B, H, T, hd, dtype):
+        return [torch.randn(B, H, T, hd, device="cuda", generator=gen).to(getattr(torch, dtype))
+                for _ in range(3)]
+
+    cases, worst = [], 0.0
+    fn.launches = 0
+    for B, H, T, hd, causal, dtype in CAUSAL_PATH:
+        q, k, v = inputs(B, H, T, hd, dtype)
+        out = fn(q, k, v, causal)
+        ref = attention.attention_reference(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = TOLERANCE_B3[dtype] * max(1.0, float(ref.float().abs().max()))
+        case = dict(B=B, H=H, T=T, hd=hd, dtype=dtype, causal=causal,
+                    max_abs_err=err, tolerance=tol)
+        if out.shape != q.shape or out.dtype != q.dtype or not (
+                err <= tol and math.isfinite(err)):
+            raise AssertionError(f"fused_causal_attention gave {out.dtype} "
+                                 f"{tuple(out.shape)} or disagrees: {case}")
+        worst = max(worst, err)
+        cases.append(case)
+    launches = fn.launches
+    print(f"  fused_causal_attention: {launches} launches over the {len(CAUSAL_PATH)} "
+          f"calls of its path, each matching its plain version (worst max_abs_err "
+          f"{worst:.3g}; tolerance 1e-5 f32, 2^-8 bf16, x max(1, max|plain|))")
+    if launches != len(CAUSAL_PATH):
+        raise AssertionError(f"fused_causal_attention launches {launches}")
+
+    B, H, T, hd = 128, 4, 150, 128
+    q, k, v = inputs(B, H, T, hd, "bfloat16")
+    timing = dict(B=B, H=H, T=T, hd=hd, dtype="bfloat16", causal=True)
+    timing["ms"] = time_ms(lambda: fn(q, k, v, True))
+    timing["plain_ms"] = time_ms(lambda: attention.attention_reference(q, k, v, True), iters=5)
+    timing["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    timing["bound_ms"], timing["bound_by"] = attention_bound_ms(
+        B, T, H * hd, H, "bfloat16", True, None)
+    print(f"  fused_causal_attention bf16 [{B}, {H}, {T}, {hd}] causal: kernel "
+          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, sdpa "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']}) [{card}]")
+    report["causal_attention"] = dict(launches=launches, cases=cases, timing=timing)
+    return launches, worst, timing
 
 
 TRAIN = dict(batch=64, steps=40, steps_per_call=8, rate=0.1)
@@ -395,12 +484,12 @@ def time_train_kernels(card):
     return res
 
 
-def request_args(out_dir, num_samples, guidance, compute_dtype, seed):
+def request_args(out_dir, num_samples, guidance, compute_dtype, seed, arch="online"):
     return Namespace(
         seed=seed, device=0, batch_size=num_samples, use_ddim=False,
         timestep_respacing="", noise_schedule="cosine",
         diffusion_steps=FLAGSHIP["steps"], sigma_small=True, setting="cmdm",
-        arch="online", emb_trans_dec=False, wo_pos_emb=False, cm_mode="concat",
+        arch=arch, emb_trans_dec=False, wo_pos_emb=False, cm_mode="concat",
         layers=FLAGSHIP["layers"], latent_dim=FLAGSHIP["latent_dim"],
         cond_mask_prob=0.1, lambda_rcxyz=0.0, lambda_vel=0.0, lambda_fc=0.0,
         lambda_orient=1.0, lambda_body=1.0, lambda_transl=1.0,
@@ -477,9 +566,10 @@ def run_requests(report, card):
     return data, launches
 
 
-def check_forward(report, data):
-    """One denoiser forward through the kernel against the same forward
-    through the plain attention, on the same weights on the card."""
+def check_forward(report, data, arch="online", key="forward_checks"):
+    """One denoiser forward of the `arch` trunk through the kernel against
+    the same forward through the plain attention, on the same weights on
+    the card."""
     import numpy as np
     import torch
 
@@ -493,7 +583,7 @@ def check_forward(report, data):
     tol = {"float32": 1e-4, "bfloat16": 2.0 ** -3}
     out = []
     for dtype, n in (("float32", 16), ("bfloat16", 128)):
-        args = request_args("", n, 1.0, dtype, seed=7)
+        args = request_args("", n, 1.0, dtype, seed=7, arch=arch)
         torch.manual_seed(7)
         model, _, _ = create_model_and_diffusion(args, data)
         model = model.to(device="cuda", dtype=getattr(torch, dtype)).eval()
@@ -518,13 +608,13 @@ def check_forward(report, data):
         bound = tol[dtype] * max(1.0, float(plain.abs().max()))
         row = dict(dtype=dtype, batch=n, max_abs_err=err, tolerance=bound,
                    mean_abs_err=float((fused - plain).abs().mean()))
-        print(f"  denoiser forward {dtype} batch {n}: kernel vs plain attention "
+        print(f"  {arch} denoiser forward {dtype} batch {n}: kernel vs plain attention "
               f"max_abs_err {err:.3g} (tolerance {bound:.3g}), mean "
               f"{row['mean_abs_err']:.3g}")
         if not (err <= bound and np.isfinite(err)):
             raise AssertionError(f"denoiser forward disagrees: {row}")
         out.append(row)
-    report["forward_checks"] = out
+    report[key] = out
 
 
 def train_args(save_dir):
@@ -548,10 +638,10 @@ def train_args(save_dir):
     return args
 
 
-def run_training(report, card, save_dir, device="cuda"):
-    """Phase 4: train_mdm.main on the flagship training configuration
-    (device "cpu" rehearses it at a cut size, through the plain attention,
-    which launches nothing)."""
+def run_training(report, card, save_dir, device="cuda", args=None, key="training"):
+    """Phase 4 (and 5): train_mdm.main on the flagship training
+    configuration, or on `args` (device "cpu" rehearses it at a cut size,
+    through the plain attention, which launches nothing)."""
     import numpy as np
     import torch
 
@@ -563,7 +653,8 @@ def run_training(report, card, save_dir, device="cuda"):
     from regennet_torch.utils.fixseed import fixseed
     from regennet_torch.utils.model_util import create_model_and_diffusion
 
-    T, B, steps = FLAGSHIP["T"], TRAIN["batch"], TRAIN["steps"]
+    args = args or train_args(save_dir)
+    T, B, steps, K = args.num_frames, args.batch_size, args.num_steps, args.steps_per_call
     t0 = time.perf_counter()
     # steps batches in one epoch: the loop's epoch count is steps // (len + 1)
     clips = synthetic.make_clips("chi3d", "train", num_clips=B * steps,
@@ -572,7 +663,6 @@ def run_training(report, card, save_dir, device="cuda"):
                     num_person=2, pose_rep="rot6d")
     loader = BatchLoader(feeder, B, get_collate_fn("chi3d", "cmdm"))
     data_s = time.perf_counter() - t0
-    args = train_args(save_dir)
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
 
     # device-synchronised time of each K-step block (the batches are
@@ -601,13 +691,13 @@ def run_training(report, card, save_dir, device="cuda"):
     finally:
         training_loop.TrainLoop.run_block = run_block
     launches = {"forward": fn.launches, "backward": fn.backward_launches}
-    expected = FLAGSHIP["layers"] * steps if device != "cpu" else 0
+    expected = args.layers * steps if device != "cpu" else 0
     print(f"  training kernel launches over {steps} steps: forward "
           f"{launches['forward']}, backward {launches['backward']} (layers x steps "
           f"= {expected} each)")
     if launches != {"forward": expected, "backward": expected}:
         raise AssertionError(f"training kernel launches {launches} != {expected}")
-    if loop.state_step != steps or len(block_ms) != steps // TRAIN["steps_per_call"]:
+    if loop.state_step != steps or len(block_ms) != steps // K:
         raise AssertionError(f"ran {loop.state_step} steps in {len(block_ms)} blocks")
     for name in (f"model{steps:09d}.pt", f"opt{steps:09d}.pt"):
         if not (save_dir / name).is_file():
@@ -639,7 +729,7 @@ def run_training(report, card, save_dir, device="cuda"):
         raise AssertionError(f"unchanged parameters {unchanged} or EMA ratio {ema_ratio}")
 
     ms_per_step = float(np.mean(block_ms[1:]))
-    row = dict(steps=steps, batch=B, steps_per_call=TRAIN["steps_per_call"],
+    row = dict(arch=args.arch, steps=steps, batch=B, steps_per_call=K,
                block_ms_per_step=block_ms, ms_per_step=ms_per_step,
                samples_per_s=B / (ms_per_step / 1e3), wall_s=wall_s,
                wall_ms_per_step=wall_s * 1e3 / steps, data_build_s=data_s,
@@ -648,8 +738,8 @@ def run_training(report, card, save_dir, device="cuda"):
                last_logged=dict(step=int(last["step"]), loss=float(last["loss"]),
                                 grad_norm=float(last["grad_norm"])),
                ema_ratio=ema_ratio, launches=launches)
-    print(f"  {steps} flagship training steps (batch {B}, f32, K = "
-          f"{TRAIN['steps_per_call']}): {ms_per_step:.2f} ms/step and "
+    print(f"  {steps} flagship training steps ({args.arch}, batch {B}, f32, K = "
+          f"{K}): {ms_per_step:.2f} ms/step and "
           f"{row['samples_per_s']:.1f} samples/s over the device-synchronised "
           f"blocks after the first; {row['wall_ms_per_step']:.1f} ms/step wall with "
           f"batch collation and set-up [{card}]")
@@ -657,11 +747,11 @@ def run_training(report, card, save_dir, device="cuda"):
           f", {row['last_logged']['loss']:.5f} at step {row['last_logged']['step']}; "
           f"grad_norm finite; EMA distance / parameter distance from init "
           f"{ema_ratio:.5f} (within [{1 - rate:.4g}, {1 - rate ** steps:.4g}])")
-    report["training"] = row
+    report[key] = row
     return loop, loader, launches
 
 
-def check_train_step(report, loop, loader):
+def check_train_step(report, loop, loader, key="train_step_check"):
     """One training step through the kernels against the same step (same
     weights, batch, t, noise and generator) through the plain versions;
     and the EMA update of that step."""
@@ -716,8 +806,8 @@ def check_train_step(report, loop, loader):
     print(f"  one training step through the kernels vs the plain attention: loss "
           f"{loss_k:.6f} vs {loss_p:.6f}; all {len(grads_p)} parameter gradients "
           f"within 1e-4 x max(1, max|g|) (worst {worst:.3g}); EMA update exact")
-    report["train_step_check"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
-                                      worst_grad_err_scaled=worst)
+    report[key] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                       worst_grad_err_scaled=worst)
 
 
 TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
@@ -776,31 +866,194 @@ def profile_train_step(report, loop, loader, steps=3):
                                       groups_ms=per_step)
 
 
-def sample_trained(report, save_dir, data, device="cuda"):
-    """cgenerate from the trained checkpoint: DDIM 50, batch 16, f32."""
+def sample_trained(report, save_dir, data, device="cuda", steps=None, ddim=True,
+                   key="trained_sample"):
+    """cgenerate from the checkpoint of step `steps` (the last of phase 4
+    by default): batch 16, f32, DDIM 50 or, with ddim False, DDPM over
+    every step of the checkpoint's schedule."""
     import numpy as np
 
     from regennet_torch.sample import cgenerate
     from regennet_torch.utils import parser_util
 
-    ckpt = save_dir / f"model{TRAIN['steps']:09d}.pt"
+    ckpt = save_dir / f"model{steps or TRAIN['steps']:09d}.pt"
     args = parser_util.cgenerate_args([
         "--model_path", str(ckpt), "--output_dir", str(save_dir / "samples"),
         "--dataset", "chi3d", "--num_person", "2", "--body_model", "smplx",
         "--num_samples", "16", "--num_repetitions", "1", "--seed", "3",
-        "--use_ddim", "--timestep_respacing", "ddim50",
-    ])
+    ] + (["--use_ddim", "--timestep_respacing", "ddim50"] if ddim else []))
     times = []
     res = np.load(cgenerate.main(args, device=device, data=data, generate_ms=times),
                   allow_pickle=True).item()
     T = FLAGSHIP["T"]
-    for key, shape in {"output": (16, 56, 6, T), "motion": (16, 55, 3, T)}.items():
-        if res[key].shape != shape or not np.isfinite(res[key]).all():
-            raise AssertionError(f"trained-checkpoint sample {key}: {res[key].shape}")
-    print(f"  cgenerate from {ckpt.name} (DDIM 50, batch 16, {args.activation}): "
-          f"outputs {res['output'].shape} finite, generate {times[0]:.1f} ms")
-    report["trained_sample"] = dict(checkpoint=ckpt.name, generate_ms=times[0],
-                                    activation=args.activation)
+    for name, shape in {"output": (16, 56, 6, T), "motion": (16, 55, 3, T)}.items():
+        if res[name].shape != shape or not np.isfinite(res[name]).all():
+            raise AssertionError(f"trained-checkpoint sample {name}: {res[name].shape}")
+    sampler = "DDIM 50" if ddim else f"DDPM {args.diffusion_steps}"
+    print(f"  cgenerate from {ckpt.name} ({args.arch}, {sampler}, batch 16, "
+          f"{args.activation}): outputs {res['output'].shape} finite, generate "
+          f"{times[0]:.1f} ms")
+    report[key] = dict(checkpoint=ckpt.name, arch=args.arch, sampler=sampler,
+                       generate_ms=times[0], activation=args.activation)
+
+
+OFFLINE_STEPS = 16
+
+
+def offline_train_args(save_dir):
+    """Phase 5's train_mdm arguments, as a user passes them: the flagship
+    training configuration with no --arch, so the parser's default
+    (trans_enc, the offline trunk) is trained."""
+    from regennet_torch.utils import parser_util
+
+    return parser_util.train_args([
+        "--save_dir", str(save_dir), "--dataset", "chi3d", "--num_person", "2",
+        "--body_model", "smplx", "--setting", "cmdm", "--num_frames", str(FLAGSHIP["T"]),
+        "--batch_size", str(TRAIN["batch"]), "--num_steps", str(OFFLINE_STEPS),
+        "--steps_per_call", str(TRAIN["steps_per_call"]), "--save_interval",
+        str(OFFLINE_STEPS), "--log_interval", str(TRAIN["steps_per_call"]),
+        "--lambda_vel", "1.0", "--seed", "0", "--layers", str(FLAGSHIP["layers"]),
+        "--latent_dim", str(FLAGSHIP["latent_dim"]),
+        "--diffusion_steps", str(FLAGSHIP["steps"]),
+    ])
+
+
+def run_offline(report, card, save_dir, data, device="cuda"):
+    """Phase 5: the offline CMDM (trans_enc, the CLIs' default): train_mdm
+    for OFFLINE_STEPS flagship steps, one step through the kernels against
+    the plain attention, one DDPM-1000 cgenerate request (f32 batch 16)
+    from its checkpoint with B1's launch count read around it, and one
+    denoiser forward through the kernels against the plain one. Returns
+    (B2 launches, B1 launches)."""
+    from regennet_torch.ops import attention
+
+    args = offline_train_args(save_dir)
+    if args.arch != "trans_enc":
+        raise AssertionError(f"the default --arch is {args.arch!r}")
+    loop, loader, train_launches = run_training(report, card, save_dir, device, args,
+                                                key="offline_training")
+    check_train_step(report, loop, loader, key="offline_train_step_check")
+    del loop, loader
+    fn = attention.fused_attention_btd
+    fn.launches = 0
+    sample_trained(report, save_dir, data, device, steps=OFFLINE_STEPS, ddim=False,
+                   key="offline_sample")
+    launches = fn.launches
+    expected = FLAGSHIP["layers"] * FLAGSHIP["steps"] if device != "cpu" else 0
+    print(f"  attention kernel launches over the offline request: {launches} "
+          f"(layers x steps = {expected})")
+    if launches != expected:
+        raise AssertionError(f"offline attention launches {launches} != {expected}")
+    if device != "cpu":
+        check_forward(report, data, arch="trans_enc", key="offline_forward_checks")
+    return train_launches, launches
+
+
+def run_eval(report, card, model_path, device="cuda"):
+    """Phase 6: eval_cmdm.main in debug mode (100 samples, one seed, batch
+    32, accuracy only) on phase 4's online checkpoint with CFG 2.5 (the
+    parser's default) and a random ST-GCN from --seed, on synthetic clips
+    built in memory: 128, four batches of 32 in each split. The sampling
+    calls and the classifier's batches are timed (device-synchronised);
+    B1's launches are read around the call. Then the ST-GCN on the card
+    against a CPU copy on the same ground-truth batches."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.collate import collate
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.data.get_data import BatchLoader
+    from regennet_torch.eval import eval_cmdm, stgcn_eval, tools
+    from regennet_torch.ops import attention
+    from regennet_torch.utils import parser_util
+
+    T = FLAGSHIP["T"]
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=128,
+                                             min_len=T + 10, max_len=2 * T),
+                  dataname="chi3d", split="test", num_frames=T, num_person=2,
+                  pose_rep="rot6d")
+    args = parser_util.evaluation_parser([
+        "--model_path", str(model_path), "--rec_model_path", "random", "--seed", "0"])
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sample_ms, stgcn_ms, rows = [], [], []
+    sample_output, evaluator_call = stgcn_eval._sample_output, stgcn_eval.STGCNEvaluator.__call__
+
+    def timed_sample(sample_fn, generator, cond_np, shape, *rest):
+        sync()
+        t0 = time.perf_counter()
+        out = sample_output(sample_fn, generator, cond_np, shape, *rest)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(shape[0])
+        return out
+
+    def timed_call(self, batch):
+        sync()
+        t0 = time.perf_counter()
+        out = evaluator_call(self, batch)
+        stgcn_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    fn = attention.fused_attention_btd
+    stgcn_eval._sample_output, stgcn_eval.STGCNEvaluator.__call__ = timed_sample, timed_call
+    fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = eval_cmdm.main(args, device=device, data=data)
+        wall_s = time.perf_counter() - t0
+    finally:
+        stgcn_eval._sample_output, stgcn_eval.STGCNEvaluator.__call__ = (
+            sample_output, evaluator_call)
+    launches = fn.launches
+    steps = args.diffusion_steps
+    expected = args.layers * steps * len(sample_ms) if device != "cpu" else 0
+    print(f"  attention kernel launches over the evaluation: {launches} (layers x "
+          f"steps x sampling calls = {args.layers} x {steps} x {len(sample_ms)})")
+    if launches != expected or len(sample_ms) != 8:
+        raise AssertionError(f"eval attention launches {launches} != {expected}, or "
+                             f"{len(sample_ms)} sampling calls (want 8)")
+    path = eval_cmdm.results_path(args)
+    if tools.load_metrics(path) != result:
+        raise AssertionError(f"{path} does not hold the returned metrics")
+    feats = result["feats"]
+    want = {f"accuracy_{k}_{s}" for k in ("gen", "gt") for s in ("train", "test")}
+    if set(feats) != want or not all(
+            len(v) == 1 and 0.0 <= float(v[0]) <= 1.0 for v in feats.values()):
+        raise AssertionError(f"evaluation metrics {feats}")
+    sampling_s, stgcn_s = sum(sample_ms) / 1e3, sum(stgcn_ms) / 1e3
+    row = dict(metrics=feats, results_file=os.path.basename(path), wall_s=wall_s,
+               guidance=args.guidance_param, sampling_calls=len(sample_ms),
+               sampled_rows=sum(rows), sampling_s=sampling_s,
+               sampling_ms_per_step=sampling_s * 1e3 / (len(sample_ms) * steps),
+               seqs_per_s=sum(rows) / sampling_s, stgcn_batches=len(stgcn_ms),
+               stgcn_ms_per_batch=float(np.mean(stgcn_ms)), stgcn_s=stgcn_s,
+               host_s=wall_s - sampling_s - stgcn_s, launches=launches)
+    print(f"  metrics {feats}; results in {path}")
+    print(f"  eval_cmdm debug (CFG {args.guidance_param}): wall {wall_s:.2f} s; sampling "
+          f"{sampling_s:.2f} s over {len(sample_ms)} calls of {rows[0]} sequences "
+          f"({row['sampling_ms_per_step']:.3f} ms per step, {row['seqs_per_s']:.3f} "
+          f"seqs/s); ST-GCN {row['stgcn_ms_per_batch']:.2f} ms per batch over "
+          f"{len(stgcn_ms)} batches; host {row['host_s']:.2f} s [{card}]")
+
+    # the classifier on the card against a CPU copy, same weights and batches
+    gt = stgcn_eval.build_gt_batches(BatchLoader(data, 32, collate, shuffle=False),
+                                     args.num_samples)
+    on_card = eval_cmdm.load_stgcn_evaluator(args, "random", device)
+    on_cpu = eval_cmdm.load_stgcn_evaluator(args, "random", "cpu")
+    worst = 0.0
+    for batch in gt:
+        a, b = on_card(batch), on_cpu(batch)
+        for key in ("features", "yhat"):
+            err = float(np.abs(a[key] - b[key]).max())
+            tol = 1e-4 * max(1.0, float(np.abs(b[key]).max()))
+            if not (err <= tol and math.isfinite(err)):
+                raise AssertionError(f"ST-GCN {key} on the card vs the CPU: {err} > {tol}")
+            worst = max(worst, err / max(1.0, float(np.abs(b[key]).max())))
+    print(f"  ST-GCN on the card vs a CPU copy over {len(gt)} ground-truth batches: "
+          f"features and logits within 1e-4 x max(1, max|cpu|) (worst {worst:.3g})")
+    row["stgcn_card_vs_cpu_worst_scaled"] = worst
+    report["evaluation"] = row
+    return launches
 
 
 def main() -> int:
@@ -838,6 +1091,8 @@ def main() -> int:
     worst, flagship = check_attention_kernel(report, card)
     print("phase 2b: the training attention kernels against their plain version")
     train_worst, train_timing = check_train_kernels(report, card)
+    print("phase 2c: fused_causal_attention on its path, against its plain version")
+    causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
@@ -848,13 +1103,24 @@ def main() -> int:
         check_train_step(report, loop, loader)
         profile_train_step(report, loop, loader)
         sample_trained(report, save_dir, data)
+        del loop, loader
+        print("phase 5: the offline CMDM (the default --arch) at the flagship width")
+        offline_train, offline_launches = run_offline(report, card, Path(tmp) / "offline",
+                                                      data)
+        print("phase 6: eval_cmdm (debug) on phase 4's checkpoint")
+        eval_launches = run_eval(report, card, save_dir / f"model{TRAIN['steps']:09d}.pt")
+    paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
+                                     "phase 6": eval_launches},
+             "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train},
+             "fused_causal_attention": {"phase 2c": causal_launches}}
+    report["launches_by_path"] = paths
 
     kernel_rows = [{
         "name": "fused_attention_btd",
         "route": "cuda",
         "source": "regennet_torch/csrc/attention_btd_train.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:222",
-        "launches": launches,
+        "launches": sum(paths["fused_attention_btd"].values()),
         "max_abs_err": worst,
         "ms": flagship["ms"],
         "plain_ms": flagship["plain_ms"],
@@ -868,7 +1134,7 @@ def main() -> int:
             "route": "cuda",
             "source": "regennet_torch/csrc/attention_btd_train.cu",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
-            "launches": train_launches[which],
+            "launches": train_launches[which] + offline_train[which],
             "max_abs_err": train_worst["forward" if which == "forward" else "backward_vjp"],
             "ms": train_timing[f"kernel_{which}_ms"],
             "plain_ms": train_timing[f"plain_{which}_ms"],
@@ -876,6 +1142,16 @@ def main() -> int:
             "bound_by": train_timing[f"{which}_bound_by"],
             "library_ms": train_timing[f"library_{which}_ms"],
         })
+    kernel_rows.append({
+        "name": "fused_causal_attention",
+        "route": "cuda",
+        "source": "regennet_torch/csrc/attention_btd_train.cu",
+        "replaces": "regennet_tpu/ops/pallas_attention.py:74",
+        "launches": causal_launches,
+        "max_abs_err": causal_worst,
+        **{k: causal_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+    })
     report["kernels"] = kernel_rows
     report["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

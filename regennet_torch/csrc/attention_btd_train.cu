@@ -4,9 +4,10 @@
 // Replaces the TPU kernels fused_attention_btd_train (custom_vjp
 // _attn_train, bodies _train_fwd_kernel and _train_bwd_kernel, math in
 // _softmax_chunk and _apply_dropout) and, as the forward with threshold 0,
-// fused_attention_btd (body _attn_btd_kernel, math attention_btd_chunks),
-// both in regennet_tpu/ops/pallas_attention.py, and computes what they
-// compute:
+// fused_attention_btd (body _attn_btd_kernel, math attention_btd_chunks)
+// and fused_causal_attention (body _attn_kernel; entry
+// causal_attention_forward below), all in regennet_tpu/ops/pallas_attention.py,
+// and computes what they compute:
 //   * heads are column slices of D; q is scaled by 1/sqrt(hd) in the input
 //     dtype before QK; scores accumulate in f32 and are rounded to the
 //     score dtype (the input dtype unless softmax_f32); causal and/or
@@ -19,7 +20,11 @@
 //     saved): dV = (P.M)^T dO; dP = (dO V^T).M with an f32 keep-scale;
 //     dS = P (dP - rowsum(dP P)) in f32 on the undropped P, rounded to
 //     q's dtype; dQ = scale dS K and dK = scale dS^T Q with the unscaled Q
-//     and the f32 scale, each rounded once.
+//     and the f32 scale, each rounded once;
+//   * fused_causal_attention ([B, H, T, hd] tensors, head stride T*hd): the
+//     forward with q unscaled (scale_q 1), the f32 score multiplied by
+//     1/sqrt(hd) in f32 after the dot (score_scale), an f32 softmax, and
+//     nothing dropped.
 //
 // Dropout bits: Philox4x32-10 keyed by the batch row's two seed words
 // (a replicated [2] seed adds row * 0x9E3779B9 to the first word), with
@@ -50,7 +55,9 @@
 //        under the causal mask), recomputes P from the row statistics with
 //        the same rounding points, and accumulates dK and dV in registers.
 // q, k and v may be strided views (columns of one packed [B, T, 3D]
-// projection): only the last dimension must be contiguous.
+// projection, or [B, H, T, hd] with any batch, head and row strides): only
+// the last dimension must be contiguous. The output (and dO, dQ, dK, dV)
+// take the strides in RowArgs.so*.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,20 +162,24 @@ template <typename T> __device__ __forceinline__ float softmax_num(float s, floa
 
 struct RowArgs {
   int seq, heads, hd;
-  long long sqb, sqt, skb, skt, svb, svt;  // strides in elements
-  float scale_q;    // 1/sqrt(hd) rounded to the input dtype (scales q before QK)
-  float scale_f32;  // 1/sqrt(hd) in f32 (scales dQ and dK)
+  // strides in elements of q, k, v (batch, head, row) and of the output,
+  // which dO, dQ, dK and dV share
+  long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot;
+  float scale_q;      // scales q before QK, rounded to the input dtype
+  float score_scale;  // scales each f32 score after QK (1 for B1, B2)
+  float scale_f32;    // 1/sqrt(hd) in f32 (scales dQ and dK)
   int causal, klimit, softmax_f32;
 };
 
 // out[r * ostride + j] = sum_d a[r * ld + d] * M[j][d] for the QT rows of a
 // and keys j < kmax, M streamed through `tile` in KT-row tiles; round = 1
-// rounds each sum to the score dtype. The column pass sums over d in the
-// same order, so it recomputes the rounded scores bit for bit.
+// multiplies each sum by `scale` in f32 and rounds it to the score dtype.
+// The column pass sums over d in the same order, so it recomputes the
+// rounded scores bit for bit (the backward runs with scale 1).
 template <typename T, int QT>
 __device__ void row_products(const float* a, float* tile, const T* m, long long smt, int hd,
                              int ld, int kmax, float* out, int ostride, bool round,
-                             int softmax_f32) {
+                             float scale, int softmax_f32) {
   constexpr int RG = THREADS / KT;
   constexpr int RPT = QT / RG;
   const int tid = threadIdx.x;
@@ -195,7 +206,7 @@ __device__ void row_products(const float* a, float* tile, const T* m, long long 
 #pragma unroll
       for (int x = 0; x < RPT; ++x)
         out[(rg + x * RG) * ostride + k0 + kj] =
-            round ? score_round<T>(acc[x], softmax_f32) : acc[x];
+            round ? score_round<T>(acc[x] * scale, softmax_f32) : acc[x];
     }
   }
 }
@@ -241,9 +252,8 @@ size_t row_smem_bytes(int hd, int klimit, bool bwd) {
 
 // Forward (BWD = false) or the backward's row pass (BWD = true).
 // grid: (ceil(seq / QT), heads, batch); THREADS threads.
-// Forward writes out [B, T, D]. The row pass reads dO [B, T, D]
-// (contiguous), writes dQ [B, T, D] and stats [3, B, H, T] (row max, row
-// sum, D_i).
+// Forward writes out; the row pass reads dO and writes dQ (all three in
+// the output strides) and stats [3, B, H, T] (row max, row sum, D_i).
 template <typename T, int QT, bool BWD>
 __global__ void __launch_bounds__(THREADS)
 attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -266,24 +276,23 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const long long b = blockIdx.z;
   const int rows = min(QT, seq - q0);
   const int kmax = p.causal ? min(klimit, q0 + rows) : klimit;
-  const long long dmodel = (long long)p.heads * hd;
   const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, keep_w, keep_f32);
 
-  const T* qb = q + b * p.sqb + (long long)h * hd;
-  const T* kb = k + b * p.skb + (long long)h * hd;
-  const T* vb = v + b * p.svb + (long long)h * hd;
+  const T* qb = q + b * p.sqb + h * p.sqh;
+  const T* kb = k + b * p.skb + h * p.skh;
+  const T* vb = v + b * p.svb + h * p.svh;
+  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in out / dO / dQ
 
   for (int i = tid; i < QT * hd; i += THREADS) {
     const int r = i / hd, d = i - r * hd;
     qs[r * ld + d] = r < rows ? round_to<T>(to_f32<T>(qb[(q0 + r) * p.sqt + d]) * p.scale_q) : 0.f;
-    if (BWD)
-      dos[r * ld + d] =
-          r < rows ? to_f32<T>(dout[(b * seq + q0 + r) * dmodel + (long long)h * hd + d]) : 0.f;
+    if (BWD) dos[r * ld + d] = r < rows ? to_f32<T>(dout[ob + (q0 + r) * p.sot + d]) : 0.f;
   }
 
-  // scores, rounded to the score dtype; BWD: dO V^T rows in f32
-  row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
-  if (BWD) row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
+  // scores, scaled and rounded to the score dtype; BWD: dO V^T rows in f32
+  row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.score_scale,
+                      p.softmax_f32);
+  if (BWD) row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 1.f, 0);
   __syncthreads();
 
   // softmax of each real row over its valid keys, one warp a row
@@ -348,9 +357,7 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int e = tid + a * THREADS;
     if (e < nout) {
       const int r = e / hd, d = e - r * hd;
-      if (r < rows)
-        out[(b * seq + q0 + r) * dmodel + (long long)h * hd + d] =
-            from_f32<T>(BWD ? o[a] * p.scale_f32 : o[a]);
+      if (r < rows) out[ob + (q0 + r) * p.sot + d] = from_f32<T>(BWD ? o[a] * p.scale_f32 : o[a]);
     }
   }
 }
@@ -388,7 +395,7 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int nk = min(CK, seq - k0);
-  const long long dmodel = (long long)p.heads * hd;
+  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dK / dV
   const int nout = CK * hd;
   const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, keep_w, keep_f32);
 
@@ -397,9 +404,9 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int a = 0; a < ACC; ++a) acc_k[a] = acc_v[a] = 0.f;
 
   if (k0 < klimit) {  // keys at or past kv_len get no gradient
-    const T* qb = q + b * p.sqb + (long long)h * hd;
-    const T* kb = k + b * p.skb + (long long)h * hd;
-    const T* vb = v + b * p.svb + (long long)h * hd;
+    const T* qb = q + b * p.sqb + h * p.sqh;
+    const T* kb = k + b * p.skb + h * p.skh;
+    const T* vb = v + b * p.svb + h * p.svh;
     for (int i = tid; i < CK * hd; i += THREADS) {
       const int r = i / hd, d = i - r * hd;
       ks[r * ld + d] = r < nk ? to_f32<T>(kb[(k0 + r) * p.skt + d]) : 0.f;
@@ -419,8 +426,7 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const float x = r < nq ? to_f32<T>(qb[(i0 + r) * p.sqt + d]) : 0.f;
         qu[r * ld + d] = x;
         qsc[r * ld + d] = round_to<T>(x * p.scale_q);
-        dos[r * ld + d] =
-            r < nq ? to_f32<T>(dout[(b * seq + i0 + r) * dmodel + (long long)h * hd + d]) : 0.f;
+        dos[r * ld + d] = r < nq ? to_f32<T>(dout[ob + (i0 + r) * p.sot + d]) : 0.f;
       }
       if (tid < CQ) {
         const bool real = tid < nq;
@@ -488,7 +494,7 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (e < nout) {
       const int cc = e / hd, d = e - cc * hd;
       if (cc < nk) {
-        const long long at = (b * seq + k0 + cc) * dmodel + (long long)h * hd + d;
+        const long long at = ob + (k0 + cc) * p.sot + d;
         dv[at] = from_f32<T>(acc_v[a]);
         dk[at] = from_f32<T>(acc_k[a] * p.scale_f32);
       }
@@ -569,6 +575,8 @@ bool valid_shape(int batch, int seq, int heads, int hd) {
          hd <= MAX_HD;
 }
 
+// [B, T, D] inputs with heads as column slices (head stride hd) and a
+// contiguous [B, T, D] output
 RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long long skb,
                  long long skt, long long svb, long long svt, float scale_q, float scale_f32,
                  int causal, int kv_len, int softmax_f32) {
@@ -577,12 +585,19 @@ RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long 
   p.heads = heads;
   p.hd = hd;
   p.sqb = sqb;
+  p.sqh = hd;
   p.sqt = sqt;
   p.skb = skb;
+  p.skh = hd;
   p.skt = skt;
   p.svb = svb;
+  p.svh = hd;
   p.svt = svt;
+  p.sot = (long long)heads * hd;
+  p.sob = seq * p.sot;
+  p.soh = hd;
   p.scale_q = scale_q;
+  p.score_scale = 1.f;
   p.scale_f32 = scale_f32;
   p.causal = causal;
   p.klimit = (kv_len > 0 && kv_len < seq) ? kv_len : seq;
@@ -640,6 +655,34 @@ int attention_train_backward(int dtype, const void* q, const void* k, const void
   if (dtype == 1)
     return backward<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
                                    threshold, keep_w, keep_f32, batch, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// fused_causal_attention: q, k, v [B, H, T, hd] with strides in elements
+// (the last dimension contiguous), out a contiguous [B, H, T, hd]; q is
+// not scaled, each f32 score is multiplied by score_scale (1/sqrt(hd) in
+// f32), the softmax runs in f32, nothing is dropped. Returns a cudaError_t.
+int causal_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
+                             int batch, int seq, int heads, int hd, long long sqb, long long sqh,
+                             long long sqt, long long skb, long long skh, long long skt,
+                             long long svb, long long svh, long long svt, float score_scale,
+                             int causal, void* stream) {
+  if (!valid_shape(batch, seq, heads, hd)) return cudaErrorInvalidValue;
+  RowArgs p = row_args(seq, heads, hd, sqb, sqt, skb, skt, svb, svt, 1.f, 0.f, causal, 0, 1);
+  p.sqh = sqh;
+  p.skh = skh;
+  p.svh = svh;
+  p.sot = hd;
+  p.soh = (long long)seq * hd;
+  p.sob = heads * p.soh;
+  p.score_scale = score_scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_rows<float, false>(q, k, v, nullptr, out, nullptr, nullptr, 0, 0u, 1.f, 1.f,
+                                       batch, p, s);
+  if (dtype == 1)
+    return dispatch_rows<__nv_bfloat16, false>(q, k, v, nullptr, out, nullptr, nullptr, 0, 0u,
+                                               1.f, 1.f, batch, p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 """Batch collation to fixed-shape numpy dicts (the port's copy of
-regennet_tpu/data/collate.py, conditional part): `ccollate` splits the
-feature axis into the actor (condition, first half) and
-reactor (diffusion target, second half) streams and exposes the actor
-stream as cond['cmotion'].
+regennet_tpu/data/collate.py): `collate` packs whole clips (the
+evaluation's ground-truth batches); `ccollate` splits the feature axis
+into the actor (condition, first half) and reactor (diffusion target,
+second half) streams and exposes the actor stream as cond['cmotion'].
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ def _common_cond(batch: List[dict], motion: np.ndarray) -> Dict:
     if "action_text" in batch[0]:
         cond["action_text"] = [b["action_text"] for b in batch]
     return cond
+
+
+def collate(batch: List[dict]) -> Tuple[np.ndarray, Dict]:
+    """Single-stream collate (the evaluation's ground-truth batches)."""
+    batch = [b for b in batch if b is not None]
+    motion = _pad_stack([b["inp"] for b in batch])
+    return motion, {"y": _common_cond(batch, motion)}
 
 
 def ccollate(batch: List[dict]) -> Tuple[np.ndarray, Dict]:

@@ -11,7 +11,8 @@
   clip (the conversion is per frame, so slicing the converted clip is
   bit-identical to converting the window);
 * per-clip translation re-basing and optional actor/reactor swap
-  augmentation (`ar_shuffle`).
+  augmentation (`ar_shuffle`);
+* the evaluation's index reshuffle (`shuffle`, `reset_shuffle`).
 """
 
 from __future__ import annotations
@@ -159,6 +160,8 @@ class Feeder:
 
         # shard striding for data parallelism
         self._train = self._train[self.shard:][:: self.num_shards]
+        self._original_train = None
+        self._original_test = None
 
     def _ingest(self, clips: Mapping[str, np.ndarray]) -> List[str]:
         keys = list(clips.keys())
@@ -319,3 +322,37 @@ class Feeder:
         if self.num_seq_max != -1:
             n = min(n, self.num_seq_max)
         return n
+
+    def shuffle(self):
+        """Shuffle the split's indices in place with the `random` module.
+
+        The reference's reset_shuffle keeps an alias of the index list that
+        random.shuffle then mutates, so across the multi-seed evaluation a
+        reset restores nothing and the shuffles accumulate. That is
+        reproduced here by keeping the saved original in lockstep once it
+        exists: it decides which batches each evaluation seed selects."""
+        idx = list(self._train if self.split == "train" else self._test)
+        random.shuffle(idx)
+        shuffled = np.asarray(idx)
+        if self.split == "train":
+            self._train = shuffled
+            if self._original_train is not None:
+                self._original_train = shuffled
+        else:
+            self._test = shuffled
+            if self._original_test is not None:
+                self._original_test = shuffled
+
+    def reset_shuffle(self):
+        """Save the split's order on the first call, restore it after (see
+        shuffle for why a restore changes nothing)."""
+        if self.split == "train":
+            if self._original_train is None:
+                self._original_train = self._train
+            else:
+                self._train = self._original_train
+        else:
+            if self._original_test is None:
+                self._original_test = self._test
+            else:
+                self._test = self._original_test

@@ -1,12 +1,16 @@
 """CMDM, the conditional motion diffusion denoiser (counterpart of
-regennet_tpu/models/cmdm.py), online / trans_dec trunk.
+regennet_tpu/models/cmdm.py): the online / trans_dec trunk (a causal
+decoder, the timestep-and-action embedding as its cross-attention memory)
+and the offline / trans_enc trunk (a non-causal encoder over the
+embedding token followed by the frames).
 
 Tensors are batch-first [B, T, D] inside and [B, njoints, nfeats, T] at
 the API, as in the JAX package. Module and parameter names are those of
 the reference torch checkpoints (`input_process.poseEmbedding`,
-`embed_timestep.time_embed.{0,2}`, `seqTransDecoder.layers.{i}...`), so a
-released state dict loads with `load_state_dict` once its frozen CLIP,
-body-model and positional-table keys are stripped (train/checkpoint.py).
+`embed_timestep.time_embed.{0,2}`, `seqTransDecoder.layers.{i}...` or
+`seqTransEncoder.layers.{i}...`), so a released state dict loads with
+`load_state_dict` once its frozen CLIP, body-model and positional-table
+keys are stripped (train/checkpoint.py).
 The model computes in the dtype of its parameters: `.to(torch.bfloat16)`
 gives the bf16 sampler. `forward(..., train=True, generator=g)` is the
 training forward: condition dropout, positional, residual and attention
@@ -22,7 +26,8 @@ from torch import nn
 
 from regennet_torch.models import transformer as tfm
 
-PORTED_ARCHS = ("online", "trans_dec")
+PORTED_ARCHS = ("online", "trans_dec", "offline", "trans_enc")
+DECODER_ARCHS = ("online", "trans_dec")
 
 
 class TimestepEmbedder(nn.Module):
@@ -104,10 +109,12 @@ class CMDM(nn.Module):
         self.embed_timestep = TimestepEmbedder(latent_dim)
         if "action" in cond_mode:
             self.embed_action = EmbedAction(num_actions, latent_dim)
-        self.seqTransDecoder = tfm.Decoder(
-            num_layers, latent_dim, num_heads, ff_size,
-            tfm.ACTIVATIONS[activation], dropout,
-        )
+        trunk_args = (num_layers, latent_dim, num_heads, ff_size,
+                      tfm.ACTIVATIONS[activation], dropout)
+        if arch in DECODER_ARCHS:
+            self.seqTransDecoder = tfm.Decoder(*trunk_args)
+        else:
+            self.seqTransEncoder = tfm.Encoder(*trunk_args)
         self.output_process = OutputProcess(latent_dim, input_feats)
         self.register_buffer("pos_table", tfm.sinusoidal_table(5000, latent_dim),
                              persistent=False)
@@ -181,6 +188,10 @@ class CMDM(nn.Module):
             return x_seq + cmx_seq
         return self.fuse_process(torch.cat([x_seq, cmx_seq], dim=-1))
 
+    def _add_pos(self, xseq, generator):
+        pos = self.pos_table[: xseq.shape[1]].to(xseq.dtype)
+        return tfm.dropout(xseq + pos, self.dropout, generator)
+
     def forward(self, x, timesteps, cond: Optional[Dict] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None):
         """train=True needs `generator`, the source of every dropout draw;
@@ -203,14 +214,19 @@ class CMDM(nn.Module):
 
         xseq = self._fuse(self._to_seq(x).to(dtype), cond)
         memory = emb[:, None, :]  # the single conditioning token
-        if self.emb_trans_dec:
-            xseq = torch.cat([memory, xseq], dim=1)
-        if not self.wo_pos_emb:
-            xseq = tfm.dropout(xseq + self.pos_table[: xseq.shape[1]].to(dtype),
-                               self.dropout, generator)
-        out = self.seqTransDecoder(xseq, memory, True, generator)
-        if self.emb_trans_dec:
-            out = out[:, 1:]
+        if self.arch in DECODER_ARCHS:
+            if self.emb_trans_dec:
+                xseq = torch.cat([memory, xseq], dim=1)
+            if not self.wo_pos_emb:
+                xseq = self._add_pos(xseq, generator)
+            out = self.seqTransDecoder(xseq, memory, True, generator)
+            if self.emb_trans_dec:
+                out = out[:, 1:]
+        else:
+            # the embedding token first, positions on every token, and the
+            # token's output dropped (the encoder ignores wo_pos_emb)
+            xseq = self._add_pos(torch.cat([memory, xseq], dim=1), generator)
+            out = self.seqTransEncoder(xseq, generator)[:, 1:]
         out = self.output_process.poseFinal(out).float()
         return out.reshape(B, T, J, F).permute(0, 2, 3, 1)
 

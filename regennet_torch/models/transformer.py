@@ -1,9 +1,11 @@
-"""Transformer decoder blocks for the CMDM denoiser (counterpart of
-regennet_tpu/models/transformer.py).
+"""Transformer encoder and decoder blocks for the CMDM denoiser
+(counterpart of regennet_tpu/models/transformer.py).
 
 Post-LayerNorm layers (eps 1e-5) with the reference torch module and
 parameter names (`self_attn`, `multihead_attn` with a packed
-`in_proj_weight`, `linear1/2`, `norm1/2/3`), batch-first [B, T, D].
+`in_proj_weight`, `linear1/2`, `norm1/2/3`), batch-first [B, T, D]. The
+decoder's self-attention is causal, the encoder's non-causal with no key
+mask (the port does not pad the sequence).
 Self-attention goes through ops.attention: `fused_attention_btd` when
 sampling, `fused_attention_btd_train` (attention-weight dropout, with a
 gradient) in train mode, at every dropout rate, 0 included. Each is the
@@ -95,6 +97,45 @@ class MultiheadAttention(nn.Module):
                 row_seeds(B, generator, q_in.device), causal=causal,
             )
         return self.out_proj(out)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN encoder: x = LN(x + SelfAttn(x)); x = LN(x + FF(x)), the
+    self-attention non-causal over every token."""
+
+    def __init__(self, latent_dim: int, num_heads: int, ff_size: int,
+                 activation: Callable, dropout: float = 0.0):
+        super().__init__()
+        self.self_attn = MultiheadAttention(latent_dim, num_heads, dropout)
+        self.linear1 = nn.Linear(latent_dim, ff_size)
+        self.linear2 = nn.Linear(ff_size, latent_dim)
+        self.norm1 = nn.LayerNorm(latent_dim, eps=1e-5)
+        self.norm2 = nn.LayerNorm(latent_dim, eps=1e-5)
+        self.activation = activation
+        self.dropout = dropout
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        def drop(h):
+            return dropout(h, self.dropout, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, False, generator)))
+        ff = self.linear2(drop(self.activation(self.linear1(x))))
+        return self.norm2(x + drop(ff))
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_layers: int, latent_dim: int, num_heads: int,
+                 ff_size: int, activation: Callable, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(latent_dim, num_heads, ff_size, activation, dropout)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        for layer in self.layers:
+            x = layer(x, generator)
+        return x
 
 
 class DecoderLayer(nn.Module):

@@ -1,12 +1,12 @@
-"""Multi-head self-attention on [B, T, D] (counterpart of
-regennet_tpu/ops/pallas_attention.py::fused_attention_btd and
-::fused_attention_btd_train).
+"""Multi-head attention (counterpart of
+regennet_tpu/ops/pallas_attention.py::fused_attention_btd,
+::fused_attention_btd_train and ::fused_causal_attention).
 
-Both wrappers launch the CUDA kernels of `csrc/attention_btd_train.cu`
+The wrappers launch the CUDA kernels of `csrc/attention_btd_train.cu`
 for tensors on the GPU and run their plain versions for tensors on the
-CPU. All compute what the TPU kernels compute: heads are column slices of
-D, q is scaled by 1/sqrt(hd) in the input dtype before QK, scores
-accumulate in f32 and are rounded to the input dtype unless
+CPU. The [B, T, D] ones compute what their TPU kernels compute: heads are
+column slices of D, q is scaled by 1/sqrt(hd) in the input dtype before
+QK, scores accumulate in f32 and are rounded to the input dtype unless
 `softmax_f32`, masked scores are -1e30, and the weights are cast to v's
 dtype before AV (f32 accumulation).
 
@@ -21,6 +21,11 @@ the backward kernel's plain version, with its rounding points. The
 dropout bits are Philox4x32-10 keyed by each batch row's two int32 seed
 words, with counter (key, query, head, 0): `dropout_bits` computes them
 in plain torch, bit for bit as the kernels do.
+
+`fused_causal_attention` is the legacy [B, H, T, hd] attention that no
+model path reaches: unscaled q, the f32 score multiplied by 1/sqrt(hd) in
+f32 after the dot, an f32 softmax, causal or not; plain version
+`attention_reference`.
 """
 
 from __future__ import annotations
@@ -92,10 +97,12 @@ def attention_btd_reference(q, k, v, num_heads: int, causal: bool = True,
     return _merge_heads(out)
 
 
-def _check(q, k, v, num_heads, kv_len):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 3:
+def _check_tensors(q, k, v, layout: str):
+    """Shape, dtype and device checks of every wrapper; `layout` names the
+    shape, "[B, T, D]" or "[B, H, T, hd]"."""
+    if not (q.shape == k.shape == v.shape) or q.dim() != layout.count(",") + 1:
         raise ValueError(
-            f"q, k, v must share one [B, T, D] shape, got "
+            f"q, k, v must share one {layout} shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -105,6 +112,10 @@ def _check(q, k, v, num_heads, kv_len):
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
+
+
+def _check(q, k, v, num_heads, kv_len):
+    _check_tensors(q, k, v, "[B, T, D]")
     D = q.shape[2]
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"D={D} does not split into {num_heads} heads")
@@ -112,18 +123,18 @@ def _check(q, k, v, num_heads, kv_len):
         raise ValueError(f"kv_len must be >= 1, got {kv_len}")
 
 
-def _check_kernel_inputs(q, k, v, num_heads):
-    """What the CUDA kernels take beyond _check: head dim, grid, layout."""
+def _check_kernel_inputs(q, k, v, B, H, hd):
+    """What the CUDA kernels take beyond the shape checks: device, head
+    dim, grid, layout."""
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    B, _, D = q.shape
-    hd = D // num_heads
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
-    if B > 65535 or num_heads > 65535:
-        raise ValueError(f"batch {B} or heads {num_heads} exceed the grid limit")
+    if B > 65535 or H > 65535 or q.numel() == 0:
+        raise ValueError(f"shape {tuple(q.shape)} with {H} heads is outside the "
+                         "kernel's grid")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(2) != 1:
+        if x.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dimension")
 
 
@@ -140,7 +151,7 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
     if q.device.type == "cpu":
         return attention_btd_reference(q, k, v, num_heads, causal,
                                        softmax_f32, kv_len)
-    _check_kernel_inputs(q, k, v, num_heads)
+    _check_kernel_inputs(q, k, v, q.shape[0], num_heads, q.shape[2] // num_heads)
     cfg = _TrainConfig(num_heads, 0.0, bool(causal), bool(softmax_f32),
                        0 if kv_len is None else int(kv_len))
     # the training forward with nothing dropped: no seed is read
@@ -310,7 +321,7 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     if q.device.type == "cpu":
         return attention_btd_train_reference(
             q, k, v, num_heads, dropout_rate, seed, causal, softmax_f32, kv_len)
-    _check_kernel_inputs(q, k, v, num_heads)
+    _check_kernel_inputs(q, k, v, q.shape[0], num_heads, q.shape[2] // num_heads)
     cfg = _TrainConfig(num_heads, float(dropout_rate), bool(causal),
                        bool(softmax_f32), 0 if kv_len is None else int(kv_len))
     return _AttentionTrain.apply(q, k, v, seed.contiguous(), cfg)
@@ -361,7 +372,7 @@ def _launch_forward(q, k, v, seed, cfg, what):
             cfg.num_heads, hd, *_strides(q, k, v), scale_q, int(cfg.causal),
             cfg.kv_len, int(cfg.softmax_f32), stream,
         )
-    _raise_on_error(lib, rc, what, q, cfg)
+    _raise_on_error(lib, rc, what, q, cfg.num_heads)
     return out
 
 
@@ -400,18 +411,16 @@ class _AttentionTrain(torch.autograd.Function):
                 *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
                 cfg.kv_len, int(cfg.softmax_f32), stream,
             )
-        _raise_on_error(lib, rc, "attention_btd_train backward", q, cfg)
+        _raise_on_error(lib, rc, "attention_btd_train backward", q, cfg.num_heads)
         fused_attention_btd_train.backward_launches += 1
         return dq, dk, dv, None, None
 
 
-def _raise_on_error(lib, rc, what, q, cfg):
+def _raise_on_error(lib, rc, what, q, num_heads):
     if rc != 0:
-        B, T, D = q.shape
         raise RuntimeError(
-            f"{what} launch failed for B={B} T={T} D={D} "
-            f"heads={cfg.num_heads} {q.dtype}: "
-            f"{lib.attention_train_error_string(rc).decode()}"
+            f"{what} launch failed for {tuple(q.shape)} heads={num_heads} "
+            f"{q.dtype}: {lib.attention_train_error_string(rc).decode()}"
         )
 
 
@@ -431,6 +440,65 @@ def _library() -> ctypes.CDLL:
         i32, i32, i32, i32, *strides, f32, f32, i32, i32, i32, ptr,
     ]
     lib.attention_train_backward.restype = i32
+    lib.causal_attention_forward.argtypes = [
+        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, *([i64] * 9), f32, i32, ptr,
+    ]
+    lib.causal_attention_forward.restype = i32
     lib.attention_train_error_string.argtypes = [i32]
     lib.attention_train_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Legacy [B, H, T, hd] attention
+# ---------------------------------------------------------------------------
+
+
+def _score_scale(hd: int) -> float:
+    """1/sqrt(hd) rounded to f32, as the TPU kernel multiplies its f32 scores."""
+    return float(np.float32(1.0 / (hd ** 0.5)))
+
+
+def attention_reference(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of fused_causal_attention: q, k, v [B, H, T,
+    hd] -> [B, H, T, hd] in q's dtype, at the TPU kernel's rounding points
+    (f32 scores from the unscaled q, times 1/sqrt(hd) in f32, f32 softmax,
+    weights cast to v's dtype, f32 AV accumulation)."""
+    T, hd = q.shape[-2], q.shape[-1]
+    # bf16 x bf16 products are exact in f32
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _score_scale(hd)
+    valid = _valid_mask(T, causal, None, q.device)
+    if valid is not None:
+        s = s.masked_fill(~valid, NEG_FILL)
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(w.float(), v.float()).to(q.dtype)
+
+
+def fused_causal_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Multi-head attention on [B, H, T, hd] inputs, returning a new
+    contiguous [B, H, T, hd] tensor in q's dtype (float32 or bfloat16).
+
+    On the GPU the kernel runs on the current stream, or this raises; q, k
+    and v may be strided views whose last dimension is contiguous, with
+    hd up to MAX_HEAD_DIM. `fused_causal_attention.launches` counts kernel
+    launches."""
+    _check_tensors(q, k, v, "[B, H, T, hd]")
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal)
+    B, H, T, hd = q.shape
+    _check_kernel_inputs(q, k, v, B, H, hd)
+    out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.causal_attention_forward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, T, H, hd, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], _score_scale(hd), int(causal), stream,
+        )
+    _raise_on_error(lib, rc, "fused_causal_attention", q, H)
+    fused_causal_attention.launches += 1
+    return out
+
+
+fused_causal_attention.launches = 0

@@ -10,14 +10,20 @@ the run's args.json beside them:
 Released reference files carry keys the denoiser does not own (the frozen
 CLIP tower, body-model buffers, the positional tables); they are dropped
 before `load_state_dict(strict=True)`.
+
+`load_stgcn_state` loads the evaluation's ST-GCN classifier from the
+port's `.pt` file, a released recognition `.pth.tar` (its state dict,
+possibly wrapped as {"model": ...} or {"state_dict": ...}), or a state
+dict in that layout.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -124,3 +130,25 @@ def load_checkpoint(path: str, model: nn.Module,
             for name, value in state["ema"].items():
                 ema[name].copy_(value)
     return {k: v for k, v in state.items() if k not in ("optimizer", "ema")}
+
+
+def load_stgcn_state(model: nn.Module,
+                     state: Union[str, os.PathLike, Mapping[str, Any]]) -> nn.Module:
+    """Load an ST-GCN classifier's weights into `model` from a file path or
+    a state dict of tensors or numpy arrays in the reference layout. The
+    adjacency buffer "A" (rebuilt from the layout) and BatchNorm's
+    num_batches_tracked may be present or absent; every other key must
+    match."""
+    if isinstance(state, (str, os.PathLike)):
+        state = torch.load(state, map_location="cpu", weights_only=True)
+    for wrapper in ("state_dict", "model"):
+        if isinstance(state.get(wrapper), Mapping):
+            state = state[wrapper]
+    sd = {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+          for k, v in state.items() if k != "A"}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"ST-GCN state does not match the model: missing "
+                         f"{missing[:10]}, unexpected {unexpected[:10]}")
+    return model

@@ -1,6 +1,7 @@
-"""CLI arguments of the trainer and the sampler, with the args.json
-round-trip (the port's copy of the `train_args` and `cgenerate_args` parts
-of regennet_tpu/utils/parser_util.py).
+"""CLI arguments of the trainer, the sampler and the evaluation, with the
+args.json round-trip (the port's copy of the `train_args`,
+`cgenerate_args` and `evaluation_parser` parts of
+regennet_tpu/utils/parser_util.py).
 
 Training writes its arguments to args.json beside the checkpoints; the
 sampler reloads the model and diffusion groups from there, overwriting
@@ -226,6 +227,32 @@ def check_single_device_training(args):
     if getattr(args, "compute_dtype", "float32") != "float32":
         raise NotImplementedError("bf16 training is not ported: "
                                   "--compute_dtype must be float32")
+
+
+def add_evaluation_options(parser):
+    group = parser.add_argument_group("eval")
+    group.add_argument("--model_path", required=True, type=str,
+                       help="The CMDM's .pt file, with args.json beside it.")
+    group.add_argument("--rec_model_path", required=True, type=str,
+                       help="The ST-GCN recognition classifier: the port's "
+                            ".pt or a released .pth.tar; 'random' builds it "
+                            "from --seed.")
+    group.add_argument("--eval_mode", default="debug", choices=["debug", "full"],
+                       type=str, help="debug: 100 samples, 1 seed, accuracy "
+                                      "only; full: 1000 samples, 20 seeds.")
+    group.add_argument("--guidance_param", default=2.5, type=float)
+    group.add_argument("--auto_regressive", action="store_true",
+                       help="Re-sample once per revealed actor frame.")
+    group.add_argument("--eval_seed_batch", default=0, type=int,
+                       help="Stack this many evaluation seeds into one "
+                            "sampling batch (0: 128 // batch size; 1: none).")
+
+
+def evaluation_parser(argv=None):
+    parser = ArgumentParser()
+    add_base_options(parser)
+    add_evaluation_options(parser)
+    return parse_and_load_from_model(parser, argv=argv)
 
 
 def cgenerate_args(argv=None):

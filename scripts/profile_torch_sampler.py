@@ -3,9 +3,11 @@
 
     python3 scripts/profile_torch_sampler.py [--steps 20]
 
-For each chip_smoke request shape (flagship online CMDM, Chi3D T=150,
-random weights: f32 batch 16, f32 batch 16 with CFG 2.5, bf16 batch 128)
-it runs `--steps` DDPM steps of `regennet_torch.diffusion.sampling`
+For each chip_smoke request shape (flagship CMDM, Chi3D T=150, random
+weights: the online trunk at f32 batch 16, f32 batch 16 with CFG 2.5,
+bf16 batch 128; the offline trunk at f32 batch 16 (phase 5's request);
+the online trunk at f32 batch 32 with CFG 2.5 (phase 6's evaluation
+batches)) it runs `--steps` DDPM steps of `regennet_torch.diffusion.sampling`
 after a warm-up: once untraced for the wall ms per step, once under
 torch.profiler for the device's busy ms per step (the sum of kernel
 time) and the kernels by device time; idle share = 1 - busy / wall.
@@ -24,7 +26,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def profile_request(batch, guidance, dtype, steps):
+def profile_request(arch, batch, guidance, dtype, steps):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,7 +42,7 @@ def profile_request(batch, guidance, dtype, steps):
     data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=16,
                                              min_len=T + 10, max_len=2 * T),
                   dataname="chi3d", split="test", num_frames=T, num_person=2)
-    args = chip_smoke.request_args("", batch, guidance, dtype, seed=0)
+    args = chip_smoke.request_args("", batch, guidance, dtype, seed=0, arch=arch)
     args.timestep_respacing = str(steps)  # `steps` steps of the 1000-step schedule
     torch.manual_seed(0)
     model, sched, cfg = create_model_and_diffusion(args, data, device="cuda")
@@ -75,7 +77,7 @@ def profile_request(batch, guidance, dtype, steps):
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "batch": batch, "guidance": guidance, "dtype": dtype, "steps": steps,
+        "arch": arch, "batch": batch, "guidance": guidance, "dtype": dtype, "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -98,9 +100,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": chip_smoke.card_line(), "requests": []}
-    for batch, guidance, dtype in ((16, 1.0, "float32"), (16, 2.5, "float32"),
-                                   (128, 1.0, "bfloat16")):
-        out["requests"].append(profile_request(batch, guidance, dtype, opts.steps))
+    for request in (("online", 16, 1.0, "float32"), ("online", 16, 2.5, "float32"),
+                    ("online", 128, 1.0, "bfloat16"), ("trans_enc", 16, 1.0, "float32"),
+                    ("online", 32, 2.5, "float32")):
+        out["requests"].append(profile_request(*request, opts.steps))
     text = json.dumps(out, indent=1)
     (REPO / "chiprun_out").mkdir(exist_ok=True)
     (REPO / "chiprun_out" / "profile_torch_sampler.json").write_text(text)

@@ -50,6 +50,39 @@ def test_training_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert report["trained_sample"]["checkpoint"] == "model000000008.pt"
 
 
+def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phases 5 and 6 at a cut size: train_mdm with the default --arch, a
+    step check, DDPM from its checkpoint, then eval_cmdm (debug, CFG 2.5,
+    random ST-GCN) on phase 4's checkpoint, with its results file and the
+    ST-GCN's CPU-vs-CPU comparison (the CPU runs launch nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, T=12, steps=4).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    for key, value in dict(batch=4, steps=4, steps_per_call=2).items():
+        monkeypatch.setitem(cs.TRAIN, key, value)
+    monkeypatch.setattr(cs, "OFFLINE_STEPS", 4)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=16,
+                                             min_len=14, max_len=24),
+                  dataname="chi3d", split="test", num_frames=12, num_person=2,
+                  pose_rep="rot6d")
+    report = {}
+    assert cs.run_offline(report, "cpu", tmp_path / "offline", data, device="cpu") == (
+        {"forward": 0, "backward": 0}, 0)
+    assert report["offline_training"]["arch"] == "trans_enc"
+    assert report["offline_sample"]["sampler"] == "DDPM 4"
+    cs.run_training(report, "cpu", tmp_path / "train", device="cpu")
+    assert cs.run_eval(report, "cpu", tmp_path / "train" / "model000000004.pt",
+                       device="cpu") == 0
+    row = report["evaluation"]
+    assert row["sampling_calls"] == 8 and row["sampled_rows"] == 8 * 32
+    assert row["stgcn_batches"] == 16 and row["results_file"].endswith("_debug_000000004.yaml")
+
+
 @pytest.mark.parametrize("name,group", [
     ("void (anonymous namespace)::attention_train_rows<float, 16, false>(float const*)",
      "training attention forward"),

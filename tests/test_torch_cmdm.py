@@ -165,7 +165,7 @@ def test_cfg_requires_condition_dropout():
         cmdm.make_cfg_model_fn(tm, 2.5)
 
 
-@pytest.mark.parametrize("arch", ["offline", "trans_enc", "gru", "mlp"])
+@pytest.mark.parametrize("arch", ["gru", "mlp"])
 def test_unported_trunks_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         cmdm.CMDM(**_kwargs(arch=arch))

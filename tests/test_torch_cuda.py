@@ -109,6 +109,25 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 151])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_causal_attention_matches_plain_version(T, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    q, k, v = (torch.randn(2, 4, T, 128, device="cuda", generator=gen)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    before = attention.fused_causal_attention.launches
+    out = attention.fused_causal_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert attention.fused_causal_attention.launches == before + 1
+    ref = attention.attention_reference(q, k, v, causal).float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref, rtol=0,
+                               atol=_tolerance(dtype, ref))
+
+
+@pytest.mark.cuda
 def test_cuda_train_kernels_are_deterministic_and_match_plain_bits():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")

@@ -36,7 +36,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 46  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -65,3 +65,14 @@ def test_train_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mdm.main(args)
     assert not save_dir.exists() and not os.listdir(tmp_path)  # nothing written
+
+
+def test_eval_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
+    from regennet_torch.eval import eval_cmdm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = Namespace(seed=0, device=0, model_path=str(tmp_path / "model000000001.pt"),
+                     eval_mode="debug")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_cmdm.main(args)
+    assert not os.listdir(tmp_path)  # no results file
