@@ -44,7 +44,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      in-memory clips: metrics, results file, times, launches; then the
      ST-GCN on the card against a CPU copy.
 Each kernel's launches are read around each path that runs it (phases 3,
-5 and 6 for B1; 4 and 5 for B2; 2c for B3) and summed in the kernel line.
+5 and 6 for B1; 4 and 5 for B2; 2c for B3) and summed in the kernel line;
+B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
+launches.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -55,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,20 +86,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms over `iters` back-to-back calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, blocks: int = 5) -> float:
+    """Device time of fn() in ms: the mean over `iters` back-to-back calls,
+    the median of `blocks` such runs (a host stall on this shared machine
+    delays the launches of one run, not the median)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(blocks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return sorted(means)[blocks // 2]
 
 
 def attention_bound_ms(B, T, D, H, dtype, causal, kv_len, tensors=4, products=2):
@@ -179,9 +187,9 @@ def check_attention_kernel(report, card):
           f"(worst max_abs_err {worst:.3g}; tolerance 1e-5 f32, 2^-6 bf16, "
           "x max(1, max|plain|))")
     report["attention_cases"] = cases
-    flagship = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16"
-                    and c["B"] == 128)
-    return worst, flagship
+    timed = {(c["dtype"], c["B"]): c for c in cases if "ms" in c}
+    # the flagship sampling shape and the evaluation's (batch 32 under CFG)
+    return worst, timed[("bfloat16", 128)], timed[("float32", 64)]
 
 
 # B3's own entry point is its path (no model reaches it): the shapes the
@@ -821,6 +829,8 @@ TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match
 
 
 def _kernel_group(name):
+    if "attention_fwd" in name:
+        return "attention forward (B1, B3)"
     if "attention_train_cols" in name or (
             "attention_train_rows" in name and "true>" in name):
         return "training attention backward"
@@ -1082,13 +1092,16 @@ def main() -> int:
     built = kernels.build_kernels()
     for name, info in built.items():
         print(f"  built {name} in {info['seconds']:.2f} s")
+        entry = ""
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+            if "Compiling entry function" in line:  # the kernel, from its mangled name
+                entry = re.sub(r"^.*?_cu_[0-9a-f]+\d+", "", line.split("'")[1])[:60]
+            elif "registers" in line or "spill" in line:
+                print(f"    {entry}: {line.strip()}")
     report["build_s"] = {k: v["seconds"] for k, v in built.items()}
 
     print("phase 2: the sampling attention kernel against its plain version")
-    worst, flagship = check_attention_kernel(report, card)
+    worst, flagship, eval_shape = check_attention_kernel(report, card)
     print("phase 2b: the training attention kernels against their plain version")
     train_worst, train_timing = check_train_kernels(report, card)
     print("phase 2c: fused_causal_attention on its path, against its plain version")
@@ -1115,19 +1128,19 @@ def main() -> int:
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
+    b1 = paths["fused_attention_btd"]
     kernel_rows = [{
-        "name": "fused_attention_btd",
+        "name": name,
         "route": "cuda",
-        "source": "regennet_torch/csrc/attention_btd_train.cu",
+        "source": "regennet_torch/csrc/attention_fwd.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:222",
-        "launches": sum(paths["fused_attention_btd"].values()),
+        "launches": launches,
         "max_abs_err": worst,
-        "ms": flagship["ms"],
-        "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"],
-        "bound_by": flagship["bound_by"],
-        "library_ms": flagship["library_ms"],
-    }]
+        **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for name, launches, timing in (
+        ("fused_attention_btd", sum(b1.values()), flagship),
+        # the evaluation's f32 batch-64 shape: phase 6's launches
+        ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape))]
     for which, line in (("forward", 382), ("backward", 415)):
         kernel_rows.append({
             "name": f"fused_attention_btd_train ({which})",
@@ -1145,7 +1158,7 @@ def main() -> int:
     kernel_rows.append({
         "name": "fused_causal_attention",
         "route": "cuda",
-        "source": "regennet_torch/csrc/attention_btd_train.cu",
+        "source": "regennet_torch/csrc/attention_fwd.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:74",
         "launches": causal_launches,
         "max_abs_err": causal_worst,

@@ -1,13 +1,12 @@
 // Multi-head attention on [B, T, D] activations with attention-weight
-// dropout, forward and backward, for NVIDIA Hopper (sm_90a).
+// dropout, forward and backward, for NVIDIA Hopper (sm_90a): the training
+// attention only. The sampling attention and the [B, H, T, hd] attention
+// run the tensor-core forward of attention_fwd.cu.
 //
-// Replaces the TPU kernels fused_attention_btd_train (custom_vjp
+// Replaces the TPU kernel fused_attention_btd_train (custom_vjp
 // _attn_train, bodies _train_fwd_kernel and _train_bwd_kernel, math in
-// _softmax_chunk and _apply_dropout) and, as the forward with threshold 0,
-// fused_attention_btd (body _attn_btd_kernel, math attention_btd_chunks)
-// and fused_causal_attention (body _attn_kernel; entry
-// causal_attention_forward below), all in regennet_tpu/ops/pallas_attention.py,
-// and computes what they compute:
+// _softmax_chunk and _apply_dropout) in regennet_tpu/ops/pallas_attention.py,
+// and computes what it computes:
 //   * heads are column slices of D; q is scaled by 1/sqrt(hd) in the input
 //     dtype before QK; scores accumulate in f32 and are rounded to the
 //     score dtype (the input dtype unless softmax_f32); causal and/or
@@ -20,11 +19,7 @@
 //     saved): dV = (P.M)^T dO; dP = (dO V^T).M with an f32 keep-scale;
 //     dS = P (dP - rowsum(dP P)) in f32 on the undropped P, rounded to
 //     q's dtype; dQ = scale dS K and dK = scale dS^T Q with the unscaled Q
-//     and the f32 scale, each rounded once;
-//   * fused_causal_attention ([B, H, T, hd] tensors, head stride T*hd): the
-//     forward with q unscaled (scale_q 1), the f32 score multiplied by
-//     1/sqrt(hd) in f32 after the dot (score_scale), an f32 softmax, and
-//     nothing dropped.
+//     and the f32 scale, each rounded once.
 //
 // Dropout bits: Philox4x32-10 keyed by the batch row's two seed words
 // (a replicated [2] seed adds row * 0x9E3779B9 to the first word), with
@@ -55,33 +50,17 @@
 //        under the causal mask), recomputes P from the row statistics with
 //        the same rounding points, and accumulates dK and dV in registers.
 // q, k and v may be strided views (columns of one packed [B, T, 3D]
-// projection, or [B, H, T, hd] with any batch, head and row strides): only
-// the last dimension must be contiguous. The output (and dO, dQ, dK, dV)
-// take the strides in RowArgs.so*.
+// projection): only the last dimension must be contiguous. The output (and
+// dO, dQ, dK, dV) take the strides in RowArgs.so*.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_math.cuh"
+
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// x rounded to T and widened back to f32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -150,36 +129,25 @@ __device__ __forceinline__ Dropout make_dropout(const int* seed, int seed_per_ro
   return d;
 }
 
-// score-dtype rounding: T unless the softmax runs in f32
-template <typename T> __device__ __forceinline__ float score_round(float x, int softmax_f32) {
-  return softmax_f32 ? x : round_to<T>(x);
-}
-
-// softmax numerator exp(s - m) with the score dtype's rounding points
-template <typename T> __device__ __forceinline__ float softmax_num(float s, float m, int softmax_f32) {
-  return softmax_f32 ? expf(s - m) : round_to<T>(expf(round_to<T>(s - m)));
-}
-
 struct RowArgs {
   int seq, heads, hd;
   // strides in elements of q, k, v (batch, head, row) and of the output,
   // which dO, dQ, dK and dV share
   long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot;
-  float scale_q;      // scales q before QK, rounded to the input dtype
-  float score_scale;  // scales each f32 score after QK (1 for B1, B2)
-  float scale_f32;    // 1/sqrt(hd) in f32 (scales dQ and dK)
+  float scale_q;    // scales q before QK, rounded to the input dtype
+  float scale_f32;  // 1/sqrt(hd) in f32 (scales dQ and dK)
   int causal, klimit, softmax_f32;
 };
 
 // out[r * ostride + j] = sum_d a[r * ld + d] * M[j][d] for the QT rows of a
 // and keys j < kmax, M streamed through `tile` in KT-row tiles; round = 1
-// multiplies each sum by `scale` in f32 and rounds it to the score dtype.
+// rounds each sum to the score dtype.
 // The column pass sums over d in the same order, so it recomputes the
-// rounded scores bit for bit (the backward runs with scale 1).
+// rounded scores bit for bit.
 template <typename T, int QT>
 __device__ void row_products(const float* a, float* tile, const T* m, long long smt, int hd,
                              int ld, int kmax, float* out, int ostride, bool round,
-                             float scale, int softmax_f32) {
+                             int softmax_f32) {
   constexpr int RG = THREADS / KT;
   constexpr int RPT = QT / RG;
   const int tid = threadIdx.x;
@@ -206,7 +174,7 @@ __device__ void row_products(const float* a, float* tile, const T* m, long long 
 #pragma unroll
       for (int x = 0; x < RPT; ++x)
         out[(rg + x * RG) * ostride + k0 + kj] =
-            round ? score_round<T>(acc[x] * scale, softmax_f32) : acc[x];
+            round ? score_round<T>(acc[x], softmax_f32) : acc[x];
     }
   }
 }
@@ -290,9 +258,8 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 
   // scores, scaled and rounded to the score dtype; BWD: dO V^T rows in f32
-  row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.score_scale,
-                      p.softmax_f32);
-  if (BWD) row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 1.f, 0);
+  row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
+  if (BWD) row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
   __syncthreads();
 
   // softmax of each real row over its valid keys, one warp a row
@@ -597,7 +564,6 @@ RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long 
   p.sob = seq * p.sot;
   p.soh = hd;
   p.scale_q = scale_q;
-  p.score_scale = 1.f;
   p.scale_f32 = scale_f32;
   p.causal = causal;
   p.klimit = (kv_len > 0 && kv_len < seq) ? kv_len : seq;
@@ -612,8 +578,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of q, k, v is contiguous; out is a contiguous [B, T, D].
 // seed: int32, [B, 2] when seed_per_row, else [2]. threshold: drop iff
-// bits < threshold (0 keeps everything, and seed may be null: the sampling
-// attention). keep_w: 1/(1-rate) rounded to the
+// bits < threshold (0 keeps everything). keep_w: 1/(1-rate) rounded to the
 // dtype. scale_q: 1/sqrt(hd) rounded to the dtype. kv_len <= 0 means no
 // key-length mask. Returns a cudaError_t.
 int attention_train_forward(int dtype, const void* q, const void* k, const void* v, void* out,
@@ -655,34 +620,6 @@ int attention_train_backward(int dtype, const void* q, const void* k, const void
   if (dtype == 1)
     return backward<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
                                    threshold, keep_w, keep_f32, batch, p, s);
-  return cudaErrorInvalidValue;
-}
-
-// fused_causal_attention: q, k, v [B, H, T, hd] with strides in elements
-// (the last dimension contiguous), out a contiguous [B, H, T, hd]; q is
-// not scaled, each f32 score is multiplied by score_scale (1/sqrt(hd) in
-// f32), the softmax runs in f32, nothing is dropped. Returns a cudaError_t.
-int causal_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
-                             int batch, int seq, int heads, int hd, long long sqb, long long sqh,
-                             long long sqt, long long skb, long long skh, long long skt,
-                             long long svb, long long svh, long long svt, float score_scale,
-                             int causal, void* stream) {
-  if (!valid_shape(batch, seq, heads, hd)) return cudaErrorInvalidValue;
-  RowArgs p = row_args(seq, heads, hd, sqb, sqt, skb, skt, svb, svt, 1.f, 0.f, causal, 0, 1);
-  p.sqh = sqh;
-  p.skh = skh;
-  p.svh = svh;
-  p.sot = hd;
-  p.soh = (long long)seq * hd;
-  p.sob = heads * p.soh;
-  p.score_scale = score_scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_rows<float, false>(q, k, v, nullptr, out, nullptr, nullptr, 0, 0u, 1.f, 1.f,
-                                       batch, p, s);
-  if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16, false>(q, k, v, nullptr, out, nullptr, nullptr, 0, 0u,
-                                               1.f, 1.f, batch, p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,16 +2,18 @@
 regennet_tpu/ops/pallas_attention.py::fused_attention_btd,
 ::fused_attention_btd_train and ::fused_causal_attention).
 
-The wrappers launch the CUDA kernels of `csrc/attention_btd_train.cu`
-for tensors on the GPU and run their plain versions for tensors on the
-CPU. The [B, T, D] ones compute what their TPU kernels compute: heads are
-column slices of D, q is scaled by 1/sqrt(hd) in the input dtype before
-QK, scores accumulate in f32 and are rounded to the input dtype unless
-`softmax_f32`, masked scores are -1e30, and the weights are cast to v's
-dtype before AV (f32 accumulation).
+The wrappers launch CUDA kernels for tensors on the GPU and run their
+plain versions for tensors on the CPU: `fused_attention_btd` and
+`fused_causal_attention` the tensor-core forward of `csrc/attention_fwd.cu`,
+`fused_attention_btd_train` the forward and backward of
+`csrc/attention_btd_train.cu`. The [B, T, D] ones compute what their TPU
+kernels compute: heads are column slices of D, q is scaled by 1/sqrt(hd)
+in the input dtype before QK, scores accumulate in f32 and are rounded to
+the input dtype unless `softmax_f32`, masked scores are -1e30, and the
+weights are cast to v's dtype before AV (f32 accumulation).
 
-`fused_attention_btd` is the sampling attention: the forward kernel with
-nothing dropped; plain version `attention_btd_reference`.
+`fused_attention_btd` is the sampling attention; plain version
+`attention_btd_reference`.
 
 `fused_attention_btd_train` adds attention-weight dropout and a gradient:
 on the GPU an autograd Function whose forward and backward are kernels;
@@ -42,6 +44,7 @@ from regennet_torch.ops import kernels
 
 NEG_FILL = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 MAX_HEAD_DIM = 256
 
 
@@ -123,19 +126,66 @@ def _check(q, k, v, num_heads, kv_len):
         raise ValueError(f"kv_len must be >= 1, got {kv_len}")
 
 
-def _check_kernel_inputs(q, k, v, B, H, hd):
-    """What the CUDA kernels take beyond the shape checks: device, head
-    dim, grid, layout."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+def kernel_layout(shape, strides, dtype: torch.dtype, addresses):
+    """How the forward kernel loads q, k and v: (copy width in bytes,
+    padded head dim). shape is the [B, H, T, hd] of the three views,
+    strides one 4-tuple (in elements) each, addresses their byte addresses
+    (data_ptr). The width is the widest of 16, 8 and 4 bytes (2 for bf16
+    views that take no wider copy) that divides every batch, head and row
+    stride, the row of hd elements and every address, in bytes; the head
+    dim is zero-padded to a multiple of 16. Raises ValueError for what no
+    kernel takes."""
+    B, H, T, hd = shape
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
-    if B > 65535 or H > 65535 or q.numel() == 0:
-        raise ValueError(f"shape {tuple(q.shape)} with {H} heads is outside the "
-                         "kernel's grid")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1:
+    if B > 65535 or H > 65535 or B * H * T * hd == 0:
+        raise ValueError(f"shape {tuple(shape)} is outside the kernel's grid")
+    for name, st in zip("qkv", strides):
+        if st[3] != 1:
             raise ValueError(f"{name} must be contiguous in its last dimension")
+    item = _ITEMSIZE[dtype]
+    spans = [hd * item, *addresses] + [x * item for st in strides for x in st[:3]]
+    width = next(w for w in (16, 8, 4, item) if all(x % w == 0 for x in spans))
+    return width, -(-hd // 16) * 16
+
+
+def _check_device(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+
+
+def _check_kernel_inputs(q, k, v, B, H, hd):
+    """What the training kernels take beyond the shape checks: device, head
+    dim, grid, layout."""
+    _check_device(q)
+    kernel_layout((B, H, q.shape[1], hd),
+                  [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v)],
+                  q.dtype, [0, 0, 0])
+
+
+def _launch_attention(q, k, v, out, shape, strides, scale_q, score_scale, causal,
+                      kv_len, softmax_f32, what):
+    """The forward kernel of attention_fwd.cu on q, k, v, out read as [B, H,
+    T, hd] `shape` with `strides` (one 4-tuple in elements each)."""
+    B, H, T, hd = shape
+    width, hdp = kernel_layout(shape, strides[:3], q.dtype,
+                               [x.data_ptr() for x in (q, k, v)])
+    lib = _fwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_forward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, T, H, hd, hdp, *(x for st in strides for x in st[:3]),
+            scale_q, score_scale, int(causal), kv_len or 0, int(softmax_f32), width,
+            stream,
+        )
+    _raise_on_error(lib.attention_forward_error_string, rc, what, q, H)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_in(dtype: torch.dtype, hd: int) -> float:
+    """1/sqrt(hd) rounded to dtype."""
+    return float(torch.tensor(1.0 / math.sqrt(hd), dtype=dtype))
 
 
 def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
@@ -151,11 +201,15 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
     if q.device.type == "cpu":
         return attention_btd_reference(q, k, v, num_heads, causal,
                                        softmax_f32, kv_len)
-    _check_kernel_inputs(q, k, v, q.shape[0], num_heads, q.shape[2] // num_heads)
-    cfg = _TrainConfig(num_heads, 0.0, bool(causal), bool(softmax_f32),
-                       0 if kv_len is None else int(kv_len))
-    # the training forward with nothing dropped: no seed is read
-    out = _launch_forward(q, k, v, None, cfg, "attention_btd")
+    _check_device(q)
+    B, T, D = q.shape
+    hd = D // num_heads
+    out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
+    # head h of a [B, T, D] tensor is its columns [h hd, (h + 1) hd)
+    strides = [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v, out)]
+    _launch_attention(q, k, v, out, (B, num_heads, T, hd), strides,
+                      _scale_in(q.dtype, hd), 1.0, causal, kv_len, softmax_f32,
+                      "fused_attention_btd")
     fused_attention_btd.launches += 1
     return out
 
@@ -347,7 +401,7 @@ def _train_scalars(cfg: _TrainConfig, dtype: torch.dtype, hd: int):
     return (
         dropout_threshold(cfg.rate) if cfg.rate > 0.0 else 0,
         float(torch.tensor(keep, dtype=dtype)), float(np.float32(keep)),
-        float(torch.tensor(scale, dtype=dtype)), float(np.float32(scale)),
+        _scale_in(dtype, hd), float(np.float32(scale)),
     )
 
 
@@ -357,22 +411,21 @@ def _strides(q, k, v):
 
 
 def _launch_forward(q, k, v, seed, cfg, what):
-    """The forward kernel into a new [B, T, D] tensor; seed None with rate 0."""
+    """The training forward kernel into a new [B, T, D] tensor."""
     B, T, D = q.shape
     hd = D // cfg.num_heads
     threshold, keep_w, _, scale_q, _ = _train_scalars(cfg, q.dtype, hd)
-    lib = _library()
+    lib = _train_library()
     out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.attention_train_forward(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), None if seed is None else seed.data_ptr(),
-            int(seed is not None and seed.dim() == 2), threshold, keep_w, B, T,
+            out.data_ptr(), seed.data_ptr(), int(seed.dim() == 2), threshold, keep_w, B, T,
             cfg.num_heads, hd, *_strides(q, k, v), scale_q, int(cfg.causal),
             cfg.kv_len, int(cfg.softmax_f32), stream,
         )
-    _raise_on_error(lib, rc, what, q, cfg.num_heads)
+    _raise_on_error(lib.attention_train_error_string, rc, what, q, cfg.num_heads)
     return out
 
 
@@ -400,7 +453,7 @@ class _AttentionTrain(torch.autograd.Function):
                       for _ in range(3))
         stats = torch.empty((3, B, cfg.num_heads, T), dtype=torch.float32,
                             device=q.device)
-        lib = _library()
+        lib = _train_library()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.attention_train_backward(
@@ -411,42 +464,51 @@ class _AttentionTrain(torch.autograd.Function):
                 *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
                 cfg.kv_len, int(cfg.softmax_f32), stream,
             )
-        _raise_on_error(lib, rc, "attention_btd_train backward", q, cfg.num_heads)
+        _raise_on_error(lib.attention_train_error_string, rc,
+                        "attention_btd_train backward", q, cfg.num_heads)
         fused_attention_btd_train.backward_launches += 1
         return dq, dk, dv, None, None
 
 
-def _raise_on_error(lib, rc, what, q, num_heads):
+def _raise_on_error(error_string, rc, what, q, num_heads):
     if rc != 0:
         raise RuntimeError(
             f"{what} launch failed for {tuple(q.shape)} heads={num_heads} "
-            f"{q.dtype}: {lib.attention_train_error_string(rc).decode()}"
+            f"{q.dtype}: {error_string(rc).decode()}"
         )
 
 
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLT, _UINT = ctypes.c_float, ctypes.c_uint
+
+# the extern "C" functions of each kernel source: {name: (restype, argtypes)}
+PROTOTYPES = {
+    "attention_fwd": {
+        "attention_forward": (_INT, [
+            _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, *[_LL] * 12,
+            _FLT, _FLT, _INT, _INT, _INT, _INT, _PTR]),
+        "attention_forward_error_string": (ctypes.c_char_p, [_INT]),
+    },
+    "attention_btd_train": {
+        "attention_train_forward": (_INT, [
+            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _UINT, _FLT, _INT, _INT, _INT, _INT,
+            *[_LL] * 6, _FLT, _INT, _INT, _INT, _PTR]),
+        "attention_train_backward": (_INT, [
+            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _UINT, _FLT,
+            _FLT, _INT, _INT, _INT, _INT, *[_LL] * 6, _FLT, _FLT, _INT, _INT, _INT, _PTR]),
+        "attention_train_error_string": (ctypes.c_char_p, [_INT]),
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = kernels.load_library("attention_btd_train")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    f32, u32 = ctypes.c_float, ctypes.c_uint
-    strides = [i64] * 6
-    lib.attention_train_forward.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, i32, u32, f32, i32, i32, i32, i32,
-        *strides, f32, i32, i32, i32, ptr,
-    ]
-    lib.attention_train_forward.restype = i32
-    lib.attention_train_backward.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, u32, f32, f32,
-        i32, i32, i32, i32, *strides, f32, f32, i32, i32, i32, ptr,
-    ]
-    lib.attention_train_backward.restype = i32
-    lib.causal_attention_forward.argtypes = [
-        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, *([i64] * 9), f32, i32, ptr,
-    ]
-    lib.causal_attention_forward.restype = i32
-    lib.attention_train_error_string.argtypes = [i32]
-    lib.attention_train_error_string.restype = ctypes.c_char_p
-    return lib
+def _fwd_library() -> ctypes.CDLL:
+    return kernels.load_library("attention_fwd", PROTOTYPES["attention_fwd"])
+
+
+@functools.lru_cache(maxsize=None)
+def _train_library() -> ctypes.CDLL:
+    return kernels.load_library("attention_btd_train", PROTOTYPES["attention_btd_train"])
 
 
 # ---------------------------------------------------------------------------
@@ -485,18 +547,12 @@ def fused_causal_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     _check_tensors(q, k, v, "[B, H, T, hd]")
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal)
-    B, H, T, hd = q.shape
-    _check_kernel_inputs(q, k, v, B, H, hd)
-    out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.causal_attention_forward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, T, H, hd, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], _score_scale(hd), int(causal), stream,
-        )
-    _raise_on_error(lib, rc, "fused_causal_attention", q, H)
+    _check_device(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # q unscaled, the f32 score scaled after the dot, an f32 softmax
+    _launch_attention(q, k, v, out, q.shape, [x.stride() for x in (q, k, v, out)], 1.0,
+                      _score_scale(q.shape[3]), causal, None, True,
+                      "fused_causal_attention")
     fused_causal_attention.launches += 1
     return out
 

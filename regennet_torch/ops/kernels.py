@@ -1,30 +1,32 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source `regennet_torch/csrc/<name>.cu` with a plain C
-interface. At first use it is compiled by nvcc for Hopper (`sm_90a`) into
-a shared library under `regennet_torch/build/` (named by a hash of the
-source, so an edited source is rebuilt) and loaded with ctypes. Nothing
-here runs at import time; the CPU tests import this module without nvcc.
+Each kernel library is one source `regennet_torch/csrc/<name>.cu` with a
+plain C interface (it may include headers `csrc/*.cuh`). At first use it
+is compiled by nvcc for Hopper (`sm_90a`) into a shared library under
+`regennet_torch/build/` (named by a hash of the source and the headers it
+includes, so an edit to either is rebuilt) and loaded with ctypes, its
+functions typed from a table of prototypes. Nothing here runs at import
+time; the CPU tests import this module without nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 
 # every kernel source of the port, by name
-KERNELS = ("attention_btd_train",)
+KERNELS = ("attention_fwd", "attention_btd_train")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,9 +45,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(name: str) -> List[Path]:
+    """The source of kernel library `name` and the local headers it
+    includes (`#include "x.cuh"`, followed through headers)."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for header in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(), re.M):
+            if CSRC / header not in found:
+                found.append(CSRC / header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    return BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
@@ -81,8 +96,15 @@ def build_kernels(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     return done
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """The built kernel library, compiling it first if needed."""
+Prototype = Tuple[type, Sequence[type]]  # (restype, argtypes) in ctypes types
+
+
+def load_library(name: str, prototypes: Mapping[str, Prototype]) -> ctypes.CDLL:
+    """The built kernel library with its C functions typed from
+    `prototypes`, compiling it first if needed."""
     build_kernels([name])
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (restype, argtypes) in prototypes.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = list(argtypes)
+    return lib

@@ -10,7 +10,9 @@ the online trunk at f32 batch 32 with CFG 2.5 (phase 6's evaluation
 batches)) it runs `--steps` DDPM steps of `regennet_torch.diffusion.sampling`
 after a warm-up: once untraced for the wall ms per step, once under
 torch.profiler for the device's busy ms per step (the sum of kernel
-time) and the kernels by device time; idle share = 1 - busy / wall.
+time), the kernels by device time and their groups (chip_smoke's
+`_kernel_group`: the attention kernels, cuBLAS GEMMs, LayerNorm, ...);
+idle share = 1 - busy / wall.
 Prints one JSON object and writes it to
 chiprun_out/profile_torch_sampler.json. Needs a CUDA device.
 """
@@ -76,11 +78,16 @@ def profile_request(arch, batch, guidance, dtype, steps):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    groups = {}
+    for name, ms in kernels.items():
+        group = chip_smoke._kernel_group(name)
+        groups[group] = groups.get(group, 0.0) + ms / steps
     return {
         "arch": arch, "batch": batch, "guidance": guidance, "dtype": dtype, "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "kernels_ms_per_step": {k: v / steps for k, v in top},
     }
 

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the port's forward attention kernels at the main path's shapes, for
+A/B runs of two checkouts on one card.
+
+    python3 scripts/time_attention.py [--root CHECKOUT] [--iters 50]
+
+Imports regennet_torch from CHECKOUT (default: this script's checkout),
+builds its kernels, and times each case with CUDA events over `--iters`
+back-to-back calls after a warm-up (inputs L2-warm, as chip_smoke times
+them): B1 `fused_attention_btd` causal at bf16 [128, 150, 512] (the
+flagship request), f32 [64, 150, 512] (the evaluation's batch 32 under
+CFG) and f32 [16, 150, 512] (the f32 request), 4 heads of 128, q, k, v
+column views of one packed projection; B3 `fused_causal_attention` causal
+at bf16 [128, 4, 150, 128]. Run it as parent, change, change, parent in
+one call to compare two versions. Prints one JSON line with the card's
+name and power limit. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CASES = (  # (name, kernel, dtype, B)
+    ("B1 bf16 [128, 150, 512]", "btd", "bfloat16", 128),
+    ("B1 f32 [64, 150, 512]", "btd", "float32", 64),
+    ("B1 f32 [16, 150, 512]", "btd", "float32", 16),
+    ("B3 bf16 [128, 4, 150, 128]", "bhtd", "bfloat16", 128),
+)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    parser.add_argument("--iters", type=int, default=50)
+    opts = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_attention: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, opts.root)
+    from regennet_torch.ops import attention, kernels
+
+    kernels.build_kernels()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    T, D, H = 150, 512, 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for name, kind, dtype, B in CASES:
+        td = getattr(torch, dtype)
+        if kind == "btd":
+            q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(td).split(D, -1)
+
+            def call():
+                return attention.fused_attention_btd(q, k, v, H, True)
+        else:
+            q, k, v = (torch.randn(B, H, T, D // H, device="cuda", generator=gen).to(td)
+                       for _ in range(3))
+
+            def call():
+                return attention.fused_causal_attention(q, k, v, True)
+        for _ in range(5):
+            call()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(opts.iters):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / opts.iters
+    print(json.dumps({"root": opts.root, "card": card, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

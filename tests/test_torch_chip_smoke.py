@@ -84,6 +84,10 @@ def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path)
 
 
 @pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::attention_fwd_kernel<__nv_bfloat16, 160>((anonymous "
+     "namespace)::FwdArgs)", "attention forward (B1, B3)"),
+    ("void (anonymous namespace)::attention_fwd_kernel<float, 64>(FwdArgs)",
+     "attention forward (B1, B3)"),
     ("void (anonymous namespace)::attention_train_rows<float, 16, false>(float const*)",
      "training attention forward"),
     ("void (anonymous namespace)::attention_train_rows<float, 16, true>(float const*)",

@@ -140,3 +140,79 @@ def test_cuda_train_kernels_are_deterministic_and_match_plain_bits():
     torch.testing.assert_close(
         attention.dropout_bits(seeds.cuda(), 2, 4, 33).cpu(),
         attention.dropout_bits(seeds, 2, 4, 33), rtol=0, atol=0)
+
+
+def _b3_tolerance(dtype, ref):
+    """fused_causal_attention rounds where its plain version does: at bf16
+    one output ulp."""
+    scale = max(1.0, float(np.abs(ref).max()))
+    return (1e-5 if dtype == "float32" else 2.0 ** -8) * scale
+
+
+def _check_forward(q, k, v, heads, causal, kv_len, dtype):
+    """The forward kernel through fused_attention_btd on [B, T, D] views,
+    and, without a key-length mask, through fused_causal_attention on the
+    same data read as [B, H, T, hd] views; each against its plain version,
+    with its launch counter."""
+    before = attention.fused_attention_btd.launches
+    out = attention.fused_attention_btd(q, k, v, heads, causal, False, kv_len)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_btd.launches == before + 1
+    ref = attention.attention_btd_reference(q, k, v, heads, causal, False, kv_len)
+    ref_np = ref.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_np, rtol=0,
+                               atol=_tolerance(dtype, ref_np))
+    if kv_len is not None:
+        return
+    B, T, D = q.shape
+    q4, k4, v4 = (x.view(B, T, heads, D // heads).transpose(1, 2) for x in (q, k, v))
+    before = attention.fused_causal_attention.launches
+    out = attention.fused_causal_attention(q4, k4, v4, causal)
+    torch.cuda.synchronize()
+    assert attention.fused_causal_attention.launches == before + 1
+    ref = attention.attention_reference(q4, k4, v4, causal).float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref, rtol=0,
+                               atol=_b3_tolerance(dtype, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 64])
+@pytest.mark.parametrize("T", [16, 20, 60, 150, 151, 197, 256, 512])
+@pytest.mark.parametrize("hd", [40, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", MASKS)
+def test_cuda_forward_kernel_matches_plain_versions(B, T, hd, dtype, mask):
+    """attention_fwd.cu at every sequence length (one chunk of keys in
+    registers, or three passes over chunks), head dim (padded to 16 or not)
+    and mask, on packed [B, T, 3D] views with 2 heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    heads = 2
+    D = heads * hd
+    gen = torch.Generator(device="cuda").manual_seed(T * hd + B)
+    packed = torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(getattr(torch, dtype))
+    q, k, v = packed.split(D, dim=-1)
+    _check_forward(q, k, v, heads, mask == "causal", T - 7 if mask == "kv_len" else None,
+                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,dtype,width", [
+    (1, "bfloat16", 2), (2, "bfloat16", 4), (4, "bfloat16", 8),
+    (1, "float32", 4), (2, "float32", 8), (0, "float32", 16),
+])
+@pytest.mark.parametrize("mask", MASKS)
+def test_cuda_forward_kernel_on_unaligned_views(offset, dtype, width, mask):
+    """Views that start `offset` elements into a row take narrower copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    B, T, heads, hd = 4, 151, 4, 64
+    D = heads * hd
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    packed = torch.randn(B, T, 3 * D + 8, device="cuda", generator=gen).to(getattr(torch, dtype))
+    q, k, v = packed[..., offset:offset + 3 * D].split(D, dim=-1)
+    strides = [(x.stride(0), hd, x.stride(1), 1) for x in (q, k, v)]
+    assert attention.kernel_layout((B, heads, T, hd), strides, q.dtype,
+                                   [x.data_ptr() for x in (q, k, v)]) == (width, hd)
+    _check_forward(q, k, v, heads, mask == "causal", T - 7 if mask == "kv_len" else None,
+                   dtype)
