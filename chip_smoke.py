@@ -8,11 +8,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. the sampling attention kernel against its plain PyTorch version on
      the card, at the sampler's shapes, with the kernel's, the plain
      version's and one PyTorch library call's times beside its bound;
-  2b. the training attention kernels (forward and backward) against
-     autograd of their plain version fed the same dropout bits, and the
-     backward against its own plain version, at the training shapes; the
-     dropout mask's keep fraction, bit-identical repeats and the adjoint
-     identity; their times at the flagship training shape;
+  2b. the training attention kernels (the forward of attention_fwd.cu with
+     dropout, the backward of attention_btd_train.cu) against autograd of
+     their plain version fed the same dropout bits, and the backward
+     against its own plain version, at the training shapes; the forward's
+     dropout mask against dropout_bits on each route of the kernel (T 48,
+     128, 200), its keep fraction, bit-identical repeats and the adjoint
+     identity; their times at the flagship training shape (the forward
+     also at rate 0);
   2c. the [B, H, T, hd] attention kernel (fused_causal_attention, which no
      model path reaches) driven through its entry point at its path's
      shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
@@ -349,38 +352,65 @@ def check_train_kernels(report, card):
     return worst, timing
 
 
-def check_train_mask():
-    """The kernel's dropout mask, read from its output: with q = k = 0 every
-    weight of a query is 1/T, and v = the identity in each head's columns
-    (T = head dim = 128) makes out[b, i, h, j] the kept weight w_ij or 0.
-    Its keep fraction, its equality with the plain bits, bit-identical
-    repeats, and the adjoint identity of the backward."""
+def train_mask(B, T, rate, seeds, causal):
+    """The training forward's dropout mask [B, H, query, key], read from its
+    output: with q = k = 0 every weight a query sees is 1 / (the keys it
+    sees), and v one-hot in each head's columns (v[j, c] = 1 iff j = off +
+    c) makes out[b, i, h, c] the weight of key off + c after dropout, or 0:
+    one call for each hd keys."""
     import torch
 
     from regennet_torch.ops import attention
 
-    B, T, D, H = TRAIN["batch"], 128, FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    D, H = FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
     hd = D // H
-    gen = torch.Generator(device="cuda").manual_seed(2)
     zeros = torch.zeros(B, T, D, device="cuda")
-    eye = torch.eye(T, hd, device="cuda").view(1, T, 1, hd).expand(B, T, H, hd)
-    v = eye.reshape(B, T, D).contiguous()
-    out = {}
-    for rate in (0.1, 0.5):
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda",
-                              generator=gen, dtype=torch.int32)
+    keys, cols = torch.arange(T, device="cuda"), torch.arange(hd, device="cuda")
+    kept = []
+    for off in range(0, T, hd):
+        onehot = (keys[:, None] == off + cols[None, :]).float()
+        v = onehot.view(1, T, 1, hd).expand(B, T, H, hd).reshape(B, T, D).contiguous()
         with torch.no_grad():
             y = attention.fused_attention_btd_train(zeros, zeros, v, H, rate, seeds,
-                                                    causal=False)
-        kept = (y.view(B, T, H, hd) != 0).permute(0, 2, 1, 3)  # [B, H, i, j]
-        frac = float(kept.double().mean())
-        bits = attention.dropout_bits(seeds, B, H, T) >= attention.dropout_threshold(rate)
-        if abs(frac - (1 - rate)) > 0.005 or not torch.equal(kept, bits):
-            raise AssertionError(f"dropout mask at rate {rate}: keep fraction "
-                                 f"{frac} or its bits differ from dropout_bits")
-        out[f"keep_fraction_{rate}"] = frac
-        print(f"  rate {rate}: keep fraction {frac:.5f} over {kept.numel()} weights "
-              "(within 0.005 of 1 - rate), mask equal to dropout_bits")
+                                                    causal=causal)
+        kept.append((y.view(B, T, H, hd) != 0).permute(0, 2, 1, 3)[..., :T - off])
+    return torch.cat(kept, dim=-1)
+
+
+def check_train_mask():
+    """The forward kernel's dropout mask on each of its routes (T = 48: one
+    chunk of 64 keys; 128: one chunk of 160; 200: chunks over three
+    passes), causal or not, against dropout_bits >= threshold on the keys
+    each query sees; its keep fraction; bit-identical repeats; and the
+    adjoint identity of the backward."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, D, H = TRAIN["batch"], FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {"masks": []}
+    for rate in (0.1, 0.5):
+        fracs = []
+        for T in (48, 128, 200):
+            for causal in (False, True):
+                seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda",
+                                      generator=gen, dtype=torch.int32)
+                kept = train_mask(B, T, rate, seeds, causal)
+                seen = torch.ones(T, T, dtype=torch.bool, device="cuda")
+                if causal:
+                    seen = seen.tril()
+                bits = attention.dropout_bits(seeds, B, H, T)
+                want = (bits >= attention.dropout_threshold(rate)) & seen
+                frac = float(kept.sum()) / (B * H * float(seen.sum()))
+                if abs(frac - (1 - rate)) > 0.005 or not torch.equal(kept, want):
+                    raise AssertionError(
+                        f"dropout mask at rate {rate}, T {T}, causal {causal}: keep "
+                        f"fraction {frac} or its bits differ from dropout_bits")
+                out["masks"].append(dict(rate=rate, T=T, causal=causal, keep_fraction=frac))
+                fracs.append(f"{frac:.5f}")
+        print(f"  rate {rate}: masks equal to dropout_bits at T 48, 128, 200, not causal "
+              f"and causal; keep fractions {', '.join(fracs)} (within 0.005 of 1 - rate)")
 
     # bit-identical repeats (f32 and bf16) of forward and gradients
     for dtype in ("float32", "bfloat16"):
@@ -437,7 +467,7 @@ def time_train_kernels(card):
     """Forward and backward times at the flagship training shape (f32,
     B = 64, T = 150, rate 0.1, causal): the kernels, autograd of the plain
     version, and F.scaled_dot_product_attention with dropout (its own mask:
-    a yardstick, not a check)."""
+    a yardstick, not a check); and the forward kernel at rate 0."""
     import warnings
 
     import torch
@@ -479,6 +509,9 @@ def time_train_kernels(card):
         out = fn()
         res[f"{name}_backward_ms"] = time_ms(lambda: torch.autograd.grad(
             out, (q, k, v), grad_out, retain_graph=True), iters=iters)
+    with torch.no_grad():
+        res["kernel_forward_rate0_ms"] = time_ms(
+            lambda: attention.fused_attention_btd_train(q, k, v, H, 0.0, seeds))
     res["forward_bound_ms"], res["forward_bound_by"] = attention_bound_ms(
         B, T, D, H, "float32", True, None)
     res["backward_bound_ms"], res["backward_bound_by"] = attention_bound_ms(
@@ -489,6 +522,8 @@ def time_train_kernels(card):
               f"{res['plain_' + which + '_ms']:.4f} ms, sdpa ({backend}) "
               f"{res['library_' + which + '_ms']:.4f} ms, bound "
               f"{res[which + '_bound_ms']:.4f} ms ({res[which + '_bound_by']}) [{card}]")
+    print(f"  training attention forward at rate 0: kernel "
+          f"{res['kernel_forward_rate0_ms']:.4f} ms [{card}]")
     return res
 
 
@@ -819,7 +854,7 @@ def check_train_step(report, loop, loader, key="train_step_check"):
 
 
 TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
-    ("dense GEMMs (cuBLAS)", ("gemm", "Gemm", "xmma", "cutlass")),
+    ("dense GEMMs (cuBLAS)", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("random draws (dropout masks, seeds, noise)", ("distribution", "philox", "Philox")),
     ("AdamW and EMA (foreach)", ("multi_tensor_apply",)),
@@ -829,13 +864,14 @@ TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match
 
 
 def _kernel_group(name):
-    if "attention_fwd" in name:
-        return "attention forward (B1, B3)"
-    if "attention_train_cols" in name or (
-            "attention_train_rows" in name and "true>" in name):
+    if "attention_fwd_kernel<" in name:
+        # the last template argument is DROP: the training forward's dropout
+        # (at rate 0 the training forward runs B1's instantiation)
+        args = name.split("attention_fwd_kernel<", 1)[1].split(">", 1)[0]
+        return ("training attention forward" if args.endswith("true")
+                else "attention forward (B1, B3)")
+    if "attention_train_rows" in name or "attention_train_cols" in name:
         return "training attention backward"
-    if "attention_train_rows" in name:
-        return "training attention forward"
     return next((g for g, keys in TRAIN_KERNEL_GROUPS if any(k in name for k in keys)),
                 "other elementwise")
 
@@ -1141,11 +1177,12 @@ def main() -> int:
         ("fused_attention_btd", sum(b1.values()), flagship),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape))]
-    for which, line in (("forward", 382), ("backward", 415)):
+    for which, line, source in (("forward", 382, "attention_fwd.cu"),
+                                ("backward", 415, "attention_btd_train.cu")):
         kernel_rows.append({
             "name": f"fused_attention_btd_train ({which})",
             "route": "cuda",
-            "source": "regennet_torch/csrc/attention_btd_train.cu",
+            "source": f"regennet_torch/csrc/{source}",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
             "launches": train_launches[which] + offline_train[which],
             "max_abs_err": train_worst["forward" if which == "forward" else "backward_vjp"],
@@ -1166,6 +1203,10 @@ def main() -> int:
                                          "library_ms")},
     })
     report["kernels"] = kernel_rows
+    print(f"  training attention forward at rate 0 (B1's function): "
+          f"{train_timing['kernel_forward_rate0_ms']:.4f} ms; B1 f32 [64, 150, 512] "
+          f"{eval_shape['ms']:.4f} ms (ratio "
+          f"{train_timing['kernel_forward_rate0_ms'] / eval_shape['ms']:.3f}) [{card}]")
     report["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

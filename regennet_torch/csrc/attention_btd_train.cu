@@ -1,57 +1,44 @@
-// Multi-head attention on [B, T, D] activations with attention-weight
-// dropout, forward and backward, for NVIDIA Hopper (sm_90a): the training
-// attention only. The sampling attention and the [B, H, T, hd] attention
-// run the tensor-core forward of attention_fwd.cu.
+// The backward of multi-head attention on [B, T, D] activations with
+// attention-weight dropout, for NVIDIA Hopper (sm_90a): the training
+// attention's gradient only. Its forward (with dropout), the sampling
+// attention and the [B, H, T, hd] attention run the tensor-core forward of
+// attention_fwd.cu.
 //
-// Replaces the TPU kernel fused_attention_btd_train (custom_vjp
-// _attn_train, bodies _train_fwd_kernel and _train_bwd_kernel, math in
-// _softmax_chunk and _apply_dropout) in regennet_tpu/ops/pallas_attention.py,
-// and computes what it computes:
+// Replaces the backward of the TPU kernel fused_attention_btd_train
+// (custom_vjp _attn_train, body _train_bwd_kernel, math in _softmax_chunk
+// and _apply_dropout) in regennet_tpu/ops/pallas_attention.py, and computes
+// what it computes:
 //   * heads are column slices of D; q is scaled by 1/sqrt(hd) in the input
 //     dtype before QK; scores accumulate in f32 and are rounded to the
 //     score dtype (the input dtype unless softmax_f32); causal and/or
 //     kv_len masks; softmax as max, exp, sum, divide in the score dtype;
-//   * forward: w = P in v's dtype; a weight is kept iff its 32 random bits
-//     are >= threshold = min(floor(rate * 2^32), 2^32 - 1), and kept
-//     weights are multiplied by 1/(1-rate) taken in w's dtype; out = W V
-//     with f32 accumulation;
-//   * backward, from (q, k, v, seeds) and dO only (nothing [B,H,T,T] is
-//     saved): dV = (P.M)^T dO; dP = (dO V^T).M with an f32 keep-scale;
-//     dS = P (dP - rowsum(dP P)) in f32 on the undropped P, rounded to
-//     q's dtype; dQ = scale dS K and dK = scale dS^T Q with the unscaled Q
-//     and the f32 scale, each rounded once.
+//   * from (q, k, v, seeds) and dO only (nothing [B,H,T,T] is saved):
+//     dV = (P.M)^T dO with the forward's dropped weights (P in v's dtype,
+//     kept ones times 1/(1-rate) in that dtype); dP = (dO V^T).M with an
+//     f32 keep-scale; dS = P (dP - rowsum(dP P)) in f32 on the undropped P,
+//     rounded to q's dtype; dQ = scale dS K and dK = scale dS^T Q with the
+//     unscaled Q and the f32 scale, each rounded once.
+// The mask M is the forward's: both draw it with attention_math.cuh's
+// Philox (a weight is kept iff its bits are >= threshold).
 //
-// Dropout bits: Philox4x32-10 keyed by the batch row's two seed words
-// (a replicated [2] seed adds row * 0x9E3779B9 to the first word), with
-// counter (key j, query i, head h, 0); the first output word is the bits.
-// The mask depends on (seed, b, h, i, j) only: not on the grid, the tiles
-// or which kernel asks, so the backward regenerates the forward's mask and
-// the plain version (ops/attention.dropout_bits) computes the same bits.
-//
-// What bounds it on an H100 (f32, B=64, T=150, D=512, causal): forward
-// 4*B*T*D*4 bytes = 78.6 MB (23 us at 3.35 TB/s) against 4*B*pairs*D =
-// 1.48 GFLOP (22 us at 67 TF/s f32); backward 7*B*T*D*4 = 137.6 MB (41 us)
-// against 10*B*pairs*D = 3.71 GFLOP (55 us): the backward is bound by
-// operations.
+// What bounds it on an H100 (f32, B=64, T=150, D=512, causal):
+// 7*B*T*D*4 = 137.6 MB (41 us at 3.35 TB/s) against 10*B*pairs*D = 3.71
+// GFLOP (55 us at 67 TF/s f32): operations.
 //
 // Design (a first, simple one; CUDA-core FMAs from f32 copies in shared
-// memory, no tensor cores yet):
-//   * forward: one block per (query tile, head, batch): whole score rows
-//     in shared memory, exact two-pass softmax (no online rescaling),
-//     dropout applied to each weight before W V; key tiles past the causal
-//     or kv_len limit of the query tile are never loaded;
-//   * backward in two deterministic passes, no atomics:
-//     1. row pass, one block per (query tile, head, batch): recomputes the
-//        tile's score rows exactly as the forward does, computes dO V^T
-//        rows, writes dQ, and writes each row's softmax max and sum (score
-//        dtype) and D_i = sum_j dP_ij P_ij (f32) to a [3, B, H, T] buffer;
-//     2. column pass, one block per (key tile, head, batch): walks the
-//        query tiles that can see its keys (from the tile's first key on
-//        under the causal mask), recomputes P from the row statistics with
-//        the same rounding points, and accumulates dK and dV in registers.
+// memory, no tensor cores yet), in two deterministic passes, no atomics:
+//   1. row pass, one block per (query tile, head, batch): recomputes the
+//      tile's score rows (f32 sums, rounded to the score dtype), computes
+//      dO V^T rows, writes dQ, and writes each row's softmax max and sum
+//      (score dtype) and D_i = sum_j dP_ij P_ij (f32) to a [3, B, H, T]
+//      buffer;
+//   2. column pass, one block per (key tile, head, batch): walks the query
+//      tiles that can see its keys (from the tile's first key on under the
+//      causal mask), recomputes P from the row statistics with the same
+//      rounding points, and accumulates dK and dV in registers.
 // q, k and v may be strided views (columns of one packed [B, T, 3D]
-// projection): only the last dimension must be contiguous. The output (and
-// dO, dQ, dK, dV) take the strides in RowArgs.so*.
+// projection): only the last dimension must be contiguous. dO, dQ, dK and
+// dV take the strides in RowArgs.so*.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,61 +60,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 constexpr int THREADS = 256;
-constexpr int KT = 64;       // key tile of the forward and the row pass
+constexpr int KT = 64;       // key tile of the row pass
 constexpr int CK = 32;       // keys per block in the column pass
 constexpr int CQ = 32;       // query tile of the column pass
 constexpr int MAX_HD = 256;  // largest head dim a launch takes
-
-constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
-constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
-
-// first output word of Philox4x32-10 for counter (c0, c1, c2, 0)
-__device__ __forceinline__ uint32_t philox_word0(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                 uint32_t c1, uint32_t c2) {
-  uint32_t c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = PHILOX_M0 * c0, hi0 = __umulhi(PHILOX_M0, c0);
-    const uint32_t lo1 = PHILOX_M1 * c2, hi1 = __umulhi(PHILOX_M1, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += PHILOX_W0;
-    k1 += PHILOX_W1;
-  }
-  return c0;
-}
-
-struct Dropout {
-  uint32_t k0, k1;     // Philox key of this batch row
-  uint32_t threshold;  // drop iff bits < threshold; 0 keeps every weight
-  float scale_w;       // 1/(1-rate) in the weights' dtype
-  float scale_f32;     // 1/(1-rate) in f32, for dP
-
-  __device__ __forceinline__ bool keep(int h, int i, int j) const {
-    return threshold == 0u || philox_word0(k0, k1, (uint32_t)j, (uint32_t)i, (uint32_t)h) >= threshold;
-  }
-};
-
-__device__ __forceinline__ Dropout make_dropout(const int* seed, int seed_per_row, long long b,
-                                                uint32_t threshold, float scale_w,
-                                                float scale_f32) {
-  Dropout d;
-  if (threshold == 0u) {  // nothing is dropped; seed may be null
-    d.k0 = d.k1 = 0u;
-  } else if (seed_per_row) {
-    d.k0 = (uint32_t)seed[2 * b];
-    d.k1 = (uint32_t)seed[2 * b + 1];
-  } else {
-    d.k0 = (uint32_t)seed[0] + (uint32_t)b * PHILOX_W0;
-    d.k1 = (uint32_t)seed[1];
-  }
-  d.threshold = threshold;
-  d.scale_w = scale_w;
-  d.scale_f32 = scale_f32;
-  return d;
-}
 
 struct RowArgs {
   int seq, heads, hd;
@@ -213,30 +149,29 @@ __device__ void row_weighted_sum(const float* w, int wstride, float* tile, const
 }
 
 template <int QT>
-size_t row_smem_bytes(int hd, int klimit, bool bwd) {
-  const size_t rows = (size_t)(QT + KT + (bwd ? QT : 0)) * (hd + 1);
-  return sizeof(float) * (rows + (size_t)(bwd ? 2 : 1) * QT * klimit);
+size_t row_smem_bytes(int hd, int klimit) {
+  const size_t rows = (size_t)(2 * QT + KT) * (hd + 1);
+  return sizeof(float) * (rows + (size_t)2 * QT * klimit);
 }
 
-// Forward (BWD = false) or the backward's row pass (BWD = true).
+// Backward row pass: reads dO and writes dQ (both in the output strides)
+// and stats [3, B, H, T] (row max, row sum, D_i).
 // grid: (ceil(seq / QT), heads, batch); THREADS threads.
-// Forward writes out; the row pass reads dO and writes dQ (all three in
-// the output strides) and stats [3, B, H, T] (row max, row sum, D_i).
-template <typename T, int QT, bool BWD>
+template <typename T, int QT>
 __global__ void __launch_bounds__(THREADS)
 attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, T* __restrict__ out, float* __restrict__ stats,
+                     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
                      const int* __restrict__ seed, int seed_per_row, uint32_t threshold,
-                     float keep_w, float keep_f32, RowArgs p) {
+                     float keep_f32, RowArgs p) {
   constexpr int ACC = (QT * MAX_HD + THREADS - 1) / THREADS;
   extern __shared__ float smem[];
   const int hd = p.hd, seq = p.seq, klimit = p.klimit;
   const int ld = hd + 1;
   float* qs = smem;               // [QT][ld] scaled queries
   float* tile = qs + QT * ld;     // [KT][ld] key / value tile
-  float* sc = tile + KT * ld;     // [QT][klimit] scores, then P (forward: dropped W)
-  float* dos = sc + QT * klimit;  // BWD: [QT][ld] dO rows
-  float* dps = dos + QT * ld;     // BWD: [QT][klimit] dO V^T, then dS
+  float* sc = tile + KT * ld;     // [QT][klimit] scores, then P
+  float* dos = sc + QT * klimit;  // [QT][ld] dO rows
+  float* dps = dos + QT * ld;     // [QT][klimit] dO V^T, then dS
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QT;
@@ -244,25 +179,25 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const long long b = blockIdx.z;
   const int rows = min(QT, seq - q0);
   const int kmax = p.causal ? min(klimit, q0 + rows) : klimit;
-  const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, keep_w, keep_f32);
+  const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, 1.f, keep_f32);
 
   const T* qb = q + b * p.sqb + h * p.sqh;
   const T* kb = k + b * p.skb + h * p.skh;
   const T* vb = v + b * p.svb + h * p.svh;
-  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in out / dO / dQ
+  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dQ
 
   for (int i = tid; i < QT * hd; i += THREADS) {
     const int r = i / hd, d = i - r * hd;
     qs[r * ld + d] = r < rows ? round_to<T>(to_f32<T>(qb[(q0 + r) * p.sqt + d]) * p.scale_q) : 0.f;
-    if (BWD) dos[r * ld + d] = r < rows ? to_f32<T>(dout[ob + (q0 + r) * p.sot + d]) : 0.f;
+    dos[r * ld + d] = r < rows ? to_f32<T>(dout[ob + (q0 + r) * p.sot + d]) : 0.f;
   }
 
-  // scores, scaled and rounded to the score dtype; BWD: dO V^T rows in f32
+  // scores, scaled and rounded to the score dtype; dO V^T rows in f32
   row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
-  if (BWD) row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
+  row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
   __syncthreads();
 
-  // softmax of each real row over its valid keys, one warp a row
+  // softmax of each real row over its valid keys, then dS, one warp a row
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < rows; r += THREADS / 32) {
     const int i = q0 + r;
@@ -278,45 +213,30 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
       sum += e;
     }
     sum = score_round<T>(warp_sum(sum), p.softmax_f32);
-    if (!BWD) {
-      // dropped weights in v's dtype; masked keys in [n, kmax) weigh 0
-      for (int j = lane; j < kmax; j += 32) {
-        float w = 0.f;
-        if (j < n) {
-          w = round_to<T>(score_round<T>(srow[j] / sum, p.softmax_f32));
-          if (drop.threshold) w = drop.keep(h, i, j) ? round_to<T>(w * drop.scale_w) : 0.f;
-        }
-        srow[j] = w;
-      }
-    } else {
-      float* drow = dps + r * klimit;
-      float dsum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float pij = score_round<T>(srow[j] / sum, p.softmax_f32);
-        const float dp = drop.keep(h, i, j) ? drow[j] * drop.scale_f32 : 0.f;
-        srow[j] = pij;
-        drow[j] = dp;
-        dsum += dp * pij;
-      }
-      dsum = warp_sum(dsum);
-      for (int j = lane; j < kmax; j += 32)
-        drow[j] = j < n ? round_to<T>(srow[j] * (drow[j] - dsum)) : 0.f;
-      if (lane == 0) {
-        const long long plane = (long long)gridDim.z * p.heads * seq;
-        const long long at = (b * p.heads + h) * seq + i;
-        stats[at] = m;
-        stats[plane + at] = sum;
-        stats[2 * plane + at] = dsum;
-      }
+    float* drow = dps + r * klimit;
+    float dsum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float pij = score_round<T>(srow[j] / sum, p.softmax_f32);
+      const float dp = drop.keep(h, i, j) ? drow[j] * drop.scale_f32 : 0.f;
+      srow[j] = pij;
+      drow[j] = dp;
+      dsum += dp * pij;
+    }
+    dsum = warp_sum(dsum);
+    for (int j = lane; j < kmax; j += 32)
+      drow[j] = j < n ? round_to<T>(srow[j] * (drow[j] - dsum)) : 0.f;
+    if (lane == 0) {
+      const long long plane = (long long)gridDim.z * p.heads * seq;
+      const long long at = (b * p.heads + h) * seq + i;
+      stats[at] = m;
+      stats[plane + at] = sum;
+      stats[2 * plane + at] = dsum;
     }
   }
 
-  // forward: out = W V; row pass: dQ = scale * dS K
+  // dQ = scale * dS K
   float o[ACC];
-  if (!BWD)
-    row_weighted_sum<T, QT, ACC>(sc, klimit, tile, vb, p.svt, hd, ld, kmax, o);
-  else
-    row_weighted_sum<T, QT, ACC>(dps, klimit, tile, kb, p.skt, hd, ld, kmax, o);
+  row_weighted_sum<T, QT, ACC>(dps, klimit, tile, kb, p.skt, hd, ld, kmax, o);
 
   const int nout = QT * hd;
 #pragma unroll
@@ -324,7 +244,7 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int e = tid + a * THREADS;
     if (e < nout) {
       const int r = e / hd, d = e - r * hd;
-      if (r < rows) out[ob + (q0 + r) * p.sot + d] = from_f32<T>(BWD ? o[a] * p.scale_f32 : o[a]);
+      if (r < rows) dq[ob + (q0 + r) * p.sot + d] = from_f32<T>(o[a] * p.scale_f32);
     }
   }
 }
@@ -477,39 +397,38 @@ cudaError_t shared_memory_cap(int* cap) {
   return err;
 }
 
-template <typename T, int QT, bool BWD>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* dout, void* out,
+template <typename T, int QT>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* dout, void* dq,
                         float* stats, const int* seed, int seed_per_row, uint32_t threshold,
-                        float keep_w, float keep_f32, int batch, const RowArgs& p,
-                        cudaStream_t stream) {
-  const size_t smem = row_smem_bytes<QT>(p.hd, p.klimit, BWD);
-  auto kernel = attention_train_rows<T, QT, BWD>;
+                        float keep_f32, int batch, const RowArgs& p, cudaStream_t stream) {
+  const size_t smem = row_smem_bytes<QT>(p.hd, p.klimit);
+  auto kernel = attention_train_rows<T, QT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + QT - 1) / QT, p.heads, batch);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(out), stats, seed, seed_per_row, threshold,
-      keep_w, keep_f32, p);
+      static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
+      keep_f32, p);
   return cudaGetLastError();
 }
 
-// the widest query tile whose score rows fit in shared memory
-template <typename T, bool BWD>
+// the row pass at the widest query tile whose score rows fit in shared memory
+template <typename T>
 cudaError_t dispatch_rows(const void* q, const void* k, const void* v, const void* dout,
-                          void* out, float* stats, const int* seed, int seed_per_row,
-                          uint32_t threshold, float keep_w, float keep_f32, int batch,
-                          const RowArgs& p, cudaStream_t stream) {
+                          void* dq, float* stats, const int* seed, int seed_per_row,
+                          uint32_t threshold, float keep_f32, int batch, const RowArgs& p,
+                          cudaStream_t stream) {
   int cap = 0;
   cudaError_t err = shared_memory_cap(&cap);
   if (err != cudaSuccess) return err;
-  if (row_smem_bytes<16>(p.hd, p.klimit, BWD) <= (size_t)cap)
-    return launch_rows<T, 16, BWD>(q, k, v, dout, out, stats, seed, seed_per_row, threshold,
-                                   keep_w, keep_f32, batch, p, stream);
-  if (row_smem_bytes<4>(p.hd, p.klimit, BWD) <= (size_t)cap)
-    return launch_rows<T, 4, BWD>(q, k, v, dout, out, stats, seed, seed_per_row, threshold,
-                                  keep_w, keep_f32, batch, p, stream);
+  if (row_smem_bytes<16>(p.hd, p.klimit) <= (size_t)cap)
+    return launch_rows<T, 16>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold, keep_f32,
+                              batch, p, stream);
+  if (row_smem_bytes<4>(p.hd, p.klimit) <= (size_t)cap)
+    return launch_rows<T, 4>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold, keep_f32,
+                             batch, p, stream);
   return cudaErrorInvalidValue;  // sequence too long for this design
 }
 
@@ -518,8 +437,8 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* do
                      void* dk, void* dv, float* stats, const int* seed, int seed_per_row,
                      uint32_t threshold, float keep_w, float keep_f32, int batch,
                      const RowArgs& p, cudaStream_t stream) {
-  cudaError_t err = dispatch_rows<T, true>(q, k, v, dout, dq, stats, seed, seed_per_row,
-                                           threshold, keep_w, keep_f32, batch, p, stream);
+  cudaError_t err = dispatch_rows<T>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
+                                     keep_f32, batch, p, stream);
   if (err != cudaSuccess) return err;
   int cap = 0;
   err = shared_memory_cap(&cap);
@@ -576,33 +495,13 @@ RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
-// dimension of q, k, v is contiguous; out is a contiguous [B, T, D].
-// seed: int32, [B, 2] when seed_per_row, else [2]. threshold: drop iff
-// bits < threshold (0 keeps everything). keep_w: 1/(1-rate) rounded to the
-// dtype. scale_q: 1/sqrt(hd) rounded to the dtype. kv_len <= 0 means no
-// key-length mask. Returns a cudaError_t.
-int attention_train_forward(int dtype, const void* q, const void* k, const void* v, void* out,
-                            const int* seed, int seed_per_row, unsigned int threshold,
-                            float keep_w, int batch, int seq, int heads, int hd, long long sqb,
-                            long long sqt, long long skb, long long skt, long long svb,
-                            long long svt, float scale_q, int causal, int kv_len,
-                            int softmax_f32, void* stream) {
-  if (!valid_shape(batch, seq, heads, hd)) return cudaErrorInvalidValue;
-  const RowArgs p = row_args(seq, heads, hd, sqb, sqt, skb, skt, svb, svt, scale_q, 0.f,
-                             causal, kv_len, softmax_f32);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_rows<float, false>(q, k, v, nullptr, out, nullptr, seed, seed_per_row,
-                                       threshold, keep_w, 1.f, batch, p, s);
-  if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16, false>(q, k, v, nullptr, out, nullptr, seed,
-                                               seed_per_row, threshold, keep_w, 1.f, batch, p, s);
-  return cudaErrorInvalidValue;
-}
-
-// As the forward, plus: dout, dq, dk, dv are contiguous [B, T, D] in the
-// dtype; stats is f32 scratch of 3 * B * H * T; keep_f32 is 1/(1-rate) in
-// f32; scale_f32 is 1/sqrt(hd) in f32.
+// dimension of q, k, v is contiguous; dout, dq, dk, dv are contiguous
+// [B, T, D] in the dtype. stats is f32 scratch of 3 * B * H * T. seed:
+// int32, [B, 2] when seed_per_row, else [2]. threshold: drop iff bits <
+// threshold (0 keeps everything). keep_w: 1/(1-rate) rounded to the dtype;
+// keep_f32: 1/(1-rate) in f32. scale_q: 1/sqrt(hd) rounded to the dtype;
+// scale_f32: 1/sqrt(hd) in f32. kv_len <= 0 means no key-length mask.
+// Returns a cudaError_t.
 int attention_train_backward(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, void* dq, void* dk, void* dv, float* stats,
                              const int* seed, int seed_per_row, unsigned int threshold,

@@ -1,9 +1,12 @@
-// Rounding helpers that the attention kernels share, so that the forward
-// kernel (attention_fwd.cu) and the training kernels (attention_btd_train.cu)
-// round at the same points as their plain versions in ops/attention.py.
+// What the attention kernels share: the rounding helpers, so that the
+// forward kernel (attention_fwd.cu) and the training backward
+// (attention_btd_train.cu) round at the same points as their plain versions
+// in ops/attention.py, and the one Philox draw of the dropout mask, so that
+// the backward regenerates the forward's mask bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -32,6 +35,63 @@ template <typename T> __device__ __forceinline__ float score_round(float x, int 
 // softmax numerator exp(s - m) with the score dtype's rounding points
 template <typename T> __device__ __forceinline__ float softmax_num(float s, float m, int softmax_f32) {
   return softmax_f32 ? expf(s - m) : round_to<T>(expf(round_to<T>(s - m)));
+}
+
+// Dropout bits: Philox4x32-10 keyed by the batch row's two seed words (a
+// replicated [2] seed adds row * 0x9E3779B9 to the first word), with counter
+// (key j, query i, head h, 0); the first output word is the bits. The mask
+// depends on (seed, b, h, i, j) only: not on the grid, the tiles or which
+// kernel asks, and the plain version (ops/attention.dropout_bits) computes
+// the same bits.
+constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
+constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+
+// first output word of Philox4x32-10 for counter (c0, c1, c2, 0)
+__device__ __forceinline__ uint32_t philox_word0(uint32_t k0, uint32_t k1, uint32_t c0,
+                                                 uint32_t c1, uint32_t c2) {
+  uint32_t c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = PHILOX_M0 * c0, hi0 = __umulhi(PHILOX_M0, c0);
+    const uint32_t lo1 = PHILOX_M1 * c2, hi1 = __umulhi(PHILOX_M1, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += PHILOX_W0;
+    k1 += PHILOX_W1;
+  }
+  return c0;
+}
+
+struct Dropout {
+  uint32_t k0, k1;     // Philox key of this batch row
+  uint32_t threshold;  // drop iff bits < threshold; 0 keeps every weight
+  float scale_w;       // 1/(1-rate) in the weights' dtype
+  float scale_f32;     // 1/(1-rate) in f32, for dP
+
+  __device__ __forceinline__ bool keep(int h, int i, int j) const {
+    return threshold == 0u || philox_word0(k0, k1, (uint32_t)j, (uint32_t)i, (uint32_t)h) >= threshold;
+  }
+};
+
+__device__ __forceinline__ Dropout make_dropout(const int* seed, int seed_per_row, long long b,
+                                                uint32_t threshold, float scale_w,
+                                                float scale_f32) {
+  Dropout d;
+  if (threshold == 0u) {  // nothing is dropped; seed may be null
+    d.k0 = d.k1 = 0u;
+  } else if (seed_per_row) {
+    d.k0 = (uint32_t)seed[2 * b];
+    d.k1 = (uint32_t)seed[2 * b + 1];
+  } else {
+    d.k0 = (uint32_t)seed[0] + (uint32_t)b * PHILOX_W0;
+    d.k1 = (uint32_t)seed[1];
+  }
+  d.threshold = threshold;
+  d.scale_w = scale_w;
+  d.scale_f32 = scale_f32;
+  return d;
 }
 
 }  // namespace

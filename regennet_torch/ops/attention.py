@@ -3,9 +3,10 @@ regennet_tpu/ops/pallas_attention.py::fused_attention_btd,
 ::fused_attention_btd_train and ::fused_causal_attention).
 
 The wrappers launch CUDA kernels for tensors on the GPU and run their
-plain versions for tensors on the CPU: `fused_attention_btd` and
-`fused_causal_attention` the tensor-core forward of `csrc/attention_fwd.cu`,
-`fused_attention_btd_train` the forward and backward of
+plain versions for tensors on the CPU: `fused_attention_btd`,
+`fused_causal_attention` and the forward of `fused_attention_btd_train`
+the tensor-core forward of `csrc/attention_fwd.cu` (the last with its
+dropout), the backward of `fused_attention_btd_train`
 `csrc/attention_btd_train.cu`. The [B, T, D] ones compute what their TPU
 kernels compute: heads are column slices of D, q is scaled by 1/sqrt(hd)
 in the input dtype before QK, scores accumulate in f32 and are rounded to
@@ -154,32 +155,70 @@ def _check_device(q):
         raise ValueError(f"no attention kernel for device {q.device}")
 
 
+def _head_strides(strides, hd: int):
+    """[B, H, T, hd] strides of [B, T, D] tensors with these strides: head h
+    is columns [h hd, (h + 1) hd)."""
+    return [(st[0], hd, st[1], st[2]) for st in strides]
+
+
 def _check_kernel_inputs(q, k, v, B, H, hd):
     """What the training kernels take beyond the shape checks: device, head
     dim, grid, layout."""
     _check_device(q)
-    kernel_layout((B, H, q.shape[1], hd),
-                  [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v)],
+    kernel_layout((B, H, q.shape[1], hd), _head_strides([x.stride() for x in (q, k, v)], hd),
                   q.dtype, [0, 0, 0])
 
 
-def _launch_attention(q, k, v, out, shape, strides, scale_q, score_scale, causal,
-                      kv_len, softmax_f32, what):
-    """The forward kernel of attention_fwd.cu on q, k, v, out read as [B, H,
-    T, hd] `shape` with `strides` (one 4-tuple in elements each)."""
+class ForwardArgs(NamedTuple):
+    """The arguments of attention_fwd.cu's `attention_forward` beside the
+    pointers (q, k, v, out, seed) and the stream."""
+    dtype: int  # 0 float32, 1 bfloat16
+    batch: int
+    seq: int
+    heads: int
+    hd: int
+    hdp: int  # hd padded to a multiple of 16
+    strides: tuple  # (batch, head, row) strides of q, k, v, out in elements
+    scale_q: float
+    score_scale: float
+    causal: int
+    kv_len: int  # 0: no key-length mask
+    softmax_f32: int
+    copy_bytes: int
+    seed_per_row: int  # 1: seed is [B, 2]; 0: [2]
+    threshold: int  # drop iff bits < threshold; 0 drops nothing
+    keep_w: float  # kept weights' scale, 1/(1-rate) in the dtype
+
+
+def forward_args(shape, strides, dtype: torch.dtype, addresses, scale_q: float,
+                 score_scale: float, causal: bool, kv_len: Optional[int],
+                 softmax_f32: bool, seed_per_row: int = 0, threshold: int = 0,
+                 keep_w: float = 1.0) -> ForwardArgs:
+    """attention_forward's arguments for q, k, v, out read as [B, H, T, hd]
+    `shape` with `strides` (one 4-tuple in elements each), the copy width
+    from kernel_layout on q, k and v's byte `addresses`."""
     B, H, T, hd = shape
-    width, hdp = kernel_layout(shape, strides[:3], q.dtype,
-                               [x.data_ptr() for x in (q, k, v)])
+    width, hdp = kernel_layout(shape, strides[:3], dtype, addresses)
+    return ForwardArgs(_DTYPE_CODE[dtype], B, T, H, hd, hdp,
+                       tuple(x for st in strides for x in st[:3]), scale_q, score_scale,
+                       int(causal), kv_len or 0, int(softmax_f32), width, seed_per_row,
+                       threshold, keep_w)
+
+
+def _launch_attention(q, k, v, out, args: ForwardArgs, what, seed=None):
+    """The forward kernel of attention_fwd.cu on q, k, v, out (and the
+    dropout seed) with `args`."""
     lib = _fwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.attention_forward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, T, H, hd, hdp, *(x for st in strides for x in st[:3]),
-            scale_q, score_scale, int(causal), kv_len or 0, int(softmax_f32), width,
-            stream,
+            args.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            args.batch, args.seq, args.heads, args.hd, args.hdp, *args.strides,
+            args.scale_q, args.score_scale, args.causal, args.kv_len, args.softmax_f32,
+            args.copy_bytes, None if seed is None else seed.data_ptr(), args.seed_per_row,
+            args.threshold, args.keep_w, stream,
         )
-    _raise_on_error(lib.attention_forward_error_string, rc, what, q, H)
+    _raise_on_error(lib.attention_forward_error_string, rc, what, q, args.heads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,11 +244,11 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
     B, T, D = q.shape
     hd = D // num_heads
     out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
-    # head h of a [B, T, D] tensor is its columns [h hd, (h + 1) hd)
-    strides = [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v, out)]
-    _launch_attention(q, k, v, out, (B, num_heads, T, hd), strides,
-                      _scale_in(q.dtype, hd), 1.0, causal, kv_len, softmax_f32,
-                      "fused_attention_btd")
+    args = forward_args((B, num_heads, T, hd),
+                        _head_strides([x.stride() for x in (q, k, v, out)], hd), q.dtype,
+                        [x.data_ptr() for x in (q, k, v)], _scale_in(q.dtype, hd), 1.0,
+                        causal, kv_len, softmax_f32)
+    _launch_attention(q, k, v, out, args, "fused_attention_btd")
     fused_attention_btd.launches += 1
     return out
 
@@ -361,11 +400,12 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     attention-weight dropout at `dropout_rate` (0 <= rate < 1).
 
     seed: int32 [B, 2] (per-row seeds, as the model draws them) or [2].
-    On the GPU the forward and the backward are CUDA kernels on the current
-    stream (or this raises); the backward regenerates the mask from the
-    seed and saves nothing [B, H, T, T]. On the CPU the plain version runs
-    under autograd. `fused_attention_btd_train.launches` and
-    `.backward_launches` count kernel launches."""
+    On the GPU the forward (attention_fwd.cu, with dropout at rate > 0) and
+    the backward are CUDA kernels on the current stream (or this raises);
+    the backward regenerates the mask from the seed and saves nothing [B,
+    H, T, T]. On the CPU the plain version runs under autograd.
+    `fused_attention_btd_train.launches` and `.backward_launches` count
+    kernel launches."""
     _check(q, k, v, num_heads, kv_len)
     _check_seed(seed, q.shape[0])
     if not 0.0 <= dropout_rate < 1.0:
@@ -410,23 +450,20 @@ def _strides(q, k, v):
             v.stride(0), v.stride(1))
 
 
-def _launch_forward(q, k, v, seed, cfg, what):
-    """The training forward kernel into a new [B, T, D] tensor."""
-    B, T, D = q.shape
+def train_forward_args(shape, strides, dtype: torch.dtype, addresses, seed_shape,
+                       cfg: _TrainConfig) -> ForwardArgs:
+    """attention_forward's arguments for the training forward of [B, T, D]
+    `shape` q, k, v with `strides` (a 3-tuple each) at byte `addresses`,
+    into a contiguous [B, T, D] output: B1's head strides and copy width,
+    and the dropout of `cfg` with a seed of `seed_shape`."""
+    B, T, D = shape
     hd = D // cfg.num_heads
-    threshold, keep_w, _, scale_q, _ = _train_scalars(cfg, q.dtype, hd)
-    lib = _train_library()
-    out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.attention_train_forward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), seed.data_ptr(), int(seed.dim() == 2), threshold, keep_w, B, T,
-            cfg.num_heads, hd, *_strides(q, k, v), scale_q, int(cfg.causal),
-            cfg.kv_len, int(cfg.softmax_f32), stream,
-        )
-    _raise_on_error(lib.attention_train_error_string, rc, what, q, cfg.num_heads)
-    return out
+    threshold, keep_w, _, scale_q, _ = _train_scalars(cfg, dtype, hd)
+    views = _head_strides([*strides, (T * D, D, 1)], hd)
+    return forward_args((B, cfg.num_heads, T, hd), views, dtype, addresses, scale_q, 1.0,
+                        cfg.causal, cfg.kv_len, cfg.softmax_f32,
+                        seed_per_row=int(len(seed_shape) == 2), threshold=threshold,
+                        keep_w=keep_w)
 
 
 class _AttentionTrain(torch.autograd.Function):
@@ -434,7 +471,10 @@ class _AttentionTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, seed, cfg):
-        out = _launch_forward(q, k, v, seed, cfg, "attention_btd_train forward")
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        args = train_forward_args(q.shape, [x.stride() for x in (q, k, v)], q.dtype,
+                                  [x.data_ptr() for x in (q, k, v)], seed.shape, cfg)
+        _launch_attention(q, k, v, out, args, "attention_btd_train forward", seed)
         fused_attention_btd_train.launches += 1
         ctx.save_for_backward(q, k, v, seed)
         ctx.cfg = cfg
@@ -486,13 +526,10 @@ PROTOTYPES = {
     "attention_fwd": {
         "attention_forward": (_INT, [
             _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, *[_LL] * 12,
-            _FLT, _FLT, _INT, _INT, _INT, _INT, _PTR]),
+            _FLT, _FLT, _INT, _INT, _INT, _INT, _PTR, _INT, _UINT, _FLT, _PTR]),
         "attention_forward_error_string": (ctypes.c_char_p, [_INT]),
     },
     "attention_btd_train": {
-        "attention_train_forward": (_INT, [
-            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _UINT, _FLT, _INT, _INT, _INT, _INT,
-            *[_LL] * 6, _FLT, _INT, _INT, _INT, _PTR]),
         "attention_train_backward": (_INT, [
             _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _UINT, _FLT,
             _FLT, _INT, _INT, _INT, _INT, *[_LL] * 6, _FLT, _FLT, _INT, _INT, _INT, _PTR]),
@@ -550,9 +587,10 @@ def fused_causal_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     _check_device(q)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     # q unscaled, the f32 score scaled after the dot, an f32 softmax
-    _launch_attention(q, k, v, out, q.shape, [x.stride() for x in (q, k, v, out)], 1.0,
-                      _score_scale(q.shape[3]), causal, None, True,
-                      "fused_causal_attention")
+    args = forward_args(q.shape, [x.stride() for x in (q, k, v, out)], q.dtype,
+                        [x.data_ptr() for x in (q, k, v)], 1.0, _score_scale(q.shape[3]),
+                        causal, None, True)
+    _launch_attention(q, k, v, out, args, "fused_causal_attention")
     fused_causal_attention.launches += 1
     return out
 

@@ -59,7 +59,7 @@ VARIANTS = {
     ],
 }
 SHAPES = (("bfloat16", 128), ("float32", 64))
-FLAGSHIP = "attention_fwd_kernelI13__nv_bfloat16Li160ELb0ELb0E"
+FLAGSHIP = "attention_fwd_kernelI13__nv_bfloat16Li160ELb0ELb0ELb0E"
 
 
 def variant_source(src: str, edits) -> str:
@@ -118,15 +118,14 @@ def device_us(lib, dtype, batch):
     q, k, v = torch.randn(batch, T, 3 * D, device="cuda", generator=gen).to(td).split(D, -1)
     out = torch.empty(batch, T, D, device="cuda", dtype=td)
     strides = [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v, out)]
-    width, hdp = attention.kernel_layout((batch, H, T, hd), strides[:3], td,
-                                         [x.data_ptr() for x in (q, k, v)])
-    scale = float(torch.tensor(hd ** -0.5, dtype=td))
+    a = attention.forward_args((batch, H, T, hd), strides, td, [x.data_ptr() for x in (q, k, v)],
+                               float(torch.tensor(hd ** -0.5, dtype=td)), 1.0, True, None, False)
 
     def call():
         rc = lib.attention_forward(
-            attention._DTYPE_CODE[td], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, T, H, hd, hdp, *(x for st in strides for x in st[:3]), scale, 1.0, 1, 0, 0,
-            width, torch.cuda.current_stream().cuda_stream)
+            a.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), a.batch, a.seq,
+            a.heads, a.hd, a.hdp, *a.strides, a.scale_q, a.score_scale, a.causal, a.kv_len,
+            a.softmax_f32, a.copy_bytes, None, 0, 0, 1.0, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: {rc}")
 

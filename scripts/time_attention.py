@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's forward attention kernels at the main path's shapes, for
-A/B runs of two checkouts on one card.
+"""Time the port's attention kernels at the main path's shapes, for A/B
+runs of two checkouts on one card.
 
     python3 scripts/time_attention.py [--root CHECKOUT] [--iters 50]
 
@@ -10,10 +10,13 @@ back-to-back calls after a warm-up (inputs L2-warm, as chip_smoke times
 them): B1 `fused_attention_btd` causal at bf16 [128, 150, 512] (the
 flagship request), f32 [64, 150, 512] (the evaluation's batch 32 under
 CFG) and f32 [16, 150, 512] (the f32 request), 4 heads of 128, q, k, v
-column views of one packed projection; B3 `fused_causal_attention` causal
-at bf16 [128, 4, 150, 128]. Run it as parent, change, change, parent in
-one call to compare two versions. Prints one JSON line with the card's
-name and power limit. Needs a CUDA device.
+column views of one packed projection; B2 `fused_attention_btd_train`
+at the training shape, f32 [64, 150, 512] causal with per-row seeds: its
+forward at rate 0.1 and at rate 0, and its backward at rate 0.1; B3
+`fused_causal_attention` causal at bf16 [128, 4, 150, 128]. Run it as
+parent, change, change, parent in one call to compare two versions.
+Prints one JSON line with the card's name and power limit. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ CASES = (  # (name, kernel, dtype, B)
     ("B1 bf16 [128, 150, 512]", "btd", "bfloat16", 128),
     ("B1 f32 [64, 150, 512]", "btd", "float32", 64),
     ("B1 f32 [16, 150, 512]", "btd", "float32", 16),
+    ("B2 forward f32 [64, 150, 512] rate 0.1", "train 0.1", "float32", 64),
+    ("B2 forward f32 [64, 150, 512] rate 0", "train 0.0", "float32", 64),
+    ("B2 backward f32 [64, 150, 512] rate 0.1", "backward 0.1", "float32", 64),
     ("B3 bf16 [128, 4, 150, 128]", "bhtd", "bfloat16", 128),
 )
 
@@ -59,6 +65,21 @@ def main() -> int:
 
             def call():
                 return attention.fused_attention_btd(q, k, v, H, True)
+        elif kind.startswith(("train", "backward")):
+            # as chip_smoke phase 2b times them: q, k, v [B, T, D] tensors
+            rate = float(kind.split()[1])
+            backward = kind.startswith("backward")
+            q, k, v = (torch.randn(B, T, D, device="cuda", generator=gen).to(td)
+                       .requires_grad_(backward) for _ in range(3))
+            seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                                  dtype=torch.int32)
+            out = attention.fused_attention_btd_train(q, k, v, H, rate, seeds)
+            dout = torch.randn(B, T, D, device="cuda", generator=gen).to(td)
+
+            def call():
+                if backward:
+                    return torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+                return attention.fused_attention_btd_train(q, k, v, H, rate, seeds)
         else:
             q, k, v = (torch.randn(B, H, T, D // H, device="cuda", generator=gen).to(td)
                        for _ in range(3))

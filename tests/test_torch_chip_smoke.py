@@ -88,13 +88,22 @@ def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path)
      "namespace)::FwdArgs)", "attention forward (B1, B3)"),
     ("void (anonymous namespace)::attention_fwd_kernel<float, 64>(FwdArgs)",
      "attention forward (B1, B3)"),
+    ("void (anonymous namespace)::attention_fwd_kernel<float, 160, true, false, true>("
+     "(anonymous namespace)::FwdArgs)", "training attention forward"),
+    ("void (anonymous namespace)::attention_fwd_kernel<__nv_bfloat16, 64, false, true, true>("
+     "(anonymous namespace)::FwdArgs)", "training attention forward"),
+    ("void (anonymous namespace)::attention_fwd_kernel<float, 160, true, false, false>("
+     "(anonymous namespace)::FwdArgs)", "attention forward (B1, B3)"),
     ("void (anonymous namespace)::attention_train_rows<float, 16, false>(float const*)",
-     "training attention forward"),
+     "training attention backward"),
+    ("void (anonymous namespace)::attention_train_rows<float, 16>(float const*)",
+     "training attention backward"),
     ("void (anonymous namespace)::attention_train_rows<float, 16, true>(float const*)",
      "training attention backward"),
     ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16>(x)",
      "training attention backward"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x16", "dense GEMMs (cuBLAS)"),
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "dense GEMMs (cuBLAS)"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "other elementwise"),
 ])
 def test_profile_kernel_groups(monkeypatch, name, group):

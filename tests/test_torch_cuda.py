@@ -50,14 +50,15 @@ def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
     assert math.isfinite(float(out.float().abs().max()))
 
 
-def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0):
+def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, offset=0):
     """Kernel and plain version of the training attention on the same
-    packed inputs: (out, grads) of each, then the grads of the backward
-    kernel's plain version."""
+    packed inputs (q, k, v column views starting `offset` elements into each
+    row): (out, grads) of each, then the grads of the backward kernel's
+    plain version."""
     dmodel, heads = 512, 4
     gen = torch.Generator(device="cuda").manual_seed(seed + T)
     td = getattr(torch, dtype)
-    packed = torch.randn(B, T, 3 * dmodel, device="cuda", generator=gen).to(td)
+    packed = torch.randn(B, T, 3 * dmodel + offset, device="cuda", generator=gen).to(td)
     dout = torch.randn(B, T, dmodel, device="cuda", generator=gen).to(td)
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 2), device="cuda",
                           generator=gen, dtype=torch.int32)
@@ -65,34 +66,26 @@ def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0):
     for fn in (attention.fused_attention_btd_train,
                attention.attention_btd_train_reference):
         x = packed.clone().requires_grad_()
-        q, k, v = x.split(dmodel, dim=-1)
+        q, k, v = x[..., offset:].split(dmodel, dim=-1)
         out = fn(q, k, v, heads, rate, seeds, causal, softmax_f32, kv_len)
         out.backward(dout)
-        results.append((out.detach(), x.grad.split(dmodel, dim=-1)))
-    q, k, v = packed.split(dmodel, dim=-1)
+        results.append((out.detach(), x.grad[..., offset:].split(dmodel, dim=-1)))
+    q, k, v = packed[..., offset:].split(dmodel, dim=-1)
     results.append(attention.attention_btd_train_backward_reference(
         q, k, v, dout, heads, rate, seeds, causal, softmax_f32, kv_len))
     return results
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T", [60, 151])
-@pytest.mark.parametrize("mask", ["causal", "kv_len"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
-def test_cuda_train_kernels_match_plain_version(T, mask, dtype, rate):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
-    causal = mask == "causal"
-    kv_len = None if causal else T - 10
-    before = (attention.fused_attention_btd_train.launches,
-              attention.fused_attention_btd_train.backward_launches)
+def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offset=0):
+    """_train_case's kernels against both plain versions, with the launch
+    counters: one forward and one backward launch, none of B1's."""
+    fn = attention.fused_attention_btd_train
+    before = (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches)
     (out, grads), (ref, ref_grads), plain_grads = _train_case(
-        8, T, dtype, causal, kv_len, rate)
+        B, T, dtype, causal, kv_len, rate, softmax_f32, offset=offset)
     torch.cuda.synchronize()
-    assert (attention.fused_attention_btd_train.launches,
-            attention.fused_attention_btd_train.backward_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
     for name, ours, theirs in zip(("out", "dq", "dk", "dv"), (out, *grads),
                                   (ref, *ref_grads)):
         theirs_np = theirs.float().cpu().numpy()
@@ -106,6 +99,57 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, rate):
             ours.float().cpu().numpy(), theirs_np, rtol=0,
             atol=_tolerance(dtype, theirs_np), err_msg=f"plain backward {name}",
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 60, 150, 151, 197, 256])
+@pytest.mark.parametrize("mask", ["causal", "kv_len"])
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rate):
+    """Every route of the forward kernel (one chunk of 64 or 160 keys in
+    registers, or three passes over chunks), with and without dropout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    causal = mask == "causal"
+    _check_train_case(8, T, dtype, causal, None if causal else T - 10, rate, softmax_f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,dtype", [(1, "bfloat16"), (2, "bfloat16"), (1, "float32")])
+def test_cuda_train_kernels_on_unaligned_views(offset, dtype):
+    """Views that start `offset` elements into a row: the forward takes
+    copies narrower than 16 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    _check_train_case(4, 151, dtype, True, None, 0.1, offset=offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [48, 128, 200])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_cuda_train_forward_mask_equals_dropout_bits(T, causal, rate):
+    """The forward kernel's kept weights on each route (T 48: a chunk of 64
+    keys; 128: a chunk of 160; 200: three passes over chunks), read from its
+    output by chip_smoke.train_mask (one launch for each 128 keys)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    import chip_smoke
+
+    B, H = 4, chip_smoke.FLAGSHIP["heads"]
+    seeds = torch.tensor([[7, -1], [2 ** 30, 5], [-9, 123456], [0, 1]], dtype=torch.int32,
+                         device="cuda")
+    fn = attention.fused_attention_btd_train
+    before = fn.launches
+    kept = chip_smoke.train_mask(B, T, rate, seeds, causal)
+    torch.cuda.synchronize()
+    assert fn.launches == before + -(-T // 128)
+    seen = torch.ones(T, T, dtype=torch.bool, device="cuda")
+    if causal:
+        seen = seen.tril()
+    want = (attention.dropout_bits(seeds, B, H, T) >= attention.dropout_threshold(rate)) & seen
+    assert torch.equal(kept, want)
 
 
 @pytest.mark.cuda

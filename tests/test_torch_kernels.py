@@ -151,3 +151,65 @@ def test_wrappers_refuse_other_devices():
     q4 = torch.zeros(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="no attention kernel"):
         attention.fused_causal_attention(q4, q4, q4)
+
+
+def test_training_forward_runs_through_attention_forward():
+    """The training forward has no entry of its own: attention_forward takes
+    the seed, its layout, the threshold and the keep scale before the
+    stream."""
+    for where in (_extern_c_prototypes("attention_btd_train"),
+                  attention.PROTOTYPES["attention_btd_train"]):
+        assert "attention_train_forward" not in where
+    _, args = _extern_c_prototypes("attention_fwd")["attention_forward"]
+    assert args[-5:] == [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+                         ctypes.c_void_p]
+
+
+def _train_args(x, dtype, cfg, seed_shape=(2, 2)):
+    """train_forward_args of q, k, v = x.split(D)."""
+    q, k, v = x.split(x.shape[-1] // 3, dim=-1)
+    return attention.train_forward_args(q.shape, [y.stride() for y in (q, k, v)], dtype,
+                                        [y.data_ptr() for y in (q, k, v)], seed_shape, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_training_forward_args_of_the_models_packed_views(dtype, rate):
+    # the model's packed QKV projection: [B, T, 3D], D = 512, 4 heads
+    x = torch.zeros(2, 150, 3 * 512, dtype=dtype)
+    cfg = attention._TrainConfig(4, rate, True, False, 0)
+    args = _train_args(x, dtype, cfg)
+    # B1's head strides (column slices of D) and copy width on the same
+    # views, into a contiguous [B, T, D] output
+    q, k, v = x.split(512, dim=-1)
+    out = torch.empty(2, 150, 512, dtype=dtype)
+    b1 = attention.forward_args(
+        (2, 4, 150, 128), [(y.stride(0), 128, y.stride(1), y.stride(2)) for y in (q, k, v, out)],
+        dtype, [y.data_ptr() for y in (q, k, v)], attention._scale_in(dtype, 128), 1.0, True,
+        None, False)
+    assert args._replace(seed_per_row=0, threshold=0, keep_w=1.0) == b1
+    assert args.strides == (150 * 1536, 128, 1536) * 3 + (150 * 512, 128, 512)
+    assert (args.copy_bytes, args.hdp, args.kv_len, args.causal) == (16, 128, 0, 1)
+    assert args.threshold == (attention.dropout_threshold(rate) if rate > 0 else 0)
+    assert args.keep_w == float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+    assert args.seed_per_row == 1
+    assert _train_args(x, dtype, cfg, seed_shape=(2,)).seed_per_row == 0
+
+
+def test_training_forward_args_carry_the_config():
+    x = torch.zeros(3, 60, 3 * 256, dtype=torch.bfloat16)
+    args = _train_args(x, torch.bfloat16, attention._TrainConfig(2, 0.1, False, True, 50))
+    assert (args.dtype, args.batch, args.seq, args.heads, args.hd) == (1, 3, 60, 2, 128)
+    assert (args.causal, args.kv_len, args.softmax_f32, args.score_scale) == (0, 50, 1, 1.0)
+    assert args.scale_q == attention._scale_in(torch.bfloat16, 128)
+    assert args.threshold == 429496729 and args.keep_w == 1.109375
+
+
+@pytest.mark.parametrize("dtype,offset,width", [
+    (torch.bfloat16, 1, 2), (torch.bfloat16, 4, 8), (torch.float32, 1, 4),
+    (torch.float32, 4, 16),
+])
+def test_training_forward_args_of_misaligned_views(dtype, offset, width):
+    x = torch.zeros(2, 20, 3 * 256 + 8, dtype=dtype)[..., offset:offset + 3 * 256]
+    cfg = attention._TrainConfig(4, 0.1, True, False, 0)
+    assert _train_args(x, dtype, cfg).copy_bytes == _layout(x, 4, dtype)[0] == width
