@@ -11,11 +11,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2b. the training attention kernels (the forward of attention_fwd.cu with
      dropout, the backward of attention_btd_train.cu) against autograd of
      their plain version fed the same dropout bits, and the backward
-     against its own plain version, at the training shapes; the forward's
-     dropout mask against dropout_bits on each route of the kernel (T 48,
-     128, 200), its keep fraction, bit-identical repeats and the adjoint
-     identity; their times at the flagship training shape (the forward
-     also at rate 0);
+     against its own plain version, at the training shapes and at T 200
+     (the backward's long-row route); the forward's dropout mask against
+     dropout_bits on each route of the kernel (T 48, 128, 200), its keep
+     fraction, bit-identical repeats and the adjoint identity; their times
+     at the flagship training shape (the forward also at rate 0, the
+     backward also by pass, row and column, under torch.profiler);
   2c. the [B, H, T, hd] attention kernel (fused_causal_attention, which no
      model path reaches) driven through its entry point at its path's
      shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
@@ -296,6 +297,28 @@ def _train_pair(B, T, dtype, causal, kv_len, rate, gen):
     return results
 
 
+# Phase 2b's (B, sequence lengths) in the order their inputs are drawn. The
+# backward's row pass takes T 60 at 64 keys and 150, 151 at 160 on tensor
+# cores, T 200 on its long-row route. T 200 is drawn last, so the cases
+# before it keep their inputs: drawn after the B 8 cases, it gives the B 64
+# bf16 cases other inputs, on some of which the plain backward, whose
+# rounding points the kernel keeps, is itself more than 2^-6 from autograd
+# (ROADMAP C; scripts/train_backward_errors.py --t200-inside shows it).
+TRAIN_CASES = ((8, (150, 60, 151)), (TRAIN["batch"], (150, 60, 151)), (8, (200,)))
+
+
+def train_cases(order=TRAIN_CASES):
+    """Phase 2b's cases (B, T, causal, kv_len, dtype, rate) in drawing
+    order: for each (B, lengths) of `order`, each T, causal or with a key
+    mask of T - 10, f32 and bf16, dropout rate 0, 0.1 and 0.5."""
+    for B, lengths in order:
+        for T in lengths:
+            for causal in (True, False):
+                for dtype in ("float32", "bfloat16"):
+                    for rate in (0.0, 0.1, 0.5):
+                        yield B, T, causal, None if causal else T - 10, dtype, rate
+
+
 def check_train_kernels(report, card):
     """Phase 2b: the training kernels against their plain version, the
     dropout mask, determinism, the adjoint identity, and timings. The
@@ -306,32 +329,25 @@ def check_train_kernels(report, card):
 
     cases, worst = [], {"forward": 0.0, "backward": 0.0, "backward_vjp": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for B in (8, TRAIN["batch"]):
-        for T in (150, 60, 151):
-            for causal in (True, False):
-                kv_len = None if causal else T - 10
-                for dtype in ("float32", "bfloat16"):
-                    for rate in (0.0, 0.1, 0.5):
-                        ours, plain, vjp = _train_pair(B, T, dtype, causal, kv_len,
-                                                       rate, gen)
-                        case = dict(B=B, T=T, dtype=dtype, causal=causal,
-                                    kv_len=kv_len, rate=rate)
-                        pairs = [(name, "", a, b) for name, a, b in
-                                 zip(("out", "dq", "dk", "dv"), ours, plain)]
-                        pairs += [(name, "_vjp", a, b) for name, a, b in
-                                  zip(("dq", "dk", "dv"), ours[1:], vjp)]
-                        for name, ref, a, b in pairs:
-                            err = float((a.float() - b.float()).abs().max())
-                            rel = (TOLERANCE_VJP if ref else TOLERANCE)[dtype]
-                            tol = rel * max(1.0, float(b.float().abs().max()))
-                            if not (err <= tol and math.isfinite(err)):
-                                raise AssertionError(
-                                    f"training attention {name}{ref} disagrees: {case}, "
-                                    f"max_abs_err {err} > {tol}")
-                            case[f"{name}{ref}_err"] = err
-                            which = ("forward" if name == "out" else "backward") + ref
-                            worst[which] = max(worst[which], err)
-                        cases.append(case)
+    for B, T, causal, kv_len, dtype, rate in train_cases():
+        ours, plain, vjp = _train_pair(B, T, dtype, causal, kv_len, rate, gen)
+        case = dict(B=B, T=T, dtype=dtype, causal=causal, kv_len=kv_len, rate=rate)
+        pairs = [(name, "", a, b) for name, a, b in
+                 zip(("out", "dq", "dk", "dv"), ours, plain)]
+        pairs += [(name, "_vjp", a, b) for name, a, b in
+                  zip(("dq", "dk", "dv"), ours[1:], vjp)]
+        for name, ref, a, b in pairs:
+            err = float((a.float() - b.float()).abs().max())
+            rel = (TOLERANCE_VJP if ref else TOLERANCE)[dtype]
+            tol = rel * max(1.0, float(b.float().abs().max()))
+            if not (err <= tol and math.isfinite(err)):
+                raise AssertionError(
+                    f"training attention {name}{ref} disagrees: {case}, "
+                    f"max_abs_err {err} > {tol}")
+            case[f"{name}{ref}_err"] = err
+            which = ("forward" if name == "out" else "backward") + ref
+            worst[which] = max(worst[which], err)
+        cases.append(case)
     print(f"  training attention kernels match their plain version in {len(cases)} "
           f"cases (worst max_abs_err forward {worst['forward']:.3g}; backward "
           f"{worst['backward']:.3g} against autograd of the plain forward, "
@@ -463,11 +479,38 @@ def _sdpa_backend(q4, k4, v4, rate):
     return "none"
 
 
+def backward_pass_ms(fn, iters=20):
+    """Device time per call of fn() in each pass of B2's backward kernel,
+    {"rows": ms, "cols": ms}: the row pass (attention_train_rows, on either
+    route) and the column pass (attention_train_cols), by kernel name
+    under torch.profiler over `iters` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = {"rows": 0.0, "cols": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for part in found:
+            if f"attention_train_{part}" in evt.key:
+                found[part] += evt.device_time_total
+    if not all(found.values()):
+        raise AssertionError(f"the profiler recorded no time for a backward pass: {found}")
+    return {part: us / 1e3 / iters for part, us in found.items()}
+
+
 def time_train_kernels(card):
     """Forward and backward times at the flagship training shape (f32,
     B = 64, T = 150, rate 0.1, causal): the kernels, autograd of the plain
     version, and F.scaled_dot_product_attention with dropout (its own mask:
-    a yardstick, not a check); and the forward kernel at rate 0."""
+    a yardstick, not a check); the device time of each backward pass, row
+    and column, under torch.profiler; and the forward kernel at rate 0."""
     import warnings
 
     import torch
@@ -509,6 +552,9 @@ def time_train_kernels(card):
         out = fn()
         res[f"{name}_backward_ms"] = time_ms(lambda: torch.autograd.grad(
             out, (q, k, v), grad_out, retain_graph=True), iters=iters)
+    out = kernel()
+    res["kernel_backward_passes_ms"] = backward_pass_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), dout, retain_graph=True))
     with torch.no_grad():
         res["kernel_forward_rate0_ms"] = time_ms(
             lambda: attention.fused_attention_btd_train(q, k, v, H, 0.0, seeds))
@@ -516,12 +562,24 @@ def time_train_kernels(card):
         B, T, D, H, "float32", True, None)
     res["backward_bound_ms"], res["backward_bound_by"] = attention_bound_ms(
         B, T, D, H, "float32", True, None, tensors=7, products=5)
+    # the row pass moves q, k, v, dO, dQ and computes QK^T, dO V^T, dS K; the
+    # column pass moves q, k, v, dO, dK, dV and computes QK^T, dO V^T, dV, dK
+    # (the [3, B, H, T] statistics between them are 0.5% of either's bytes)
+    res["backward_pass_bound_ms"] = {
+        "rows": attention_bound_ms(B, T, D, H, "float32", True, None, tensors=5, products=3),
+        "cols": attention_bound_ms(B, T, D, H, "float32", True, None, tensors=6, products=4)}
     for which in ("forward", "backward"):
         print(f"  training attention {which}, f32 B={B} T={T} rate {rate} causal: "
               f"kernel {res['kernel_' + which + '_ms']:.4f} ms, plain "
               f"{res['plain_' + which + '_ms']:.4f} ms, sdpa ({backend}) "
               f"{res['library_' + which + '_ms']:.4f} ms, bound "
               f"{res[which + '_bound_ms']:.4f} ms ({res[which + '_bound_by']}) [{card}]")
+    passes, bounds = res["kernel_backward_passes_ms"], res["backward_pass_bound_ms"]
+    print("  training attention backward by pass (device time under torch.profiler): "
+          + ", ".join(f"{name} pass {passes[part]:.4f} ms (bound {bounds[part][0]:.4f} ms, "
+                      f"{bounds[part][1]})" for name, part in (("row", "rows"),
+                                                                ("column", "cols")))
+          + f" [{card}]")
     print(f"  training attention forward at rate 0: kernel "
           f"{res['kernel_forward_rate0_ms']:.4f} ms [{card}]")
     return res

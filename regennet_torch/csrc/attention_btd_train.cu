@@ -23,19 +23,37 @@
 //
 // What bounds it on an H100 (f32, B=64, T=150, D=512, causal):
 // 7*B*T*D*4 = 137.6 MB (41 us at 3.35 TB/s) against 10*B*pairs*D = 3.71
-// GFLOP (55 us at 67 TF/s f32): operations.
+// GFLOP (55 us at 67 TF/s f32): operations. The row pass alone moves q, k,
+// v, dO and dQ (98.3 MB, 29 us) and needs QK^T, dO V^T and dS K (33 us).
 //
-// Design (a first, simple one; CUDA-core FMAs from f32 copies in shared
-// memory, no tensor cores yet), in two deterministic passes, no atomics:
-//   1. row pass, one block per (query tile, head, batch): recomputes the
-//      tile's score rows (f32 sums, rounded to the score dtype), computes
-//      dO V^T rows, writes dQ, and writes each row's softmax max and sum
-//      (score dtype) and D_i = sum_j dP_ij P_ij (f32) to a [3, B, H, T]
-//      buffer;
-//   2. column pass, one block per (key tile, head, batch): walks the query
-//      tiles that can see its keys (from the tile's first key on under the
-//      causal mask), recomputes P from the row statistics with the same
-//      rounding points, and accumulates dK and dV in registers.
+// Design: two deterministic passes, no atomics.
+//   1. The row pass, one block per (query tile, head, batch), writes dQ and
+//      each row's softmax max and sum (score dtype) and D_i = sum_j dP_ij
+//      P_ij (f32) to a [3, B, H, T] buffer. Rows of up to 160 keys (every
+//      training shape of the models: Chi3D T = 150, 151 tokens offline, NTU
+//      60) take the tensor-core route, attention_train_rows: attention_fwd.cu's
+//      block of 4 warps per 64-query tile, each warp owning 16 rows, built
+//      from the warp-level pieces of attention_mma.cuh (bf16 mma.sync, or
+//      the 3xTF32 split for f32). The scores (for bf16 with a bf16 softmax
+//      summed by FMAs in the column pass's order, so that both passes round
+//      them alike: scores_fma) and the exact two-pass softmax stay in the
+//      accumulators (P rounded to the score dtype), the keep mask is drawn
+//      into registers while q and the keys load, and dP = dO V^T is
+//      computed a group of 32 keys at a time, twice: once for D, once to
+//      overwrite P in place with dS. That is four products for the
+//      function's three, with no second key-wide array in registers (P
+//      alone takes 80 registers a lane at 160 keys). dQ = dS K is the
+//      forward's W V with K in V's place. Operands stay in the input dtype
+//      in shared memory: q (then dO) beside a slab of keys (then values) of
+//      as many rows as keep two blocks an SM; K loads again, over the whole
+//      region, for dQ (from L2). Longer rows take the long-row route,
+//      attention_train_rows_long: CUDA-core FMAs from f32 copies in shared
+//      memory, score rows in shared memory (no model path reaches it).
+//   2. The column pass, one block per (key tile, head, batch), CUDA-core
+//      FMAs from f32 copies in shared memory: walks the query tiles that can
+//      see its keys (from the tile's first key on under the causal mask),
+//      recomputes P from the row statistics with the same rounding points,
+//      and accumulates dK and dV in registers.
 // q, k and v may be strided views (columns of one packed [B, T, 3D]
 // projection): only the last dimension must be contiguous. dO, dQ, dK and
 // dV take the strides in RowArgs.so*.
@@ -45,7 +63,9 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "attention_math.cuh"
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -59,11 +79,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-constexpr int THREADS = 256;
-constexpr int KT = 64;       // key tile of the row pass
-constexpr int CK = 32;       // keys per block in the column pass
-constexpr int CQ = 32;       // query tile of the column pass
-constexpr int MAX_HD = 256;  // largest head dim a launch takes
+constexpr int THREADS = 256;  // the long-row route and the column pass
+constexpr int KT = 64;        // key tile of the long-row route
+constexpr int CK = 32;        // keys per block in the column pass
+constexpr int CQ = 32;        // query tile of the column pass
+constexpr int MAX_HD = 256;   // largest head dim a launch takes
+
+// the tensor-core row pass
+constexpr int ROW_WARPS = 4;
+constexpr int ROW_THREADS = 32 * ROW_WARPS;
+constexpr int ROW_QT = 16 * ROW_WARPS;  // query rows of a block
+constexpr int GROUP = 32;               // keys of a group; a slab holds whole groups
+constexpr int MAX_KC = 160;             // the longest rows it takes
 
 struct RowArgs {
   int seq, heads, hd;
@@ -73,17 +100,283 @@ struct RowArgs {
   float scale_q;    // scales q before QK, rounded to the input dtype
   float scale_f32;  // 1/sqrt(hd) in f32 (scales dQ and dK)
   int causal, klimit, softmax_f32;
+  // the tensor-core row pass: hd padded to a multiple of 16, the copy width
+  // in bytes (16, 8, 4, or 2 for bf16) and the keys of a shared slab
+  int hdp, copy_bytes, kslab;
 };
 
+// The scores of a warp's rows for the groups of 32 keys that start in
+// [lo, hi) (layout of s and arguments as WarpMma::scores), summed as the
+// column pass sums them: one FMA a step of d, in order, on the bf16 values
+// widened to f32. The row pass takes this for bf16 with a bf16 softmax.
+// There each score is rounded to bf16, and mma.sync's f32 sums (exact
+// products, an accumulation that is not IEEE's) round to the other side of
+// a bf16 boundary often enough that the row pass's P and statistics would
+// disagree with the column pass's P, a flip changing a weight by 1.5-3%
+// through exp().
+template <int NB>
+__device__ __forceinline__ void scores_fma(float (&s)[NB][4], int lo, int hi,
+                                           const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                           int ld, int hdp) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* q0 = q + g * ld;
+  const __nv_bfloat16* q1 = q + (g + 8) * ld;
+  auto pair = [](const __nv_bfloat16* x) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+  };
+#pragma unroll
+  for (int gi = 0; gi < NB / 4; ++gi) {
+    if (gi * GROUP >= lo && gi * GROUP < hi) {
+      const __nv_bfloat16* kg = k + (gi * GROUP + 2 * t) * ld;
+#pragma unroll 1
+      for (int d = 0; d < hdp; d += 2) {  // (the zero padding past hd adds exact zeros)
+        const float2 a = pair(q0 + d), b = pair(q1 + d);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float2 k0 = pair(kg + 8 * jj * ld + d), k1 = pair(kg + (8 * jj + 1) * ld + d);
+          float (&c)[4] = s[4 * gi + jj];
+          c[0] = fmaf(a.y, k0.y, fmaf(a.x, k0.x, c[0]));
+          c[1] = fmaf(a.y, k1.y, fmaf(a.x, k1.x, c[1]));
+          c[2] = fmaf(b.y, k0.y, fmaf(b.x, k0.x, c[2]));
+          c[3] = fmaf(b.y, k1.y, fmaf(b.x, k1.x, c[3]));
+        }
+      }
+    }
+  }
+}
+
+// dP = dO V^T of the warp's rows for the groups of 32 keys that start in
+// [lo, hi), from values whose row 0 is key 0, with the mask and the f32
+// keep-scale; then D += dP P (SECOND false), or P <- dS = P (dP - D)
+// rounded to T (SECOND true). dP is rounded before the subtraction, as the
+// plain version's two steps round it.
+template <typename T, bool SECOND, int NB>
+__device__ __forceinline__ void dp_groups(float (&s)[NB][4], float (&dsum)[2],
+                                          const KeepMask<NB>& keep, float keep_f32, int lo,
+                                          int hi, const T* dout, const T* values, int ld,
+                                          int hdp) {
+#pragma unroll
+  for (int gi = 0; gi < NB / 4; ++gi) {
+    if (gi * GROUP >= lo && gi * GROUP < hi) {
+      asm volatile("" ::: "memory");  // keep each group's loads in the group
+      float c[4][4] = {};
+      WarpMma<T, NB>::group(c, dout, values + gi * GROUP * ld, ld, hdp);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * gi + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool kept = keep.w[j / 8] >> (4 * (j % 8) + e) & 1u;
+          const float dp = kept ? __fmul_rn(c[jj][e], keep_f32) : 0.f;
+          if (SECOND)
+            s[j][e] = round_to<T>(s[j][e] * (dp - dsum[e >> 1]));
+          else
+            dsum[e >> 1] += dp * s[j][e];
+        }
+      }
+    }
+  }
+}
+
+// Backward row pass on tensor cores, for rows of at most KC keys: reads dO
+// and writes dQ (both in the output strides) and stats [3, B, H, T] (row
+// max, row sum, D_i). grid: (ceil(seq / ROW_QT), heads, batch); ROW_THREADS
+// threads; dynamic shared memory (ROW_QT + p.kslab) rows of tile_ld(hdp)
+// elements (q, then dO; beside them a slab of p.kslab keys, then values;
+// for dQ the keys over the whole region), then the loads' mbarrier.
+template <typename T, int KC, bool SF32>
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
+                     const int* __restrict__ seed, int seed_per_row, uint32_t threshold,
+                     float keep_f32, const RowArgs p) {
+  constexpr int NB = KC / 8;
+  using Mma = WarpMma<T, NB>;
+  constexpr int DC = Mma::DC;
+  using Score = typename std::conditional<SF32, float, T>::type;  // the score dtype
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld(p.hdp, sizeof(T));
+  const int whole = ROW_QT + p.kslab;       // rows of the region
+  T* as = reinterpret_cast<T*>(smem_raw);  // [ROW_QT][ld] scaled q, then dO
+  T* bs = as + ROW_QT * ld;                 // [kslab][ld] keys, then values
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int q0 = blockIdx.x * ROW_QT;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int rows = min(ROW_QT, p.seq - q0);
+  const int kmax = p.causal ? min(p.klimit, q0 + rows) : p.klimit;  // keys the tile sees
+  const int row0 = q0 + 16 * warp;  // the warp's first query row
+  const bool active = row0 < p.seq;
+  const int wmax = p.causal ? min(kmax, row0 + 16) : kmax;  // keys the warp sees
+  const int lim[2] = {p.causal ? min(p.klimit, row0 + g + 1) : p.klimit,
+                      p.causal ? min(p.klimit, row0 + g + 9) : p.klimit};
+  const T* wa = as + 16 * warp * ld;
+  const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, 1.f, keep_f32);
+  Loader<T, ROW_THREADS> loads{reinterpret_cast<uint64_t*>(as + whole * ld), 0u, ld, p.hd,
+                               p.copy_bytes};
+
+  const T* qb = q + b * p.sqb + h * p.sqh + (long long)q0 * p.sqt;
+  const T* kb = k + b * p.skb + h * p.skh;
+  const T* vb = v + b * p.svb + h * p.svh;
+  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dQ
+
+  // rows [first, first + n) of src into dst, and zeros up to a whole group
+  // (the products read whole groups; zero weights must meet finite values)
+  auto load_slab = [&](T* dst, const T* src, long long stride, int first, int n) {
+    const int padded = (n + GROUP - 1) / GROUP * GROUP;
+    if (padded > n) zero_rows<ROW_THREADS>(dst, ld, n, padded, p.hdp);
+    loads.issue(dst, src + first * stride, stride, n);
+  };
+
+  // q and the first slab of keys; the keep mask while they load
+  if (threadIdx.x == 0) mbar_init(loads.bar);
+  zero_cols<ROW_THREADS>(as, ld, whole, p.hd, p.hdp);
+  if (rows < ROW_QT) zero_rows<ROW_THREADS>(as, ld, rows, ROW_QT, p.hdp);  // stays zero for dO
+  __syncthreads();
+  loads.issue(as, qb, p.sqt, rows);
+  load_slab(bs, kb, p.skt, 0, min(p.kslab, kmax));
+  KeepMask<NB> keep;
+  if (drop.threshold) {
+    keep = keep_mask<NB>(drop, h, row0, p.seq, 0, lim, wmax);
+  } else {
+#pragma unroll
+    for (int wi = 0; wi < (NB + 7) / 8; ++wi) keep.w[wi] = ~0u;
+  }
+  loads.wait();
+  __syncthreads();
+  scale_rows<ROW_THREADS>(as, ld, rows, p.hdp, p.scale_q);
+  int held = 0;  // the first key of the slab in bs
+
+  // the scores, rounded and masked, slab by slab
+  float s[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int a = 0; a < kmax; a += p.kslab) {
+    if (a != held) {
+      __syncthreads();
+      load_slab(bs, kb, p.skt, a, min(p.kslab, kmax - a));
+      loads.wait();
+      held = a;
+    }
+    __syncthreads();
+    if constexpr (sizeof(T) == 2 && !SF32) {
+      if (active) scores_fma<NB>(s, a, min(a + p.kslab, wmax), wa, bs - a * ld, ld, p.hdp);
+    } else {
+      if (active) Mma::scores(s, a, min(a + p.kslab, wmax), wa, bs - a * ld, ld, p.hdp);
+    }
+  }
+  finish_scores<T, SF32>(s, 0, lim, wmax, 1.f);
+
+  // q and the keys are consumed: dO and the first slab of values load
+  // during the softmax
+  __syncthreads();
+  loads.issue(as, dout + ob + (long long)q0 * p.sot, p.sot, rows);
+  load_slab(bs, vb, p.svt, 0, min(p.kslab, kmax));
+  held = 0;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  row_max(s, m, wmax);
+  reduce_max(m);
+  exponentiate<T, SF32>(s, m, l, wmax);
+  reduce_sum<T, SF32>(l);
+  weights<Score>(s, l, wmax);  // P in the score dtype (the forward's are in T)
+  // the statistics of the real rows, from lane t = 0 of each: m and l now,
+  // D once the first dP pass has summed it
+  const long long plane = (long long)gridDim.z * p.heads * p.seq;
+  float* st = stats + (b * p.heads + h) * p.seq;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + g + 8 * r;
+      if (i < p.seq) {
+        st[i] = m[r];
+        st[plane + i] = l[r];
+      }
+    }
+  }
+
+  float dsum[2] = {0.f, 0.f};
+  // the slab of values that starts at key a into bs, unless it is there
+  auto values = [&](int a) {
+    if (a != held) {
+      __syncthreads();
+      load_slab(bs, vb, p.svt, a, min(p.kslab, kmax - a));
+      loads.wait();
+      held = a;
+    }
+    __syncthreads();
+  };
+
+  loads.wait();  // dO and the first slab of values
+  for (int a = 0; a < kmax; a += p.kslab) {
+    values(a);
+    if (active)
+      dp_groups<T, false>(s, dsum, keep, drop.scale_f32, a, min(a + p.kslab, wmax), wa,
+                          bs - a * ld, ld, p.hdp);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    const int i = row0 + g + 8 * r;
+    if (t == 0 && i < p.seq) st[2 * plane + i] = dsum[r];
+  }
+  // the last slab of values is still in place: walk back from it
+  for (int a = (kmax - 1) / p.kslab * p.kslab; a >= 0; a -= p.kslab) {
+    values(a);
+    if (active)
+      dp_groups<T, true>(s, dsum, keep, drop.scale_f32, a, min(a + p.kslab, wmax), wa,
+                         bs - a * ld, ld, p.hdp);
+  }
+
+  // dQ = scale dS K: the forward's W V with K in V's place, over the whole
+  // region once dO and the values are consumed
+  typename Mma::Weights w;
+  Mma::pack(s, w);  // (dS is a value of T: packing it to bf16 is exact)
+  const bool resident = kmax <= whole;
+  __syncthreads();
+  if (resident) {
+    load_slab(as, kb, p.skt, 0, kmax);
+    loads.wait();
+    __syncthreads();
+  }
+  T* dqb = dq + ob;
+#pragma unroll 1
+  for (int dc = 0; dc < p.hdp; dc += DC) {
+    float o[DC / 8][4] = {};
+    for (int a = 0; a < kmax; a += whole) {
+      if (!resident) {
+        __syncthreads();
+        load_slab(as, kb, p.skt, a, min(whole, kmax - a));
+        loads.wait();
+        __syncthreads();
+      }
+      if (active && dc + DC <= p.hdp)
+        Mma::template weighted_sum<true>(o, s, w, a, min(a + whole, wmax), as - a * ld, ld, dc,
+                                         p.hdp);
+      else if (active)
+        Mma::template weighted_sum<false>(o, s, w, a, min(a + whole, wmax), as - a * ld, ld, dc,
+                                          p.hdp);
+    }
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= p.scale_f32;
+    if (active) store_rows<T, DC>(o, dqb, p.sot, row0, p.seq, dc, p.hd);
+  }
+}
+
+// The long-row route (rows over MAX_KC keys, which no model path reaches).
 // out[r * ostride + j] = sum_d a[r * ld + d] * M[j][d] for the QT rows of a
 // and keys j < kmax, M streamed through `tile` in KT-row tiles; round = 1
 // rounds each sum to the score dtype.
-// The column pass sums over d in the same order, so it recomputes the
-// rounded scores bit for bit.
+// The column pass sums over d in the same order, so on this route it
+// recomputes the rounded scores bit for bit.
 template <typename T, int QT>
-__device__ void row_products(const float* a, float* tile, const T* m, long long smt, int hd,
-                             int ld, int kmax, float* out, int ostride, bool round,
-                             int softmax_f32) {
+__device__ void long_row_products(const float* a, float* tile, const T* m, long long smt,
+                                  int hd, int ld, int kmax, float* out, int ostride, bool round,
+                                  int softmax_f32) {
   constexpr int RG = THREADS / KT;
   constexpr int RPT = QT / RG;
   const int tid = threadIdx.x;
@@ -119,8 +412,9 @@ __device__ void row_products(const float* a, float* tile, const T* m, long long 
 // streamed through `tile`; returns per-thread accumulators in o (ACC of
 // them, output e = tid + a * THREADS of the QT x hd tile).
 template <typename T, int QT, int ACC>
-__device__ void row_weighted_sum(const float* w, int wstride, float* tile, const T* m,
-                                 long long smt, int hd, int ld, int kmax, float (&o)[ACC]) {
+__device__ void long_row_weighted_sum(const float* w, int wstride, float* tile, const T* m,
+                                      long long smt, int hd, int ld, int kmax,
+                                      float (&o)[ACC]) {
   const int tid = threadIdx.x;
   const int nout = QT * hd;
 #pragma unroll
@@ -149,20 +443,21 @@ __device__ void row_weighted_sum(const float* w, int wstride, float* tile, const
 }
 
 template <int QT>
-size_t row_smem_bytes(int hd, int klimit) {
+size_t long_row_smem_bytes(int hd, int klimit) {
   const size_t rows = (size_t)(2 * QT + KT) * (hd + 1);
   return sizeof(float) * (rows + (size_t)2 * QT * klimit);
 }
 
-// Backward row pass: reads dO and writes dQ (both in the output strides)
-// and stats [3, B, H, T] (row max, row sum, D_i).
+// Backward row pass for rows of any length, on CUDA cores: reads dO and
+// writes dQ (both in the output strides) and stats [3, B, H, T] (row max,
+// row sum, D_i).
 // grid: (ceil(seq / QT), heads, batch); THREADS threads.
 template <typename T, int QT>
 __global__ void __launch_bounds__(THREADS)
-attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
-                     const int* __restrict__ seed, int seed_per_row, uint32_t threshold,
-                     float keep_f32, RowArgs p) {
+attention_train_rows_long(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
+                          float* __restrict__ stats, const int* __restrict__ seed,
+                          int seed_per_row, uint32_t threshold, float keep_f32, RowArgs p) {
   constexpr int ACC = (QT * MAX_HD + THREADS - 1) / THREADS;
   extern __shared__ float smem[];
   const int hd = p.hd, seq = p.seq, klimit = p.klimit;
@@ -193,8 +488,8 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 
   // scores, scaled and rounded to the score dtype; dO V^T rows in f32
-  row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
-  row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
+  long_row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
+  long_row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
   __syncthreads();
 
   // softmax of each real row over its valid keys, then dS, one warp a row
@@ -236,7 +531,7 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   // dQ = scale * dS K
   float o[ACC];
-  row_weighted_sum<T, QT, ACC>(dps, klimit, tile, kb, p.skt, hd, ld, kmax, o);
+  long_row_weighted_sum<T, QT, ACC>(dps, klimit, tile, kb, p.skt, hd, ld, kmax, o);
 
   const int nout = QT * hd;
 #pragma unroll
@@ -322,8 +617,11 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
         rst[2 * CQ + tid] = real ? st[2 * plane + i0 + tid] : 0.f;
       }
       __syncthreads();
-      // scores and dO V^T of this (query, key) block, summed over d in the
-      // row pass's order, so P is recomputed bit for bit
+      // scores and dO V^T of this (query, key) block: the scores are the row
+      // pass's bit for bit where it sums them in this order (the long-row
+      // route; bf16 with a bf16 softmax), else within the 3xTF32 or mma
+      // accumulation error (about 2^-21 relative) of the row pass's, from
+      // whose statistics P is recomputed
       float s_acc[RPT], p_acc[RPT];
 #pragma unroll
       for (int x = 0; x < RPT; ++x) s_acc[x] = p_acc[x] = 0.f;
@@ -397,12 +695,43 @@ cudaError_t shared_memory_cap(int* cap) {
   return err;
 }
 
-template <typename T, int QT>
+// Keys a slab of the tensor-core row pass holds: the rows' keys rounded up
+// to a whole group, or as many groups as fit beside the ROW_QT rows of q
+// (or dO) within `budget` bytes, whichever is fewer. The largest slab, not
+// an even split: most tiles then need one.
+int row_key_slab(int keys, int row_bytes, size_t budget) {
+  const int need = (keys + GROUP - 1) / GROUP * GROUP;
+  const int most = max(GROUP, ((int)(budget / row_bytes) - ROW_QT) / GROUP * GROUP);
+  return min(need, most);
+}
+
+template <typename T, int KC, bool SF32>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* dout, void* dq,
                         float* stats, const int* seed, int seed_per_row, uint32_t threshold,
-                        float keep_f32, int batch, const RowArgs& p, cudaStream_t stream) {
-  const size_t smem = row_smem_bytes<QT>(p.hd, p.klimit);
-  auto kernel = attention_train_rows<T, QT>;
+                        float keep_f32, int batch, RowArgs p, cudaStream_t stream) {
+  const size_t budget = 110 * 1024;  // two blocks an SM, as the forward's f32
+  const int row_bytes = tile_ld(p.hdp, sizeof(T)) * sizeof(T);
+  p.kslab = row_key_slab(min(KC, p.klimit), row_bytes, budget);
+  const size_t smem = (size_t)(ROW_QT + p.kslab) * row_bytes + 16;
+  auto kernel = attention_train_rows<T, KC, SF32>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + ROW_QT - 1) / ROW_QT, p.heads, batch);
+  kernel<<<grid, ROW_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
+      keep_f32, p);
+  return cudaGetLastError();
+}
+
+template <typename T, int QT>
+cudaError_t launch_long_rows(const void* q, const void* k, const void* v, const void* dout,
+                             void* dq, float* stats, const int* seed, int seed_per_row,
+                             uint32_t threshold, float keep_f32, int batch, const RowArgs& p,
+                             cudaStream_t stream) {
+  const size_t smem = long_row_smem_bytes<QT>(p.hd, p.klimit);
+  auto kernel = attention_train_rows_long<T, QT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -414,31 +743,40 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-// the row pass at the widest query tile whose score rows fit in shared memory
-template <typename T>
+// The row pass: rows of up to 64 or MAX_KC keys on tensor cores (one
+// chunk in registers, as the forward's dispatch), longer ones on the
+// long-row route at the widest query tile whose score rows fit in shared
+// memory.
+template <typename T, bool SF32>
 cudaError_t dispatch_rows(const void* q, const void* k, const void* v, const void* dout,
                           void* dq, float* stats, const int* seed, int seed_per_row,
                           uint32_t threshold, float keep_f32, int batch, const RowArgs& p,
                           cudaStream_t stream) {
+  if (p.klimit <= 64)
+    return launch_rows<T, 64, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
+                                    keep_f32, batch, p, stream);
+  if (p.klimit <= MAX_KC)
+    return launch_rows<T, MAX_KC, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row,
+                                        threshold, keep_f32, batch, p, stream);
   int cap = 0;
   cudaError_t err = shared_memory_cap(&cap);
   if (err != cudaSuccess) return err;
-  if (row_smem_bytes<16>(p.hd, p.klimit) <= (size_t)cap)
-    return launch_rows<T, 16>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold, keep_f32,
-                              batch, p, stream);
-  if (row_smem_bytes<4>(p.hd, p.klimit) <= (size_t)cap)
-    return launch_rows<T, 4>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold, keep_f32,
-                             batch, p, stream);
+  if (long_row_smem_bytes<16>(p.hd, p.klimit) <= (size_t)cap)
+    return launch_long_rows<T, 16>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
+                                   keep_f32, batch, p, stream);
+  if (long_row_smem_bytes<4>(p.hd, p.klimit) <= (size_t)cap)
+    return launch_long_rows<T, 4>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
+                                  keep_f32, batch, p, stream);
   return cudaErrorInvalidValue;  // sequence too long for this design
 }
 
-template <typename T>
+template <typename T, bool SF32>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* dout, void* dq,
                      void* dk, void* dv, float* stats, const int* seed, int seed_per_row,
                      uint32_t threshold, float keep_w, float keep_f32, int batch,
                      const RowArgs& p, cudaStream_t stream) {
-  cudaError_t err = dispatch_rows<T>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
-                                     keep_f32, batch, p, stream);
+  cudaError_t err = dispatch_rows<T, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row,
+                                           threshold, keep_f32, batch, p, stream);
   if (err != cudaSuccess) return err;
   int cap = 0;
   err = shared_memory_cap(&cap);
@@ -461,9 +799,23 @@ bool valid_shape(int batch, int seq, int heads, int hd) {
          hd <= MAX_HD;
 }
 
+// The widest copy the tensor-core row pass can take: 16, 8 or 4 bytes, or
+// the element, whichever first divides the row of hd elements and every
+// address and stride in `spans` (in bytes). The forward's wrapper picks its
+// width the same way (ops/attention.py kernel_layout).
+int copy_width(int hd, int elem, const long long (&spans)[11]) {
+  for (int width = 16; width > elem; width /= 2) {
+    bool fits = (hd * elem) % width == 0;
+    for (long long x : spans) fits = fits && x % width == 0;
+    if (fits) return width;
+  }
+  return elem;
+}
+
 // [B, T, D] inputs with heads as column slices (head stride hd) and a
 // contiguous [B, T, D] output
-RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long long skb,
+RowArgs row_args(int elem, const void* q, const void* k, const void* v, const void* dout,
+                 int seq, int heads, int hd, long long sqb, long long sqt, long long skb,
                  long long skt, long long svb, long long svt, float scale_q, float scale_f32,
                  int causal, int kv_len, int softmax_f32) {
   RowArgs p;
@@ -487,6 +839,13 @@ RowArgs row_args(int seq, int heads, int hd, long long sqb, long long sqt, long 
   p.causal = causal;
   p.klimit = (kv_len > 0 && kv_len < seq) ? kv_len : seq;
   p.softmax_f32 = softmax_f32;
+  p.hdp = (hd + 15) / 16 * 16;
+  const long long spans[11] = {
+      (long long)reinterpret_cast<uintptr_t>(q), (long long)reinterpret_cast<uintptr_t>(k),
+      (long long)reinterpret_cast<uintptr_t>(v), (long long)reinterpret_cast<uintptr_t>(dout),
+      sqb * elem, sqt * elem, skb * elem, skt * elem, svb * elem, svt * elem, p.sot * elem};
+  p.copy_bytes = copy_width(hd, elem, spans);
+  p.kslab = 0;  // set by launch_rows
   return p;
 }
 
@@ -509,17 +868,20 @@ int attention_train_backward(int dtype, const void* q, const void* k, const void
                              long long sqb, long long sqt, long long skb, long long skt,
                              long long svb, long long svt, float scale_q, float scale_f32,
                              int causal, int kv_len, int softmax_f32, void* stream) {
-  if (!valid_shape(batch, seq, heads, hd)) return cudaErrorInvalidValue;
-  const RowArgs p = row_args(seq, heads, hd, sqb, sqt, skb, skt, svb, svt, scale_q, scale_f32,
-                             causal, kv_len, softmax_f32);
+  if (!valid_shape(batch, seq, heads, hd) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  const RowArgs p = row_args(dtype == 0 ? 4 : 2, q, k, v, dout, seq, heads, hd, sqb, sqt, skb,
+                             skt, svb, svt, scale_q, scale_f32, causal, kv_len, softmax_f32);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // an f32 softmax is the f32 inputs' own: one instantiation serves both
   if (dtype == 0)
-    return backward<float>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row, threshold,
-                           keep_w, keep_f32, batch, p, s);
-  if (dtype == 1)
-    return backward<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
-                                   threshold, keep_w, keep_f32, batch, p, s);
-  return cudaErrorInvalidValue;
+    return backward<float, true>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
+                                 threshold, keep_w, keep_f32, batch, p, s);
+  if (softmax_f32)
+    return backward<__nv_bfloat16, true>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
+                                         threshold, keep_w, keep_f32, batch, p, s);
+  return backward<__nv_bfloat16, false>(q, k, v, dout, dq, dk, dv, stats, seed, seed_per_row,
+                                        threshold, keep_w, keep_f32, batch, p, s);
 }
 
 const char* attention_train_error_string(int code) {

@@ -12,11 +12,12 @@ flagship request), f32 [64, 150, 512] (the evaluation's batch 32 under
 CFG) and f32 [16, 150, 512] (the f32 request), 4 heads of 128, q, k, v
 column views of one packed projection; B2 `fused_attention_btd_train`
 at the training shape, f32 [64, 150, 512] causal with per-row seeds: its
-forward at rate 0.1 and at rate 0, and its backward at rate 0.1; B3
-`fused_causal_attention` causal at bf16 [128, 4, 150, 128]. Run it as
-parent, change, change, parent in one call to compare two versions.
-Prints one JSON line with the card's name and power limit. Needs a CUDA
-device.
+forward at rate 0.1 and at rate 0, and its backward at rate 0.1, whose
+device time is also split by pass (row pass, column pass) by kernel name
+under torch.profiler; B3 `fused_causal_attention` causal at bf16 [128, 4,
+150, 128]. Run it as parent, change, change, parent in one call to compare
+two versions. Prints one JSON line with the card's name and power limit.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_attention: CUDA is not available", file=sys.stderr)
         return 2
+    # this checkout's profiler helper, then CHECKOUT's package
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import backward_pass_ms
+
     sys.path.insert(0, opts.root)
     from regennet_torch.ops import attention, kernels
 
@@ -57,7 +62,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     T, D, H = 150, 512, 4
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, passes = {}, None
     for name, kind, dtype, B in CASES:
         td = getattr(torch, dtype)
         if kind == "btd":
@@ -95,7 +100,10 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         times[name] = start.elapsed_time(end) / opts.iters
-    print(json.dumps({"root": opts.root, "card": card, "ms": times}))
+        if kind.startswith("backward"):
+            passes = backward_pass_ms(call, opts.iters)
+    print(json.dumps({"root": opts.root, "card": card, "ms": times,
+                      "backward_passes_ms": passes}))
     return 0
 
 

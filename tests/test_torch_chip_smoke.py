@@ -102,6 +102,13 @@ def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path)
      "training attention backward"),
     ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16>(x)",
      "training attention backward"),
+    ("void (anonymous namespace)::attention_train_rows<float, 160, true>(float const*, "
+     "float const*, float const*, float const*, float*, float*, int const*, int, unsigned "
+     "int, float, (anonymous namespace)::RowArgs)", "training attention backward"),
+    ("void (anonymous namespace)::attention_train_rows<__nv_bfloat16, 64, false>(x)",
+     "training attention backward"),
+    ("void (anonymous namespace)::attention_train_rows_long<float, 16>(float const*)",
+     "training attention backward"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x16", "dense GEMMs (cuBLAS)"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "dense GEMMs (cuBLAS)"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "other elementwise"),
@@ -111,3 +118,20 @@ def test_profile_kernel_groups(monkeypatch, name, group):
     import chip_smoke as cs
 
     assert cs._kernel_group(name) == group
+
+
+def test_train_cases_draw_t200_last(monkeypatch):
+    """Phase 2b's 84 cases: T 150, 60, 151 at B 8 and 64, then T 200 at B 8
+    (the backward's long-row route), each causal or with a key mask of T -
+    10, f32 and bf16, at rates 0, 0.1 and 0.5."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    cases = list(cs.train_cases())
+    assert len(cases) == 84 and len(set(cases)) == 84
+    assert [(B, T) for B, T, *_ in cases[::12]] == [
+        (8, 150), (8, 60), (8, 151), (64, 150), (64, 60), (64, 151), (8, 200)]
+    assert {(causal, kv_len) for _, T, causal, kv_len, *_ in cases if T == 200} == {
+        (True, None), (False, 190)}
+    assert cases[:6] == [(8, 150, True, None, dtype, rate)
+                         for dtype in ("float32", "bfloat16") for rate in (0.0, 0.1, 0.5)]

@@ -102,13 +102,15 @@ def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offs
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16, 60, 150, 151, 197, 256])
+@pytest.mark.parametrize("T", [16, 60, 64, 65, 150, 151, 160, 161, 197, 256])
 @pytest.mark.parametrize("mask", ["causal", "kv_len"])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rate):
     """Every route of the forward kernel (one chunk of 64 or 160 keys in
-    registers, or three passes over chunks), with and without dropout."""
+    registers, or three passes over chunks) and of the backward's row pass
+    (tensor cores for rows of up to 64 or 160 keys, the long-row route
+    past them), with and without dropout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"

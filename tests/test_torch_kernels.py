@@ -77,7 +77,8 @@ def test_library_path_follows_included_headers(monkeypatch, tmp_path):
 
 def test_real_sources_hash_the_shared_header():
     for name in kernels.KERNELS:
-        assert kernels.CSRC / "attention_math.cuh" in kernels.sources(name)
+        for header in ("attention_math.cuh", "attention_mma.cuh"):
+            assert kernels.CSRC / header in kernels.sources(name)
 
 
 def _layout(x, heads, dtype):
