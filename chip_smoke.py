@@ -267,12 +267,12 @@ def check_causal_attention(report, card):
 TRAIN = dict(batch=64, steps=40, steps_per_call=8, rate=0.1)
 
 
-def _train_pair(B, T, dtype, causal, kv_len, rate, gen):
+def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False):
     """The training kernels and autograd of their plain version on one
     packed [B, T, 3D] input (q, k, v as strided column views), with the
     same seeds and dO: (out, dq, dk, dv) of the kernels, the same of the
     plain version, and (dq, dk, dv) of the backward kernel's plain version
-    (the TPU kernel's rounding points)."""
+    (the TPU kernel's rounding points); the softmax in f32 if softmax_f32."""
     import torch
 
     from regennet_torch.ops import attention
@@ -288,12 +288,12 @@ def _train_pair(B, T, dtype, causal, kv_len, rate, gen):
                attention.attention_btd_train_reference):
         x = packed.clone().requires_grad_()
         q, k, v = x.split(D, dim=-1)
-        out = fn(q, k, v, H, rate, seeds, causal, False, kv_len)
+        out = fn(q, k, v, H, rate, seeds, causal, softmax_f32, kv_len)
         out.backward(dout)
         results.append((out.detach(), *x.grad.split(D, dim=-1)))
     q, k, v = packed.split(D, dim=-1)
     results.append(attention.attention_btd_train_backward_reference(
-        q, k, v, dout, H, rate, seeds, causal, False, kv_len))
+        q, k, v, dout, H, rate, seeds, causal, softmax_f32, kv_len))
     return results
 
 
@@ -319,12 +319,45 @@ def train_cases(order=TRAIN_CASES):
                         yield B, T, causal, None if causal else T - 10, dtype, rate
 
 
+def hold(what, err, tol):
+    """Raises AssertionError unless err is finite and within tol."""
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{what} disagrees: max_abs_err {err} > {tol}")
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def gradient_tolerance(autograd, plain_backward, dtype):
+    """The tolerance of a backward kernel's gradient against autograd of
+    the plain forward, and its terms. f32: TOLERANCE x max(1, max|autograd|)
+    (terms None). bf16: the plain backward's own distance from autograd (it
+    keeps the kernel's rounding points; autograd rounds the bf16 softmax's
+    VJP at more of them) plus the kernel's allowance against the plain
+    backward, TOLERANCE_VJP x max(1, max|plain backward|) (terms: the two)."""
+    if dtype != "bfloat16":
+        return TOLERANCE[dtype] * max(1.0, float(autograd.float().abs().max())), None
+    own = max_abs_err(plain_backward, autograd)
+    allowance = TOLERANCE_VJP[dtype] * max(1.0, float(plain_backward.float().abs().max()))
+    return own + allowance, (own, allowance)
+
+
+def hold_gradient(what, kernel, autograd, plain_backward, dtype):
+    """The kernel's gradient against autograd within gradient_tolerance:
+    raises AssertionError past it; returns (error, tolerance, terms)."""
+    err = max_abs_err(kernel, autograd)
+    tol, terms = gradient_tolerance(autograd, plain_backward, dtype)
+    hold(what, err, tol)
+    return err, tol, terms
+
+
 def check_train_kernels(report, card):
     """Phase 2b: the training kernels against their plain version, the
     dropout mask, determinism, the adjoint identity, and timings. The
-    gradients are held against autograd of the plain forward and against
-    the backward kernel's plain version; the latter rounds where the
-    kernel does (autograd rounds the bf16 softmax VJP at more points)."""
+    output is held against the plain forward; the gradients against
+    autograd of the plain forward (hold_gradient) and against the backward
+    kernel's plain version, which rounds where the kernel does."""
     import torch
 
     cases, worst = [], {"forward": 0.0, "backward": 0.0, "backward_vjp": 0.0}
@@ -332,35 +365,43 @@ def check_train_kernels(report, card):
     for B, T, causal, kv_len, dtype, rate in train_cases():
         ours, plain, vjp = _train_pair(B, T, dtype, causal, kv_len, rate, gen)
         case = dict(B=B, T=T, dtype=dtype, causal=causal, kv_len=kv_len, rate=rate)
-        pairs = [(name, "", a, b) for name, a, b in
-                 zip(("out", "dq", "dk", "dv"), ours, plain)]
-        pairs += [(name, "_vjp", a, b) for name, a, b in
-                  zip(("dq", "dk", "dv"), ours[1:], vjp)]
-        for name, ref, a, b in pairs:
-            err = float((a.float() - b.float()).abs().max())
-            rel = (TOLERANCE_VJP if ref else TOLERANCE)[dtype]
-            tol = rel * max(1.0, float(b.float().abs().max()))
-            if not (err <= tol and math.isfinite(err)):
-                raise AssertionError(
-                    f"training attention {name}{ref} disagrees: {case}, "
-                    f"max_abs_err {err} > {tol}")
-            case[f"{name}{ref}_err"] = err
-            which = ("forward" if name == "out" else "backward") + ref
-            worst[which] = max(worst[which], err)
+
+        def what(name):
+            return f"training attention {name} ({case})"
+
+        err = max_abs_err(ours[0], plain[0])
+        hold(what("out"), err,
+             TOLERANCE[dtype] * max(1.0, float(plain[0].float().abs().max())))
+        case["out_err"] = err
+        worst["forward"] = max(worst["forward"], err)
+        for name, a, b, c in zip(("dq", "dk", "dv"), ours[1:], plain[1:], vjp):
+            err, _, terms = hold_gradient(what(name), a, b, c, dtype)
+            case[f"{name}_err"], case[f"{name}_terms"] = err, terms
+            err_vjp = max_abs_err(a, c)
+            hold(what(name + " against the plain backward"), err_vjp,
+                 TOLERANCE_VJP[dtype] * max(1.0, float(c.float().abs().max())))
+            case[f"{name}_vjp_err"] = err_vjp
+            worst["backward"] = max(worst["backward"], err)
+            worst["backward_vjp"] = max(worst["backward_vjp"], err_vjp)
         cases.append(case)
     print(f"  training attention kernels match their plain version in {len(cases)} "
           f"cases (worst max_abs_err forward {worst['forward']:.3g}; backward "
           f"{worst['backward']:.3g} against autograd of the plain forward, "
           f"{worst['backward_vjp']:.3g} against the plain backward; tolerance "
-          "1e-5 f32, 2^-6 bf16 (2^-7 against the plain backward), x max(1, "
-          "max|plain|))")
+          "1e-5 f32 x max(1, max|plain|); bf16 forward 2^-6 x max(1, max|plain|), "
+          "gradients 2^-7 x max(1, max|plain backward|) from the plain backward, "
+          "and that plus the plain backward's own distance from autograd)")
     bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
     for ref in ("", "_vjp"):
         top = max(bf16, key=lambda c: max(c[f"d{x}{ref}_err"] for x in "qkv"))
+        terms = "" if ref else " (tolerance = the plain backward's distance + 2^-7 x " \
+            "max(1, max|plain backward|): " + ", ".join(
+                "d{} {:.3g} + {:.3g}".format(x, *top[f"d{x}_terms"]) for x in "qkv") + ")"
         print(f"    worst bf16 backward case against "
               f"{'the plain backward' if ref else 'autograd'}: "
               + ", ".join(f"d{x} {top[f'd{x}{ref}_err']:.3g}" for x in "qkv")
-              + f" at B={top['B']} T={top['T']} causal={top['causal']} rate {top['rate']}")
+              + f" at B={top['B']} T={top['T']} causal={top['causal']} rate {top['rate']}"
+              + terms)
     report["train_attention_cases"] = cases
     report["train_mask"] = check_train_mask()
     timing = time_train_kernels(card)

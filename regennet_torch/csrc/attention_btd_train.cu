@@ -24,7 +24,9 @@
 // What bounds it on an H100 (f32, B=64, T=150, D=512, causal):
 // 7*B*T*D*4 = 137.6 MB (41 us at 3.35 TB/s) against 10*B*pairs*D = 3.71
 // GFLOP (55 us at 67 TF/s f32): operations. The row pass alone moves q, k,
-// v, dO and dQ (98.3 MB, 29 us) and needs QK^T, dO V^T and dS K (33 us).
+// v, dO and dQ (98.3 MB, 29 us) and needs QK^T, dO V^T and dS K (33 us);
+// the column pass moves q, k, v, dO, dK and dV (118 MB, 35 us) and needs
+// QK^T, dO V^T, dV and dK (44 us).
 //
 // Design: two deterministic passes, no atomics.
 //   1. The row pass, one block per (query tile, head, batch), writes dQ and
@@ -49,11 +51,20 @@
 //      region, for dQ (from L2). Longer rows take the long-row route,
 //      attention_train_rows_long: CUDA-core FMAs from f32 copies in shared
 //      memory, score rows in shared memory (no model path reaches it).
-//   2. The column pass, one block per (key tile, head, batch), CUDA-core
-//      FMAs from f32 copies in shared memory: walks the query tiles that can
-//      see its keys (from the tile's first key on under the causal mask),
-//      recomputes P from the row statistics with the same rounding points,
-//      and accumulates dK and dV in registers.
+//   2. The column pass, attention_train_cols, the row pass on its side: one
+//      block of 4 warps per (head, batch, tile of 64 keys), each warp owning
+//      16 keys as the mma rows, walks the query slabs that can see its keys
+//      (from the tile's first key on under the causal mask; the key tile is
+//      the grid's slowest index, so the long tiles launch first). Per group
+//      of 32 queries it recomputes S^T = K (scale q)^T (for bf16 with a bf16
+//      softmax by scores_fma, the row pass's sums bit for bit), P from the
+//      row statistics at the row pass's rounding points, dP^T = V dO^T and
+//      the keep mask (drawn while the slab loads), then dV += W dO and dK +=
+//      dS q as the forward's W V, with dK and dV for 128 head-dim columns
+//      in registers across the slabs (wider heads take a sweep per 128).
+//      Keys and values stay in shared memory for the whole walk, beside a
+//      slab of q and dO (bf16: and a scaled copy of q; f32 scales q as its
+//      fragments are built), two blocks an SM at hd 128.
 // q, k and v may be strided views (columns of one packed [B, T, 3D]
 // projection): only the last dimension must be contiguous. dO, dQ, dK and
 // dV take the strides in RowArgs.so*.
@@ -79,10 +90,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-constexpr int THREADS = 256;  // the long-row route and the column pass
+constexpr int THREADS = 256;  // the long-row route
 constexpr int KT = 64;        // key tile of the long-row route
-constexpr int CK = 32;        // keys per block in the column pass
-constexpr int CQ = 32;        // query tile of the column pass
 constexpr int MAX_HD = 256;   // largest head dim a launch takes
 
 // the tensor-core row pass
@@ -91,6 +100,12 @@ constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int ROW_QT = 16 * ROW_WARPS;  // query rows of a block
 constexpr int GROUP = 32;               // keys of a group; a slab holds whole groups
 constexpr int MAX_KC = 160;             // the longest rows it takes
+
+// the column pass (the row pass's block): keys of a block, 16 a warp, and
+// the head-dim columns of dK and dV that a sweep over the queries holds in
+// registers
+constexpr int COL_KT = 16 * ROW_WARPS;
+constexpr int COL_HD = 128;
 
 struct RowArgs {
   int seq, heads, hd;
@@ -106,14 +121,15 @@ struct RowArgs {
 };
 
 // The scores of a warp's rows for the groups of 32 keys that start in
-// [lo, hi) (layout of s and arguments as WarpMma::scores), summed as the
-// column pass sums them: one FMA a step of d, in order, on the bf16 values
-// widened to f32. The row pass takes this for bf16 with a bf16 softmax.
-// There each score is rounded to bf16, and mma.sync's f32 sums (exact
-// products, an accumulation that is not IEEE's) round to the other side of
-// a bf16 boundary often enough that the row pass's P and statistics would
-// disagree with the column pass's P, a flip changing a weight by 1.5-3%
-// through exp().
+// [lo, hi) (layout of s and arguments as WarpMma::scores): one FMA a step
+// of d, in order, on the bf16 values widened to f32. Both passes take this
+// for bf16 with a bf16 softmax, the column pass with keys as the warp's rows
+// and queries as the slab (an FMA's product commutes: the same bits). There
+// each score is rounded to bf16, and mma.sync's f32 sums (exact products,
+// an accumulation that is not IEEE's) round to the other side of a bf16
+// boundary often enough that the row pass's P and statistics would disagree
+// with the column pass's P, a flip changing a weight by 1.5-3% through
+// exp(); the long-row route sums in the same order.
 template <int NB>
 __device__ __forceinline__ void scores_fma(float (&s)[NB][4], int lo, int hi,
                                            const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -245,7 +261,7 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   loads.wait();
   __syncthreads();
-  scale_rows<ROW_THREADS>(as, ld, rows, p.hdp, p.scale_q);
+  scale_rows<ROW_THREADS>(as, as, ld, rows, p.hdp, p.scale_q);
   int held = 0;  // the first key of the slab in bs
 
   // the scores, rounded and masked, slab by slab
@@ -371,8 +387,9 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // out[r * ostride + j] = sum_d a[r * ld + d] * M[j][d] for the QT rows of a
 // and keys j < kmax, M streamed through `tile` in KT-row tiles; round = 1
 // rounds each sum to the score dtype.
-// The column pass sums over d in the same order, so on this route it
-// recomputes the rounded scores bit for bit.
+// At a bf16 softmax the column pass sums over d in the same order
+// (scores_fma), so on this route it recomputes the rounded scores bit for
+// bit.
 template <typename T, int QT>
 __device__ void long_row_products(const float* a, float* tile, const T* m, long long smt,
                                   int hd, int ld, int kmax, float* out, int ostride, bool round,
@@ -544,144 +561,220 @@ attention_train_rows_long(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-size_t col_smem_bytes(int hd) {
-  return sizeof(float) * ((size_t)(2 * CK + 3 * CQ) * (hd + 1) + 2 * CQ * CK + 3 * CQ);
+// whether query i sees key j
+__device__ __forceinline__ bool sees(const RowArgs& p, int i, int j) {
+  return i < p.seq && j < p.klimit && (!p.causal || j <= i);
 }
 
-// Backward column pass: dK and dV of one key tile.
-// grid: (ceil(seq / CK), heads, batch); THREADS threads.
+// The dropout mask of a warp's weights in the column pass, keep_mask on its
+// side: bit 16 gq + 4 jj + e keeps element e of query block jj of group gq
+// of the slab, which is key kw + g + 8 (e >> 1) and query i0 + 32 gq + 8 jj +
+// 2t + (e & 1) (the accumulator layout with the keys as rows). Weights that
+// no query sees draw no bits.
+template <int QS>
+__device__ __forceinline__ uint32_t keep_mask_cols(const Dropout& d, int h, int kw, int i0,
+                                                   const RowArgs& p) {
+  static_assert(QS <= 64, "a slab's mask is one word");
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  uint32_t bits = 0u;
+#pragma unroll 4
+  for (int bit = 0; bit < QS / 2; ++bit) {
+    const int e = bit & 3;
+    const int i = i0 + 8 * (bit >> 2) + 2 * t + (e & 1), j = kw + g + 8 * (e >> 1);
+    if (sees(p, i, j) && philox_word0(d.k0, d.k1, j, i, h) >= d.threshold) bits |= 1u << bit;
+  }
+  return bits;
+}
+
+// The query slab: QS rows, of which f32 has room for one group of 32
+// beside the keys and values at two blocks an SM, bf16 for two with a third
+// copy (the scaled queries, which scores_fma reads); ROWS of shared tile in
+// all.
+template <typename T> struct ColSlab {
+  static constexpr int QS = sizeof(T) == 4 ? 32 : 64;
+  static constexpr bool COPY = sizeof(T) == 2;
+  static constexpr int ROWS = 2 * COL_KT + (COPY ? 3 : 2) * QS;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+size_t col_smem_bytes(int hdp) {
+  using S = ColSlab<T>;
+  return (size_t)S::ROWS * tile_ld(hdp, sizeof(T)) * sizeof(T) + 4 * S::QS * sizeof(float) + 16;
+}
+
+// Backward column pass on tensor cores: dK and dV of one tile of COL_KT
+// keys, each warp owning 16 keys as the mma rows, for every head dim up to
+// MAX_HD in sweeps of COL_HD columns. Walks the query slabs that can see its
+// keys (from the tile's first key on under the causal mask). Per group of 32
+// queries: S^T = K (scale q)^T (bf16 with a bf16 softmax: scores_fma, the
+// row pass's sums bit for bit; else mma), P from the row statistics at the
+// row pass's rounding points, dP^T = V dO^T, dS^T and the dropped weights in
+// place, then dV += W dO and dK += dS Q as the forward's W V.
+// grid: (heads, batch, ceil(seq / COL_KT)), the key tile slowest so that
+// the long tiles launch first; ROW_THREADS threads; dynamic shared memory
+// col_smem_bytes: keys and values [COL_KT][ld], queries and dO [QS][ld]
+// (bf16: and the scaled queries), the slab's statistics [4][QS] (max, sum,
+// 1 / sum, D_i), then the loads' mbarrier.
+template <typename T, bool SF32>
+__global__ void __launch_bounds__(ROW_THREADS, 2)
 attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ stats,
                      T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ seed,
                      int seed_per_row, uint32_t threshold, float keep_w, float keep_f32,
-                     RowArgs p) {
-  constexpr int ACC = (CK * MAX_HD + THREADS - 1) / THREADS;
-  constexpr int RG = THREADS / CK;  // row groups in the score phase
-  constexpr int RPT = CQ / RG;      // query rows per thread
-  extern __shared__ float smem[];
-  const int hd = p.hd, seq = p.seq, klimit = p.klimit;
-  const int ld = hd + 1;
-  float* ks = smem;            // [CK][ld] keys
-  float* vs = ks + CK * ld;    // [CK][ld] values
-  float* qu = vs + CK * ld;    // [CQ][ld] unscaled queries
-  float* qsc = qu + CQ * ld;   // [CQ][ld] scaled queries
-  float* dos = qsc + CQ * ld;  // [CQ][ld] dO rows
-  float* wds = dos + CQ * ld;  // [CQ][CK] dropped weights
-  float* dss = wds + CQ * CK;  // [CQ][CK] dS
-  float* rst = dss + CQ * CK;  // [3][CQ] row max, row sum, D_i
+                     const RowArgs p) {
+  constexpr int QS = ColSlab<T>::QS;
+  constexpr bool COPY = ColSlab<T>::COPY;
+  using Mma = WarpMma<T, 4>;  // one group of 32 queries at a time
+  constexpr int DC = Mma::DC;
+  constexpr int NC = COL_HD / DC;
+  using Score = typename std::conditional<SF32, float, T>::type;  // the score dtype
+  using Acc = float[NC][DC / 8][4];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld(p.hdp, sizeof(T));
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [COL_KT][ld] keys
+  T* vs = ks + COL_KT * ld;                // [COL_KT][ld] values
+  T* qs = vs + COL_KT * ld;                // [QS][ld] queries
+  T* dos = qs + QS * ld;                   // [QS][ld] dO
+  T* qsc = COPY ? dos + QS * ld : qs;      // [QS][ld] scaled queries (bf16)
+  float* rst = reinterpret_cast<float*>(ks + ColSlab<T>::ROWS * ld);
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * CK;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int nk = min(CK, seq - k0);
-  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dK / dV
-  const int nout = CK * hd;
+  const int warp = threadIdx.x >> 5;
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int k0 = blockIdx.z * COL_KT;
+  const int nk = min(COL_KT, p.seq - k0);
+  const int kw = k0 + 16 * warp;      // the warp's first key
+  const bool live = k0 < p.klimit;    // keys at or past kv_len get no gradient
+  const bool active = kw < p.klimit;  // (block- and warp-uniform)
+  const T* kwp = ks + 16 * warp * ld;
+  const T* vwp = vs + 16 * warp * ld;
   const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, keep_w, keep_f32);
+  Loader<T, ROW_THREADS> loads{reinterpret_cast<uint64_t*>(rst + 4 * QS), 0u, ld, p.hd,
+                               p.copy_bytes};
 
-  float acc_k[ACC], acc_v[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc_k[a] = acc_v[a] = 0.f;
+  const T* qb = q + b * p.sqb + h * p.sqh;
+  const T* kb = k + b * p.skb + h * p.skh;
+  const T* vb = v + b * p.svb + h * p.svh;
+  const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dK / dV
+  const long long plane = (long long)gridDim.y * p.heads * p.seq;
+  const float* st = stats + (b * p.heads + h) * p.seq;
 
-  if (k0 < klimit) {  // keys at or past kv_len get no gradient
-    const T* qb = q + b * p.sqb + h * p.sqh;
-    const T* kb = k + b * p.skb + h * p.skh;
-    const T* vb = v + b * p.svb + h * p.svh;
-    for (int i = tid; i < CK * hd; i += THREADS) {
-      const int r = i / hd, d = i - r * hd;
-      ks[r * ld + d] = r < nk ? to_f32<T>(kb[(k0 + r) * p.skt + d]) : 0.f;
-      vs[r * ld + d] = r < nk ? to_f32<T>(vb[(k0 + r) * p.svt + d]) : 0.f;
-    }
-    const long long plane = (long long)gridDim.z * p.heads * seq;
-    const float* st = stats + (b * p.heads + h) * seq;
-    const int c = tid % CK;
-    const int rg = tid / CK;
-    const int j = k0 + c;
-    // under the causal mask, queries before the tile's first key see none of it
-    for (int i0 = p.causal ? k0 : 0; i0 < seq; i0 += CQ) {
-      const int nq = min(CQ, seq - i0);
-      __syncthreads();  // previous query tile consumed
-      for (int i = tid; i < CQ * hd; i += THREADS) {
-        const int r = i / hd, d = i - r * hd;
-        const float x = r < nq ? to_f32<T>(qb[(i0 + r) * p.sqt + d]) : 0.f;
-        qu[r * ld + d] = x;
-        qsc[r * ld + d] = round_to<T>(x * p.scale_q);
-        dos[r * ld + d] = r < nq ? to_f32<T>(dout[ob + (i0 + r) * p.sot + d]) : 0.f;
-      }
-      if (tid < CQ) {
-        const bool real = tid < nq;
-        rst[tid] = real ? st[i0 + tid] : 0.f;
-        rst[CQ + tid] = real ? st[plane + i0 + tid] : 1.f;
-        rst[2 * CQ + tid] = real ? st[2 * plane + i0 + tid] : 0.f;
-      }
-      __syncthreads();
-      // scores and dO V^T of this (query, key) block: the scores are the row
-      // pass's bit for bit where it sums them in this order (the long-row
-      // route; bf16 with a bf16 softmax), else within the 3xTF32 or mma
-      // accumulation error (about 2^-21 relative) of the row pass's, from
-      // whose statistics P is recomputed
-      float s_acc[RPT], p_acc[RPT];
-#pragma unroll
-      for (int x = 0; x < RPT; ++x) s_acc[x] = p_acc[x] = 0.f;
-      const float* krow = ks + c * ld;
-      const float* vrow = vs + c * ld;
-      for (int d = 0; d < hd; ++d) {
-        const float kd = krow[d], vd = vrow[d];
-#pragma unroll
-        for (int x = 0; x < RPT; ++x) {
-          const int r = rg + x * RG;
-          s_acc[x] = fmaf(qsc[r * ld + d], kd, s_acc[x]);
-          p_acc[x] = fmaf(dos[r * ld + d], vd, p_acc[x]);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int r = rg + x * RG;
-        const int i = i0 + r;
-        float wd = 0.f, ds = 0.f;
-        if (r < nq && c < nk && j < klimit && (!p.causal || j <= i)) {
-          const float s = score_round<T>(s_acc[x], p.softmax_f32);
-          const float e = softmax_num<T>(s, rst[r], p.softmax_f32);
-          const float pij = score_round<T>(e / rst[CQ + r], p.softmax_f32);
-          const bool kept = drop.keep(h, i, j);
-          wd = round_to<T>(pij);
-          if (drop.threshold) wd = kept ? round_to<T>(wd * drop.scale_w) : 0.f;
-          const float dp = kept ? p_acc[x] * drop.scale_f32 : 0.f;
-          ds = round_to<T>(pij * (dp - rst[2 * CQ + r]));
-        }
-        wds[r * CK + c] = wd;
-        dss[r * CK + c] = ds;
-      }
-      __syncthreads();
-      // dV += W^T dO, dK += dS^T Q over this query tile
-#pragma unroll
-      for (int a = 0; a < ACC; ++a) {
-        const int e = tid + a * THREADS;
-        if (e < nout) {
-          const int cc = e / hd, d = e - cc * hd;
-          float av = acc_v[a], ak = acc_k[a];
-          for (int r = 0; r < nq; ++r) {
-            av = fmaf(wds[r * CK + cc], dos[r * ld + d], av);
-            ak = fmaf(dss[r * CK + cc], qu[r * ld + d], ak);
-          }
-          acc_v[a] = av;
-          acc_k[a] = ak;
-        }
-      }
-    }
+  // the keys and values, once for every sweep
+  if (threadIdx.x == 0) mbar_init(loads.bar);
+  zero_cols<ROW_THREADS>(ks, ld, ColSlab<T>::ROWS, p.hd, p.hdp);
+  if (nk < COL_KT) {
+    zero_rows<ROW_THREADS>(ks, ld, nk, COL_KT, p.hdp);
+    zero_rows<ROW_THREADS>(vs, ld, nk, COL_KT, p.hdp);
+  }
+  __syncthreads();
+  if (live) {
+    loads.issue(ks, kb + (long long)k0 * p.skt, p.skt, nk);
+    loads.issue(vs, vb + (long long)k0 * p.svt, p.svt, nk);
   }
 
+  // acc += x w over the group's 32 queries, with `rows` (dO or q) in V's place
+  auto accumulate = [&](Acc& acc, const float (&x)[4][4], const typename Mma::Weights& w,
+                        const T* rows, int dh) {
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = tid + a * THREADS;
-    if (e < nout) {
-      const int cc = e / hd, d = e - cc * hd;
-      if (cc < nk) {
-        const long long at = ob + (k0 + cc) * p.sot + d;
-        dv[at] = from_f32<T>(acc_v[a]);
-        dk[at] = from_f32<T>(acc_k[a] * p.scale_f32);
+    for (int n = 0; n < NC; ++n) {
+      const int dc = dh + n * DC;
+      if (dc + DC <= p.hdp)
+        Mma::template weighted_sum<true>(acc[n], x, w, 0, 1, rows, ld, dc, p.hdp);
+      else if (dc < p.hdp)
+        Mma::template weighted_sum<false>(acc[n], x, w, 0, 1, rows, ld, dc, p.hdp);
+    }
+  };
+
+#pragma unroll 1
+  for (int dh = 0; dh < p.hdp; dh += COL_HD) {
+    Acc ak = {}, av = {};
+    // under the causal mask, queries before the tile's first key see none of it
+#pragma unroll 1
+    for (int i0 = p.causal ? k0 : 0; live && i0 < p.seq; i0 += QS) {
+      const int n = min(QS, p.seq - i0);
+      __syncthreads();  // the previous slab consumed
+      if (n < QS) {  // (the products read whole groups: zero weights meet zeros)
+        zero_rows<ROW_THREADS>(qs, ld, n, QS, p.hdp);
+        zero_rows<ROW_THREADS>(dos, ld, n, QS, p.hdp);
+      }
+      loads.issue(qs, qb + (long long)i0 * p.sqt, p.sqt, n);
+      loads.issue(dos, dout + ob + (long long)i0 * p.sot, p.sot, n);
+      if (threadIdx.x < QS) {
+        const int i = i0 + threadIdx.x;
+        const bool real = i < p.seq;
+        const float l = real ? st[plane + i] : 1.f;
+        rst[threadIdx.x] = real ? st[i] : 0.f;
+        rst[QS + threadIdx.x] = l;
+        rst[2 * QS + threadIdx.x] = __frcp_rn(l);
+        rst[3 * QS + threadIdx.x] = real ? st[2 * plane + i] : 0.f;
+      }
+      // the keep mask while the slab loads
+      const uint32_t keep = drop.threshold ? keep_mask_cols<QS>(drop, h, kw, i0, p) : ~0u;
+      loads.wait();
+      __syncthreads();
+      if constexpr (COPY) {
+        scale_rows<ROW_THREADS>(qsc, qs, ld, QS, p.hdp, p.scale_q);
+        __syncthreads();
+      }
+
+#pragma unroll 1
+      for (int gq = 0; gq < QS / 32; ++gq) {
+        const int ig = i0 + 32 * gq;  // the group's first query
+        if (!active || ig >= p.seq || (p.causal && ig + 31 < kw)) continue;
+        const T* qg = qs + 32 * gq * ld;
+        const T* dg = dos + 32 * gq * ld;
+        float s[4][4] = {}, c[4][4] = {};
+        // S^T = K (scale q)^T, rounded to the score dtype, then P
+        if constexpr (sizeof(T) == 2 && !SF32)
+          scores_fma<4>(s, 0, 1, kwp, qsc + 32 * gq * ld, ld, p.hdp);
+        else if constexpr (sizeof(T) == 2)
+          Mma::group(s, kwp, qsc + 32 * gq * ld, ld, p.hdp);
+        else
+          Mma::template group<true>(s, kwp, qg, ld, p.hdp, p.scale_q);
+        const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * gq + 8 * jj + 2 * t + (e & 1);  // the query in the slab
+            const float x = softmax_num<T>(score_round<T>(s[jj][e], SF32), rst[r], SF32);
+            s[jj][e] = sees(p, i0 + r, kw + g + 8 * (e >> 1))
+                           ? round_to<Score>(divide(x, rst[QS + r], rst[2 * QS + r]))
+                           : 0.f;
+          }
+        // dP^T = V dO^T; then dS^T in c and the dropped weights in s
+        Mma::group(c, vwp, dg, ld, p.hdp);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * gq + 8 * jj + 2 * t + (e & 1);
+            const bool kept = keep >> (16 * gq + 4 * jj + e) & 1u;
+            const float pij = s[jj][e];
+            const float dp = kept ? __fmul_rn(c[jj][e], drop.scale_f32) : 0.f;
+            c[jj][e] = round_to<T>(pij * (dp - rst[3 * QS + r]));
+            float wd = round_to<T>(pij);
+            if (drop.threshold) wd = kept ? round_to<T>(wd * drop.scale_w) : 0.f;
+            s[jj][e] = wd;
+          }
+        // dV += W dO, dK += dS q (values of T: packing them to bf16 is exact)
+        typename Mma::Weights w;
+        Mma::pack(s, w);
+        accumulate(av, s, w, dg, dh);
+        Mma::pack(c, w);
+        accumulate(ak, c, w, qg, dh);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int dc = dh + n * DC;
+      if (dc < p.hdp) {
+#pragma unroll
+        for (int m = 0; m < DC / 8; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ak[n][m][e] *= p.scale_f32;
+        store_rows<T, DC>(ak[n], dk + ob, p.sot, kw, p.seq, dc, p.hd);
+        store_rows<T, DC>(av[n], dv + ob, p.sot, kw, p.seq, dc, p.hd);
       }
     }
   }
@@ -771,6 +864,28 @@ cudaError_t dispatch_rows(const void* q, const void* k, const void* v, const voi
 }
 
 template <typename T, bool SF32>
+cudaError_t launch_cols(const void* q, const void* k, const void* v, const void* dout,
+                        const float* stats, void* dk, void* dv, const int* seed, int seed_per_row,
+                        uint32_t threshold, float keep_w, float keep_f32, int batch,
+                        const RowArgs& p, cudaStream_t stream) {
+  const size_t smem = col_smem_bytes<T>(p.hdp);
+  const int tiles = (p.seq + COL_KT - 1) / COL_KT;
+  int cap = 0;
+  cudaError_t err = shared_memory_cap(&cap);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)cap || tiles > 65535) return cudaErrorInvalidValue;
+  auto kernel = attention_train_cols<T, SF32>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.heads, batch, tiles);
+  kernel<<<grid, ROW_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), stats, static_cast<T*>(dk), static_cast<T*>(dv), seed,
+      seed_per_row, threshold, keep_w, keep_f32, p);
+  return cudaGetLastError();
+}
+
+template <typename T, bool SF32>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* dout, void* dq,
                      void* dk, void* dv, float* stats, const int* seed, int seed_per_row,
                      uint32_t threshold, float keep_w, float keep_f32, int batch,
@@ -778,20 +893,8 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* do
   cudaError_t err = dispatch_rows<T, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row,
                                            threshold, keep_f32, batch, p, stream);
   if (err != cudaSuccess) return err;
-  int cap = 0;
-  err = shared_memory_cap(&cap);
-  if (err != cudaSuccess) return err;
-  const size_t smem = col_smem_bytes(p.hd);
-  if (smem > (size_t)cap) return cudaErrorInvalidValue;
-  auto kernel = attention_train_cols<T>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + CK - 1) / CK, p.heads, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), stats, static_cast<T*>(dk), static_cast<T*>(dv), seed,
-      seed_per_row, threshold, keep_w, keep_f32, p);
-  return cudaGetLastError();
+  return launch_cols<T, SF32>(q, k, v, dout, stats, dk, dv, seed, seed_per_row, threshold,
+                              keep_w, keep_f32, batch, p, stream);
 }
 
 bool valid_shape(int batch, int seq, int heads, int hd) {

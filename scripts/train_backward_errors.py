@@ -7,17 +7,20 @@ on one card.
 
 Imports regennet_torch from CHECKOUT (default: this script's checkout) and
 runs phase 2b's cases (this checkout's chip_smoke.train_cases and
-_train_pair, the same generator and seed) through its kernels. For each
-case it gives max|error| / tolerance of dq, dk and dv: against autograd of
-the plain forward (chip_smoke.TOLERANCE: 1e-5 f32, 2^-6 bf16, x max(1,
-max|autograd|)), against the plain backward (TOLERANCE_VJP: 2^-7 bf16),
-and of the plain backward itself against autograd (TOLERANCE), which no
-kernel that keeps the plain backward's rounding points can beat by much.
---t200-inside draws the T 200 cases right after the other B 8 cases, so the
-B 64 cases get other inputs than phase 2b gives them. Writes every case to
+_train_pair, the same generator and seed) through its kernels, then its
+bf16 cases again with an f32 softmax (the third instantiation; generator
+seed 6). For each case it gives max|error| / tolerance of dq, dk and dv:
+against autograd of the plain forward (chip_smoke.TOLERANCE: 1e-5 f32,
+2^-6 bf16, x max(1, max|autograd|)), against autograd at phase 2b's
+tolerance (`_check`: chip_smoke.gradient_tolerance), against the plain
+backward (TOLERANCE_VJP: 2^-7 bf16), and of the plain backward itself
+against autograd (TOLERANCE), which no kernel that keeps the plain
+backward's rounding points can beat by much. --t200-inside draws the T
+200 cases right after the other B 8 cases, so the B 64 cases get other
+inputs than phase 2b gives them. Writes every case to
 chiprun_out/train_backward_errors_<checkout>[_t200_inside].json and prints
-the worst ratio of each kind at bf16 and at f32, with the case, as one JSON
-line. Needs a CUDA device.
+the worst ratio of each kind for each instantiation, with the case, as
+one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,13 +58,18 @@ def main() -> int:
         tol = tolerance[dtype] * max(1.0, float(b.float().abs().max()))
         return float((a.float() - b.float()).abs().max()) / tol
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for B, T, causal, kv_len, dtype, rate in cs.train_cases(order):
-        ours, plain, vjp = cs._train_pair(B, T, dtype, causal, kv_len, rate, gen)
-        row = dict(B=B, T=T, causal=causal, dtype=dtype, rate=rate)
+    cases = [(case, False, 1) for case in cs.train_cases(order)]
+    cases += [(case, True, 6) for case in cs.train_cases(order) if case[4] == "bfloat16"]
+    gens = {seed: torch.Generator(device="cuda").manual_seed(seed) for seed in (1, 6)}
+    for (B, T, causal, kv_len, dtype, rate), softmax_f32, seed in cases:
+        ours, plain, vjp = cs._train_pair(B, T, dtype, causal, kv_len, rate, gens[seed],
+                                          softmax_f32)
+        row = dict(B=B, T=T, causal=causal, dtype=dtype + "_sf32" * softmax_f32, rate=rate)
         for i, g in enumerate(GRADS):
             row[g] = ratio(ours[i + 1], plain[i + 1], cs.TOLERANCE, dtype)
+            row[g + "_check"] = cs.max_abs_err(ours[i + 1], plain[i + 1]) / \
+                cs.gradient_tolerance(plain[i + 1], vjp[i], dtype)[0]
             row[g + "_vjp"] = ratio(ours[i + 1], vjp[i], cs.TOLERANCE_VJP, dtype)
             row[g + "_spec"] = ratio(vjp[i], plain[i + 1], cs.TOLERANCE, dtype)
         rows.append(row)
@@ -70,8 +78,8 @@ def main() -> int:
     name = Path(opts.root).resolve().name + ("_t200_inside" if opts.t200_inside else "")
     (out / f"train_backward_errors_{name}.json").write_text(json.dumps(rows))
     worst = {}
-    for dtype in ("bfloat16", "float32"):
-        for kind in ("", "_vjp", "_spec"):
+    for dtype in ("bfloat16", "bfloat16_sf32", "float32"):
+        for kind in ("", "_check", "_vjp", "_spec"):
             top = max((r for r in rows if r["dtype"] == dtype),
                       key=lambda r: max(r[g + kind] for g in GRADS))
             worst[f"{dtype}{kind or '_autograd'}"] = {

@@ -102,6 +102,14 @@ def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path)
      "training attention backward"),
     ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16>(x)",
      "training attention backward"),
+    ("void (anonymous namespace)::attention_train_cols<float, true>(float const*, float "
+     "const*, float const*, float const*, float const*, float*, float*, int const*, int, "
+     "unsigned int, float, float, (anonymous namespace)::RowArgs)",
+     "training attention backward"),
+    ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16, false>(x)",
+     "training attention backward"),
+    ("void (anonymous namespace)::attention_train_cols<__nv_bfloat16, true>(x)",
+     "training attention backward"),
     ("void (anonymous namespace)::attention_train_rows<float, 160, true>(float const*, "
      "float const*, float const*, float const*, float*, float*, int const*, int, unsigned "
      "int, float, (anonymous namespace)::RowArgs)", "training attention backward"),
@@ -135,3 +143,57 @@ def test_train_cases_draw_t200_last(monkeypatch):
         (True, None), (False, 190)}
     assert cases[:6] == [(8, 150, True, None, dtype, rate)
                          for dtype in ("float32", "bfloat16") for rate in (0.0, 0.1, 0.5)]
+
+
+# a hand-made gradient: autograd of the plain forward, and the plain
+# backward 1/16 away from it in one element (values exact in bf16 and f32)
+AUTOGRAD = torch.tensor([[0.5, -3.0], [1.0, 2.0]])
+PLAIN_BACKWARD = torch.tensor([[0.5, -2.9375], [1.0, 2.0]])
+
+
+def test_bf16_gradient_tolerance_adds_the_plain_backwards_distance(monkeypatch):
+    """At bf16 the kernel's gradient is held to the plain backward's own
+    distance from autograd plus 2^-7 x max(1, max|plain backward|)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    allowance = 2.0 ** -7 * 2.9375
+    tol, terms = cs.gradient_tolerance(AUTOGRAD, PLAIN_BACKWARD, "bfloat16")
+    assert tol == 0.0625 + allowance and terms == (0.0625, allowance)
+    kernel = PLAIN_BACKWARD + torch.tensor([[0.0, -allowance], [0.0, 0.0]])
+    err, tol, terms = cs.hold_gradient("dk", kernel, AUTOGRAD, PLAIN_BACKWARD, "bfloat16")
+    assert terms == pytest.approx((0.0625, allowance))
+    assert tol == pytest.approx(0.0625 + allowance)
+    assert err == pytest.approx(0.0625 - allowance)
+    # one allowance past the plain backward on the far side of autograd
+    kernel = AUTOGRAD + torch.tensor([[0.0, 0.0625 + allowance], [0.0, 0.0]])
+    assert cs.hold_gradient("dk", kernel, AUTOGRAD, PLAIN_BACKWARD, "bfloat16")[0] <= tol
+
+
+def test_f32_gradient_tolerance_is_unchanged(monkeypatch):
+    """At f32 the tolerance stays 1e-5 x max(1, max|autograd|): the plain
+    backward's distance is not added."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    err, tol, terms = cs.hold_gradient("dq", AUTOGRAD + 2.0 ** -16, AUTOGRAD, PLAIN_BACKWARD,
+                                       "float32")
+    assert terms is None and tol == pytest.approx(3e-5)
+    assert err == 2.0 ** -16
+    with pytest.raises(AssertionError, match="dq disagrees"):
+        cs.hold_gradient("dq", AUTOGRAD + 2.0 ** -15, AUTOGRAD, PLAIN_BACKWARD, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gradient_past_its_tolerance_raises(monkeypatch, dtype):
+    """A kernel farther from autograd than the bound fails the check, as
+    does a non-finite gradient."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    _, tol, _ = cs.hold_gradient("dv", AUTOGRAD, AUTOGRAD, PLAIN_BACKWARD, dtype)
+    past = AUTOGRAD + torch.tensor([[0.0, 0.0], [0.0, 2 * tol]])
+    with pytest.raises(AssertionError, match="dv disagrees"):
+        cs.hold_gradient("dv", past, AUTOGRAD, PLAIN_BACKWARD, dtype)
+    with pytest.raises(AssertionError):
+        cs.hold_gradient("dv", AUTOGRAD * float("nan"), AUTOGRAD, PLAIN_BACKWARD, dtype)

@@ -50,12 +50,13 @@ def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
     assert math.isfinite(float(out.float().abs().max()))
 
 
-def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, offset=0):
+def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, offset=0,
+                heads=4, hd=128):
     """Kernel and plain version of the training attention on the same
     packed inputs (q, k, v column views starting `offset` elements into each
-    row): (out, grads) of each, then the grads of the backward kernel's
-    plain version."""
-    dmodel, heads = 512, 4
+    row; `heads` heads of `hd`): (out, grads) of each, then the grads of the
+    backward kernel's plain version."""
+    dmodel = heads * hd
     gen = torch.Generator(device="cuda").manual_seed(seed + T)
     td = getattr(torch, dtype)
     packed = torch.randn(B, T, 3 * dmodel + offset, device="cuda", generator=gen).to(td)
@@ -76,13 +77,14 @@ def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, of
     return results
 
 
-def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offset=0):
+def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offset=0,
+                      heads=4, hd=128):
     """_train_case's kernels against both plain versions, with the launch
     counters: one forward and one backward launch, none of B1's."""
     fn = attention.fused_attention_btd_train
     before = (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches)
     (out, grads), (ref, ref_grads), plain_grads = _train_case(
-        B, T, dtype, causal, kv_len, rate, softmax_f32, offset=offset)
+        B, T, dtype, causal, kv_len, rate, softmax_f32, offset=offset, heads=heads, hd=hd)
     torch.cuda.synchronize()
     assert (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches) == (
         before[0] + 1, before[1] + 1, before[2])
@@ -115,6 +117,24 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rat
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"
     _check_train_case(8, T, dtype, causal, None if causal else T - 10, rate, softmax_f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,hd", [(4, 40), (8, 64), (2, 256)])
+@pytest.mark.parametrize("T", [60, 151])
+@pytest.mark.parametrize("mask", ["causal", "kv_len"])
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_train_kernels_at_other_head_dims(heads, hd, T, mask, dtype, softmax_f32, rate):
+    """The backward's column pass at a padded head dim (40: 48 columns of
+    products), half the models' (64) and the widest a launch takes (256:
+    two sweeps of 128 columns), with the forward and the row pass at the
+    same shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    causal = mask == "causal"
+    _check_train_case(8, T, dtype, causal, None if causal else T - 10, rate, softmax_f32,
+                      heads=heads, hd=hd)
 
 
 @pytest.mark.cuda
