@@ -46,9 +46,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. the evaluation CLI, `regennet_torch.eval.eval_cmdm.main`, in debug
      mode on phase 4's checkpoint with CFG 2.5 and a random ST-GCN, on 128
      in-memory clips: metrics, results file, times, launches; then the
-     ST-GCN on the card against a CPU copy.
+     ST-GCN on the card against a CPU copy;
+  7. the gru and mlp trunks (cm_mode add) at the flagship width, each:
+     train_mdm for 16 steps (f32 batch 64), a DDPM-1000 cgenerate request
+     (f32 batch 16) from its checkpoint, one denoiser forward on the card
+     against a CPU copy; the GRU's bias_hh r/z slices unchanged by training;
+  8. the learning guard, scripts/capability_study_torch.py at its smokefit
+     scale (a reduced ST-GCN trained on learnable clips, the online CMDM at
+     latent 64 trained 800 steps, the eval_cmdm protocol for the trained,
+     random-init and oracle rows), held to the six thresholds of
+     tests/test_capability_smoke.py; before it, B1 and B2 at its shapes
+     (head dim 16: [32, 24 and 25, 64], 4 heads) against their plain
+     versions.
 Each kernel's launches are read around each path that runs it (phases 3,
-5 and 6 for B1; 4 and 5 for B2; 2c for B3) and summed in the kernel line;
+5, 6 and 8 for B1; 4, 5 and 8 for B2; 2c for B3) and summed in the kernel
+line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches.
 The line before the last is the kernel table as JSON; the last line is
@@ -267,17 +279,18 @@ def check_causal_attention(report, card):
 TRAIN = dict(batch=64, steps=40, steps_per_call=8, rate=0.1)
 
 
-def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False):
+def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False, D=None, H=None):
     """The training kernels and autograd of their plain version on one
     packed [B, T, 3D] input (q, k, v as strided column views), with the
     same seeds and dO: (out, dq, dk, dv) of the kernels, the same of the
     plain version, and (dq, dk, dv) of the backward kernel's plain version
-    (the TPU kernel's rounding points); the softmax in f32 if softmax_f32."""
+    (the TPU kernel's rounding points); the softmax in f32 if softmax_f32.
+    D and H default to the flagship's."""
     import torch
 
     from regennet_torch.ops import attention
 
-    D, H = FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    D, H = D or FLAGSHIP["latent_dim"], H or FLAGSHIP["heads"]
     td = getattr(torch, dtype)
     packed = torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(td)
     dout = torch.randn(B, T, D, device="cuda", generator=gen).to(td)
@@ -626,12 +639,13 @@ def time_train_kernels(card):
     return res
 
 
-def request_args(out_dir, num_samples, guidance, compute_dtype, seed, arch="online"):
+def request_args(out_dir, num_samples, guidance, compute_dtype, seed, arch="online",
+                 cm_mode="concat"):
     return Namespace(
         seed=seed, device=0, batch_size=num_samples, use_ddim=False,
         timestep_respacing="", noise_schedule="cosine",
         diffusion_steps=FLAGSHIP["steps"], sigma_small=True, setting="cmdm",
-        arch=arch, emb_trans_dec=False, wo_pos_emb=False, cm_mode="concat",
+        arch=arch, emb_trans_dec=False, wo_pos_emb=False, cm_mode=cm_mode,
         layers=FLAGSHIP["layers"], latent_dim=FLAGSHIP["latent_dim"],
         cond_mask_prob=0.1, lambda_rcxyz=0.0, lambda_vel=0.0, lambda_fc=0.0,
         lambda_orient=1.0, lambda_body=1.0, lambda_transl=1.0,
@@ -790,6 +804,7 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
     from regennet_torch.data import synthetic
     from regennet_torch.data.feeder import Feeder
     from regennet_torch.data.get_data import BatchLoader, get_collate_fn
+    from regennet_torch.models.cmdm import TRANSFORMER_ARCHS
     from regennet_torch.ops import attention
     from regennet_torch.train import train_mdm, training_loop
     from regennet_torch.utils.fixseed import fixseed
@@ -833,7 +848,9 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
     finally:
         training_loop.TrainLoop.run_block = run_block
     launches = {"forward": fn.launches, "backward": fn.backward_launches}
-    expected = args.layers * steps if device != "cpu" else 0
+    # the gru and mlp trunks attend nothing
+    expected = args.layers * steps if device != "cpu" and args.arch in TRANSFORMER_ARCHS \
+        else 0
     print(f"  training kernel launches over {steps} steps: forward "
           f"{launches['forward']}, backward {launches['backward']} (layers x steps "
           f"= {expected} each)")
@@ -1045,21 +1062,23 @@ def sample_trained(report, save_dir, data, device="cuda", steps=None, ddim=True,
 OFFLINE_STEPS = 16
 
 
-def offline_train_args(save_dir):
+def offline_train_args(save_dir, steps=None, extra=()):
     """Phase 5's train_mdm arguments, as a user passes them: the flagship
     training configuration with no --arch, so the parser's default
-    (trans_enc, the offline trunk) is trained."""
+    (trans_enc, the offline trunk) is trained; `extra` arguments after
+    them (phase 7's --arch and --cm_mode)."""
     from regennet_torch.utils import parser_util
 
+    steps = steps or OFFLINE_STEPS
     return parser_util.train_args([
         "--save_dir", str(save_dir), "--dataset", "chi3d", "--num_person", "2",
         "--body_model", "smplx", "--setting", "cmdm", "--num_frames", str(FLAGSHIP["T"]),
-        "--batch_size", str(TRAIN["batch"]), "--num_steps", str(OFFLINE_STEPS),
+        "--batch_size", str(TRAIN["batch"]), "--num_steps", str(steps),
         "--steps_per_call", str(TRAIN["steps_per_call"]), "--save_interval",
-        str(OFFLINE_STEPS), "--log_interval", str(TRAIN["steps_per_call"]),
+        str(steps), "--log_interval", str(TRAIN["steps_per_call"]),
         "--lambda_vel", "1.0", "--seed", "0", "--layers", str(FLAGSHIP["layers"]),
         "--latent_dim", str(FLAGSHIP["latent_dim"]),
-        "--diffusion_steps", str(FLAGSHIP["steps"]),
+        "--diffusion_steps", str(FLAGSHIP["steps"]), *extra,
     ])
 
 
@@ -1201,6 +1220,198 @@ def run_eval(report, card, model_path, device="cuda"):
     return launches
 
 
+TRUNK_STEPS = 16
+
+
+def check_trunk_forward(report, data, arch, device="cuda", key=None):
+    """One f32 denoiser forward of the `arch` trunk on the card against the
+    same forward of a CPU copy (same seed, same inputs)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.collate import ccollate
+    from regennet_torch.models import cmdm
+    from regennet_torch.utils.model_util import create_model_and_diffusion
+
+    n = 16
+    motion, cond_np = ccollate([data.get_cmotion(i % 8, "appointed", 0) for i in range(n)])
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(motion.shape, generator=gen)
+    t = torch.randint(0, 1000, (n,), generator=gen)
+    cond = {"cmotion": torch.as_tensor(cond_np["y"]["cmotion"]),
+            "action": torch.as_tensor(cond_np["y"]["action"])}
+    outs = {}
+    for where in (device, "cpu"):
+        torch.manual_seed(7)
+        model, _, _ = create_model_and_diffusion(
+            request_args("", n, 1.0, "float32", seed=7, arch=arch, cm_mode="add"), data)
+        fn = cmdm.make_model_fn(model.to(where).eval())
+        outs[where] = fn(x.to(where), t.to(where),
+                         fn.prepare({k: v.to(where) for k, v in cond.items()})).cpu()
+    card, cpu = outs[device], outs["cpu"]
+    err = float((card - cpu).abs().max())
+    # f32 sums in other orders (cuDNN's GRU, cuBLAS) through 8 layers
+    tol = 1e-4 * max(1.0, float(cpu.abs().max()))
+    row = dict(arch=arch, batch=n, max_abs_err=err, tolerance=tol)
+    print(f"  {arch} denoiser forward f32 batch {n}: card vs CPU max_abs_err {err:.3g} "
+          f"(tolerance 1e-4 x max(1, max|cpu|) = {tol:.3g})")
+    if not (err <= tol and np.isfinite(err)):
+        raise AssertionError(f"{arch} forward on the card disagrees with the CPU: {row}")
+    report[key or f"{arch}_forward_check"] = row
+
+
+def run_trunk(report, card, save_dir, data, arch, device="cuda"):
+    """Phase 7, one trunk: train_mdm for TRUNK_STEPS flagship steps with
+    --arch `arch` --cm_mode add, the GRU's bias_hh r/z slices against its
+    initialisation, a DDPM cgenerate request (f32 batch 16) from the
+    checkpoint, and a forward on the card against a CPU copy."""
+    import torch
+
+    from regennet_torch.utils.fixseed import fixseed
+    from regennet_torch.utils.model_util import create_model_and_diffusion
+
+    args = offline_train_args(save_dir, TRUNK_STEPS, ("--arch", arch, "--cm_mode", "add"))
+    loop, loader, launches = run_training(report, card, save_dir, device, args,
+                                          key=f"{arch}_training")
+    if arch == "gru":
+        fixseed(args.seed)
+        init, _, _ = create_model_and_diffusion(args, loader)
+        D = args.latent_dim
+        for i in range(args.layers):
+            name = f"bias_hh_l{i}"
+            trained = getattr(loop.model.gru, name).detach().cpu()
+            if not torch.equal(trained[: 2 * D], getattr(init.gru, name)[: 2 * D].detach()):
+                raise AssertionError(f"gru.{name}'s r/z slices moved in training")
+        print(f"  gru: the r/z slices of bias_hh_l0..{args.layers - 1} are unchanged after "
+              f"{TRUNK_STEPS} steps")
+    del loop, loader
+    key = f"{arch}_sample"
+    sample_trained(report, save_dir, data, device, steps=TRUNK_STEPS, ddim=False, key=key)
+    row = report[key]
+    row["ms_per_step"] = row["generate_ms"] / FLAGSHIP["steps"]
+    row["seqs_per_s"] = 16 / (row["generate_ms"] / 1e3)
+    train = report[f"{arch}_training"]
+    print(f"  {arch}: training {train['ms_per_step']:.2f} ms/step ({train['samples_per_s']:.1f}"
+          f" samples/s); sampling {row['seqs_per_s']:.3f} seqs/s, {row['ms_per_step']:.3f} ms "
+          f"per denoiser step [{card}]")
+    if device != "cpu":
+        check_trunk_forward(report, data, arch, device)
+    return launches
+
+
+def load_capability_study():
+    """scripts/capability_study_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "capability_study_torch", REPO / "scripts" / "capability_study_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_guard_kernels(report):
+    """B1 and B2 at the learning guard's shapes (f32, 4 heads of 16, B 32,
+    T 24 and 25, causal, B2 at its dropout 0.1) against their plain
+    versions, as phases 2 and 2b hold them. Returns the worst errors."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, D, H = 32, 64, 4
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {"forward": 0.0, "train_forward": 0.0, "backward": 0.0}
+    cases = []
+    for T in (24, 25):
+        packed = torch.randn(B, T, 3 * D, device="cuda", generator=gen)
+        q, k, v = packed.split(D, dim=-1)
+        ref = attention.attention_btd_reference(q, k, v, H, True)
+        err = max_abs_err(attention.fused_attention_btd(q, k, v, H, True), ref)
+        hold(f"fused_attention_btd at [{B}, {T}, {D}], {H} heads", err,
+             TOLERANCE["float32"] * max(1.0, float(ref.abs().max())))
+        worst["forward"] = max(worst["forward"], err)
+        ours, plain, vjp = _train_pair(B, T, "float32", True, None, 0.1, gen, D=D, H=H)
+        case = dict(B=B, T=T, D=D, heads=H, fused_attention_btd_err=err)
+        err = max_abs_err(ours[0], plain[0])
+        hold(f"fused_attention_btd_train out at T {T}", err,
+             TOLERANCE["float32"] * max(1.0, float(plain[0].abs().max())))
+        worst["train_forward"] = max(worst["train_forward"], err)
+        case["train_out_err"] = err
+        for name, a, b, c in zip(("dq", "dk", "dv"), ours[1:], plain[1:], vjp):
+            err, _, _ = hold_gradient(f"fused_attention_btd_train {name} at T {T}", a, b, c,
+                                      "float32")
+            err_vjp = max_abs_err(a, c)
+            hold(f"fused_attention_btd_train {name} against the plain backward at T {T}",
+                 err_vjp, TOLERANCE_VJP["float32"] * max(1.0, float(c.abs().max())))
+            worst["backward"] = max(worst["backward"], err_vjp)
+            case[f"{name}_err"], case[f"{name}_vjp_err"] = err, err_vjp
+        cases.append(case)
+    print(f"  B1 and B2 at head dim 16 ([{B}, 24 and 25, {D}], {H} heads, f32, causal, B2 at "
+          f"rate 0.1) match their plain versions (worst max_abs_err B1 {worst['forward']:.3g}, "
+          f"B2 forward {worst['train_forward']:.3g}, backward {worst['backward']:.3g} against "
+          "the plain backward; tolerance 1e-5 x max(1, max|plain|))")
+    report["guard_kernel_cases"] = cases
+    return worst
+
+
+def run_learning_guard(report, card, workdir, device="cuda"):
+    """Phase 8: the learning guard in process, its launches of B1 (its
+    sampling, layers x steps x sampling calls) and B2 (its CMDM training,
+    layers x steps each way) read around it, and its six thresholds.
+    Returns {kernel: launches}."""
+    from regennet_torch.eval import stgcn_eval
+    from regennet_torch.ops import attention
+
+    study = load_capability_study()
+    calls = []
+    sample_output = stgcn_eval._sample_output
+
+    def counted(*a, **kw):
+        calls.append(a[3][0])
+        return sample_output(*a, **kw)
+
+    b1, b2 = attention.fused_attention_btd, attention.fused_attention_btd_train
+    b1.launches = b2.launches = b2.backward_launches = 0
+    stgcn_eval._sample_output = counted
+    try:
+        results = study.run_study(device, str(workdir))
+    finally:
+        stgcn_eval._sample_output = sample_output
+    launches = {"fused_attention_btd": b1.launches,
+                "fused_attention_btd_train": {"forward": b2.launches,
+                                              "backward": b2.backward_launches}}
+    train = results["cmdm_training"]
+    on_card = device != "cpu"
+    want = {"fused_attention_btd": train["layers"] * train["diffusion_steps"] * len(calls)
+            * on_card,
+            "fused_attention_btd_train": {w: train["layers"] * train["steps"] * on_card
+                                          for w in ("forward", "backward")}}
+    print(f"  launches: B1 {launches['fused_attention_btd']} (layers x steps x sampling calls "
+          f"= {train['layers']} x {train['diffusion_steps']} x {len(calls)}), B2 "
+          f"{launches['fused_attention_btd_train']} (layers x steps = "
+          f"{train['layers']} x {train['steps']} each)")
+    if launches != want:
+        raise AssertionError(f"learning guard launches {launches} != {want}")
+    walls = results["walls_s"]
+    print("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; total {results['total_s']:.2f} s [{card}]")
+    for row in ("trained", "random_init", "oracle"):
+        print(f"  {row}: accuracy_gen_test {results[row]['accuracy_gen_test']['mean']:.4f}, "
+              f"fid_gen_test {results[row]['fid_gen_test']['mean']:.6g}")
+    print(f"  evaluator GT accuracy {results['evaluator']['gt_test_accuracy']:.4f}")
+    report["learning_guard"] = dict(results, launches=launches, sampling_calls=len(calls))
+    study.require_learning(results)
+    print("  all six thresholds of tests/test_capability_smoke.py hold: "
+          + "; ".join(results["checked"]))
+    return launches
+
+
+def path_launches(paths, name, which=None):
+    """A kernel's launches summed over the paths that ran it (`which`:
+    "forward" or "backward" for B2's per-path dicts)."""
+    return sum(v if which is None else v[which] for v in paths[name].values())
+
+
 def main() -> int:
     try:
         import torch
@@ -1257,9 +1468,17 @@ def main() -> int:
                                                       data)
         print("phase 6: eval_cmdm (debug) on phase 4's checkpoint")
         eval_launches = run_eval(report, card, save_dir / f"model{TRAIN['steps']:09d}.pt")
+        print("phase 7: the gru and mlp trunks at the flagship width")
+        for arch in ("gru", "mlp"):
+            run_trunk(report, card, Path(tmp) / arch, data, arch)
+        print("phase 8: the learning guard (scripts/capability_study_torch.py, smokefit)")
+        guard_worst = check_guard_kernels(report)
+        guard = run_learning_guard(report, card, Path(tmp) / "guard")
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
-                                     "phase 6": eval_launches},
-             "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train},
+                                     "phase 6": eval_launches,
+                                     "phase 8": guard["fused_attention_btd"]},
+             "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
+                                           "phase 8": guard["fused_attention_btd_train"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -1270,10 +1489,10 @@ def main() -> int:
         "source": "regennet_torch/csrc/attention_fwd.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:222",
         "launches": launches,
-        "max_abs_err": worst,
+        "max_abs_err": max(worst, guard_worst["forward"]),
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, launches, timing in (
-        ("fused_attention_btd", sum(b1.values()), flagship),
+        ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape))]
     for which, line, source in (("forward", 382, "attention_fwd.cu"),
@@ -1283,8 +1502,10 @@ def main() -> int:
             "route": "cuda",
             "source": f"regennet_torch/csrc/{source}",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
-            "launches": train_launches[which] + offline_train[which],
-            "max_abs_err": train_worst["forward" if which == "forward" else "backward_vjp"],
+            "launches": path_launches(paths, "fused_attention_btd_train", which),
+            "max_abs_err": max(train_worst["forward" if which == "forward" else "backward_vjp"],
+                               guard_worst["train_forward" if which == "forward"
+                                           else "backward"]),
             "ms": train_timing[f"kernel_{which}_ms"],
             "plain_ms": train_timing[f"plain_{which}_ms"],
             "bound_ms": train_timing[f"{which}_bound_ms"],

@@ -1,11 +1,12 @@
 """Flax CMDM params -> the port's (reference torch) state dict, and a
 JAX train state -> the port's training state.
 
-The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for the
-online / trans_dec and offline / trans_enc trunks, and of ::convert_stgcn
-for the ST-GCN classifier. It takes the param tree as nested dicts of
-numpy arrays (no JAX import), so weights of a model trained by the JAX
-package load into regennet_torch.models.cmdm.CMDM with `load_state_dict`.
+The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for every
+trunk (online / trans_dec, offline / trans_enc, gru, mlp), and of
+::convert_stgcn for the ST-GCN classifier. It takes the param tree as
+nested dicts of numpy arrays (no JAX import), so weights of a model
+trained by the JAX package load into regennet_torch.models.cmdm.CMDM with
+`load_state_dict`.
 """
 
 from __future__ import annotations
@@ -37,14 +38,42 @@ def _mha(sd, prefix, attn):
     _linear(sd, f"{prefix}.out_proj", attn["out_proj"])
 
 
+def _gru_layer(sd, layer, cell):
+    """Flax GRUCell {ir, iz, in, hr, hz, hn} -> torch GRU layer `layer`
+    (gate order r, z, n). Flax's one r/z bias goes into bias_ih and the r/z
+    slices of bias_hh are zero (the port holds them there in training); the
+    n gate keeps its input bias in bias_ih and its hidden bias in bias_hh."""
+    def kernel(name):
+        return np.asarray(cell[name]["kernel"]).T
+
+    def bias(name):
+        return np.asarray(cell[name]["bias"])
+
+    sd[f"gru.weight_ih_l{layer}"] = np.ascontiguousarray(
+        np.concatenate([kernel(n) for n in ("ir", "iz", "in")], axis=0))
+    sd[f"gru.weight_hh_l{layer}"] = np.ascontiguousarray(
+        np.concatenate([kernel(n) for n in ("hr", "hz", "hn")], axis=0))
+    sd[f"gru.bias_ih_l{layer}"] = np.concatenate([bias(n) for n in ("ir", "iz", "in")])
+    hn = bias("hn")
+    sd[f"gru.bias_hh_l{layer}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
+
+
+def _mlp_block(sd, prefix, block):
+    """Flax MLPBlock -> the reference MLPblock; time_mix's [T, T] kernel
+    is the transpose of fc0's Conv1d(T, T, 1) weight."""
+    _linear(sd, f"{prefix}.emb_fc", block["emb_fc"])
+    _linear(sd, f"{prefix}.fc1", block["fc1"])
+    _layernorm(sd, f"{prefix}.norm0", block["norm0"])
+    _layernorm(sd, f"{prefix}.norm1", block["norm1"])
+    mix = block["time_mix"]
+    sd[f"{prefix}.fc0.weight"] = np.ascontiguousarray(np.asarray(mix["kernel"]).T[:, :, None])
+    sd[f"{prefix}.fc0.bias"] = np.asarray(mix["bias"])
+    if "concat_proj" in block:
+        _linear(sd, f"{prefix}.conct", block["concat_proj"])
+
+
 def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
-    """Flax CMDM params (online or offline trunk) -> reference-layout
-    state dict."""
-    if "decoder" not in params and "encoder" not in params:
-        raise NotImplementedError(
-            "only the transformer trunks (params['decoder'] or "
-            "params['encoder']) are ported"
-        )
+    """Flax CMDM params (any trunk) -> reference-layout state dict."""
     sd: Dict[str, np.ndarray] = {}
     _linear(sd, "input_process.poseEmbedding", params["input_process"])
     _linear(sd, "cmo_process.poseEmbedding", params["cmo_process"])
@@ -55,6 +84,20 @@ def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     if "action_embedding" in params:
         sd["embed_action.action_embedding"] = np.asarray(params["action_embedding"])
     _linear(sd, "output_process.poseFinal", params["output_process"])
+    if "GRUCell_0" in params:
+        i = 0
+        while f"GRUCell_{i}" in params:
+            _gru_layer(sd, i, params[f"GRUCell_{i}"])
+            i += 1
+        return sd
+    if "mlp_0" in params:
+        i = 0
+        while f"mlp_{i}" in params:
+            _mlp_block(sd, f"mlp.motion_mlp.mlps.{i}", params[f"mlp_{i}"])
+            i += 1
+        return sd
+    if "decoder" not in params and "encoder" not in params:
+        raise ValueError("no trunk (decoder, encoder, GRUCell_0, mlp_0) in the params")
     decoder = "decoder" in params
     layers = params["decoder" if decoder else "encoder"]
     trunk = "seqTransDecoder" if decoder else "seqTransEncoder"
@@ -139,7 +182,8 @@ def train_state_from_flax(state: Mapping) -> Dict:
       {"model": state dict, "ema": state dict, "exp_avg": state dict,
        "exp_avg_sq": state dict, "adam_step": int, "step": int}.
     The AdamW moments are param-shaped trees, so they go through the same
-    mapping as the parameters. `training_loop.load_train_state` puts the
+    mapping as the parameters (zeros in a GRU's frozen bias_hh r/z
+    slices). `training_loop.load_train_state` puts the
     result into a model, its AdamW optimizer and an EMA dict."""
     adam = _adam_state(state["opt_state"])
     if adam is None:

@@ -3,7 +3,8 @@
 
 * clips [T, V+1, C] with the last row holding the root translation, read
   from an h5 train/test pair (h5py is imported only then) or handed in
-  as a dict {key: clip} (`clips=`), which serves both splits;
+  as a dict {key: clip} (`clips=`), which serves both splits unless a
+  second dict (`test_clips=`) holds the test split;
 * labels parsed from key names (NTU `A###`, Chi3D `_<label>` suffix);
 * per-process shard striding (`indices[shard:][::num_shards]`);
 * frame-window sampling: conseq / random_conseq / random, pad-last-frame;
@@ -99,6 +100,7 @@ class Feeder:
         min_len: int = -1,
         num_seq_max: int = -1,
         clips: Optional[Mapping[str, np.ndarray]] = None,
+        test_clips: Optional[Mapping[str, np.ndarray]] = None,
         **kwargs,
     ):
         if split not in ("train", "val", "test"):
@@ -128,10 +130,13 @@ class Feeder:
         self._rep_cache: Dict[str, np.ndarray] = {}
 
         if clips is not None:
-            # one dict of clips serves both splits
+            # one dict of clips serves both splits, or a second the test split
             self.keys = self._ingest(clips)
             self._train = np.arange(len(self.keys))
             self._test = self._train
+            if test_clips is not None:
+                self.keys += self._ingest(test_clips)
+                self._test = np.arange(len(self._train), len(self.keys))
         else:
             self.keys = self._ingest_h5(self.data_path)
             n_train = len(self._poses)

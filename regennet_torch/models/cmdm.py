@@ -1,14 +1,18 @@
 """CMDM, the conditional motion diffusion denoiser (counterpart of
 regennet_tpu/models/cmdm.py): the online / trans_dec trunk (a causal
-decoder, the timestep-and-action embedding as its cross-attention memory)
-and the offline / trans_enc trunk (a non-causal encoder over the
-embedding token followed by the frames).
+decoder, the timestep-and-action embedding as its cross-attention memory),
+the offline / trans_enc trunk (a non-causal encoder over the embedding
+token followed by the frames), the gru trunk (stacked GRU layers over
+time, the embedding concatenated to every frame's pose features) and the
+mlp trunk (DiffMLP blocks mixing over frames and channels, the embedding
+added in every block).
 
 Tensors are batch-first [B, T, D] inside and [B, njoints, nfeats, T] at
 the API, as in the JAX package. Module and parameter names are those of
 the reference torch checkpoints (`input_process.poseEmbedding`,
 `embed_timestep.time_embed.{0,2}`, `seqTransDecoder.layers.{i}...` or
-`seqTransEncoder.layers.{i}...`), so a released state dict loads with
+`seqTransEncoder.layers.{i}...`, `gru.weight_ih_l{i}...`,
+`mlp.motion_mlp.mlps.{i}...`), so a released state dict loads with
 `load_state_dict` once its frozen CLIP, body-model and positional-table
 keys are stripped (train/checkpoint.py).
 The model computes in the dtype of its parameters: `.to(torch.bfloat16)`
@@ -19,6 +23,7 @@ dropout, each drawn from the torch.Generator `g`.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -26,8 +31,9 @@ from torch import nn
 
 from regennet_torch.models import transformer as tfm
 
-PORTED_ARCHS = ("online", "trans_dec", "offline", "trans_enc")
 DECODER_ARCHS = ("online", "trans_dec")
+TRANSFORMER_ARCHS = DECODER_ARCHS + ("offline", "trans_enc")
+PORTED_ARCHS = TRANSFORMER_ARCHS + ("gru", "mlp")
 
 
 class TimestepEmbedder(nn.Module):
@@ -66,6 +72,62 @@ class OutputProcess(nn.Module):
         self.poseFinal = nn.Linear(latent_dim, out_features)
 
 
+def _freeze_rz_grad(latent_dim: int, grad: torch.Tensor) -> torch.Tensor:
+    """Gradient hook of each GRU layer's bias_hh: zero its r and z slices.
+
+    Flax's GRUCell has one bias per r and z gate; torch's GRU has two,
+    b_ih and b_hh, that only ever appear summed, so both get the same
+    gradient. Adam normalises each separately, so trained as they are the
+    sum would move about twice as far per step as the flax bias does.
+    With the r/z slices of b_hh held still, b_ih alone carries the flax
+    bias and AdamW follows the JAX train step; weight decay and the EMA are
+    linear, so they keep the sum equal to the flax update as well. The
+    n-gate slice trains: flax keeps that hidden bias separate (`hn`)."""
+    grad = grad.clone()
+    grad[: 2 * latent_dim] = 0
+    return grad
+
+
+class MLPBlock(nn.Module):
+    """DiffMLP residual block (the reference's MLPblock): time mixing (a
+    1x1 convolution with the frames as channels, `fc0`) and channel mixing
+    (`fc1`), each after a LayerNorm and added through SiLU, the embedding
+    added first through `emb_fc`; block 0 first projects the concatenated
+    streams [2D] -> [D] (`conct`)."""
+
+    def __init__(self, latent_dim: int, seq_len: int, first: bool):
+        super().__init__()
+        if first:
+            self.conct = nn.Linear(2 * latent_dim, latent_dim)
+        self.emb_fc = nn.Linear(latent_dim, latent_dim)
+        self.norm0 = nn.LayerNorm(latent_dim, eps=1e-5)
+        self.fc0 = nn.Conv1d(seq_len, seq_len, 1)
+        self.norm1 = nn.LayerNorm(latent_dim, eps=1e-5)
+        self.fc1 = nn.Linear(latent_dim, latent_dim)
+
+    def forward(self, x, emb):
+        """x [B, T, D (2D in block 0)], emb [B, D] -> [B, T, D]."""
+        if hasattr(self, "conct"):
+            x = self.conct(x)
+        x = x + self.emb_fc(torch.nn.functional.silu(emb))[:, None, :]
+        x = x + torch.nn.functional.silu(self.fc0(self.norm0(x)))
+        return x + torch.nn.functional.silu(self.fc1(self.norm1(x)))
+
+
+class DiffMLP(nn.Module):
+    """The DiffMLP blocks, `mlps.{i}`."""
+
+    def __init__(self, num_layers: int, latent_dim: int, seq_len: int):
+        super().__init__()
+        self.mlps = nn.ModuleList(
+            MLPBlock(latent_dim, seq_len, first=i == 0) for i in range(num_layers))
+
+    def forward(self, x, emb):
+        for block in self.mlps:
+            x = block(x, emb)
+        return x
+
+
 class CMDM(nn.Module):
     """Conditional (actor -> reactor) motion denoiser.
 
@@ -85,11 +147,11 @@ class CMDM(nn.Module):
                  data_rep: str = "rot6d"):
         super().__init__()
         if arch not in PORTED_ARCHS:
-            raise NotImplementedError(
-                f"arch={arch!r} is not ported yet (ported: {PORTED_ARCHS})"
-            )
+            raise ValueError(f"arch={arch!r}: choose one of {PORTED_ARCHS}")
         if cm_mode not in ("add", "concat"):
             raise NotImplementedError(f"cm_mode={cm_mode!r}")
+        if arch == "gru" and cm_mode != "add":
+            raise NotImplementedError(f"the gru trunk takes cm_mode 'add', not {cm_mode!r}")
         if "text" in cond_mode:
             raise NotImplementedError("text conditioning is not ported yet")
         self.njoints, self.nfeats = njoints, nfeats
@@ -101,10 +163,12 @@ class CMDM(nn.Module):
         self.data_rep = data_rep
         self.dropout = dropout  # training only; sampling never drops
         input_feats = njoints * nfeats
+        # the gru trunk concatenates the embedding to every frame's features
+        proc_feats = input_feats + (latent_dim if arch == "gru" else 0)
 
-        self.input_process = PoseEmbedding(input_feats, latent_dim)
-        self.cmo_process = PoseEmbedding(input_feats, latent_dim)
-        if cm_mode == "concat":
+        self.input_process = PoseEmbedding(proc_feats, latent_dim)
+        self.cmo_process = PoseEmbedding(proc_feats, latent_dim)
+        if cm_mode == "concat" and arch in TRANSFORMER_ARCHS:
             self.fuse_process = nn.Linear(2 * latent_dim, latent_dim)
         self.embed_timestep = TimestepEmbedder(latent_dim)
         if "action" in cond_mode:
@@ -113,6 +177,20 @@ class CMDM(nn.Module):
                       tfm.ACTIVATIONS[activation], dropout)
         if arch in DECODER_ARCHS:
             self.seqTransDecoder = tfm.Decoder(*trunk_args)
+        elif arch == "gru":
+            # one cuDNN GRU over time for all layers, zero initial state
+            self.gru = nn.GRU(latent_dim, latent_dim, num_layers=num_layers,
+                              batch_first=True)
+            for i in range(num_layers):
+                bias_hh = getattr(self.gru, f"bias_hh_l{i}")
+                with torch.no_grad():
+                    bias_hh[: 2 * latent_dim].zero_()
+                bias_hh.register_hook(functools.partial(_freeze_rz_grad, latent_dim))
+        elif arch == "mlp":
+            # the reference's module path mlp.motion_mlp; its time mixing
+            # is shaped by the frame count
+            self.mlp = nn.ModuleDict(
+                {"motion_mlp": DiffMLP(num_layers, latent_dim, num_frames)})
         else:
             self.seqTransEncoder = tfm.Encoder(*trunk_args)
         self.output_process = OutputProcess(latent_dim, input_feats)
@@ -150,8 +228,10 @@ class CMDM(nn.Module):
         bottom half of the fuse matmul plus input_process folded into its
         top half (x @ W_in + b_in) @ F_top == x @ (W_in F_top) + b_in F_top,
         accumulated in f32. forward() reads 'cond_emb_seq' and
-        'fold_in_kernel' when present."""
-        if cond is None or "cmotion" not in cond or "cond_emb_seq" in cond:
+        'fold_in_kernel' when present. The gru and mlp trunks take cond
+        unchanged."""
+        if (self.arch not in TRANSFORMER_ARCHS or cond is None
+                or "cmotion" not in cond or "cond_emb_seq" in cond):
             return cond
         dtype = self.dtype
         cmx = self.cmo_process.poseEmbedding(self._to_seq(cond["cmotion"]).to(dtype))
@@ -181,9 +261,7 @@ class CMDM(nn.Module):
         x_seq = self.input_process.poseEmbedding(x_feats)
         if pre_emb is not None:  # add
             return x_seq + pre_emb.to(x_seq.dtype)
-        cmx_seq = self.cmo_process.poseEmbedding(
-            self._to_seq(cond["cmotion"]).to(x_feats.dtype)
-        )
+        cmx_seq = self.cmo_process.poseEmbedding(self._cmotion_feats(cond, x_feats.dtype))
         if self.cm_mode == "add":
             return x_seq + cmx_seq
         return self.fuse_process(torch.cat([x_seq, cmx_seq], dim=-1))
@@ -212,7 +290,41 @@ class CMDM(nn.Module):
             action_emb = self.embed_action.action_embedding[idx]
             emb = emb + self._mask_cond(action_emb, cond.get("uncond"), generator)
 
-        xseq = self._fuse(self._to_seq(x).to(dtype), cond)
+        x_feats = self._to_seq(x).to(dtype)
+        if self.arch == "gru":
+            out = self._gru(x_feats, cond, emb, generator)
+        elif self.arch == "mlp":
+            out = self._mlp(x_feats, cond, emb)
+        else:
+            out = self._transformer(x_feats, cond, emb, generator)
+        out = self.output_process.poseFinal(out).float()
+        return out.reshape(B, T, J, F).permute(0, 2, 3, 1)
+
+    def _cmotion_feats(self, cond, dtype):
+        return self._to_seq(cond["cmotion"]).to(dtype)
+
+    def _gru(self, x_feats, cond, emb, generator):
+        """Both streams take the embedding after their pose features; their
+        sum, with positions and dropout, runs through the GRU layers."""
+        emb_rep = emb[:, None, :].expand(-1, x_feats.shape[1], -1)
+        x_seq = self.input_process.poseEmbedding(torch.cat([x_feats, emb_rep], -1))
+        cmx_seq = self.cmo_process.poseEmbedding(
+            torch.cat([self._cmotion_feats(cond, x_feats.dtype), emb_rep], -1))
+        out, _ = self.gru(self._add_pos(x_seq + cmx_seq, generator))
+        return out
+
+    def _mlp(self, x_feats, cond, emb):
+        """The streams concatenated actor first, through the DiffMLP blocks
+        (no positions, no dropout)."""
+        if x_feats.shape[1] != self.num_frames:
+            raise ValueError(f"the mlp trunk is built for {self.num_frames} frames, "
+                             f"not {x_feats.shape[1]}")
+        x_seq = self.input_process.poseEmbedding(x_feats)
+        cmx_seq = self.cmo_process.poseEmbedding(self._cmotion_feats(cond, x_feats.dtype))
+        return self.mlp["motion_mlp"](torch.cat([cmx_seq, x_seq], -1), emb)
+
+    def _transformer(self, x_feats, cond, emb, generator):
+        xseq = self._fuse(x_feats, cond)
         memory = emb[:, None, :]  # the single conditioning token
         if self.arch in DECODER_ARCHS:
             if self.emb_trans_dec:
@@ -227,8 +339,7 @@ class CMDM(nn.Module):
             # token's output dropped (the encoder ignores wo_pos_emb)
             xseq = self._add_pos(torch.cat([memory, xseq], dim=1), generator)
             out = self.seqTransEncoder(xseq, generator)[:, 1:]
-        out = self.output_process.poseFinal(out).float()
-        return out.reshape(B, T, J, F).permute(0, 2, 3, 1)
+        return out
 
 
 def make_model_fn(model: CMDM):

@@ -15,7 +15,13 @@ classifier's (`data_bn`, `st_gcn_networks.{i}.{gcn.conv, tcn.0, tcn.2,
 tcn.3, residual.0, residual.1}`, `edge_importance.{i}`, `fcn`), so a
 released `.pth.tar` state dict loads as it is (train/checkpoint.py).
 BatchNorm layers have eps 1e-5 and are evaluated with their running
-statistics: build the module and call `.eval()`.
+statistics: build the module and call `.eval()`. In train mode (the
+classifier's trainer, eval/train_stgcn.py) they normalise with the batch
+statistics and update the running ones with torch's momentum 0.1, the
+JAX package's _BN_MOMENTUM 0.9 (running = 0.9 running + 0.1 batch). One
+difference is kept on purpose: torch folds the unbiased batch variance
+(n / (n - 1) times the biased one) into running_var, flax the biased one;
+the reference's classifier was trained in torch.
 """
 
 from __future__ import annotations
@@ -137,3 +143,12 @@ def random_init_(model: STGCN, generator: torch.Generator) -> STGCN:
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 mod.bias.uniform_(-bound, bound, generator=generator)
     return model
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of the integer labels."""
+    return torch.nn.functional.cross_entropy(logits, labels.long())
+
+
+def accuracy_from_logits(logits: np.ndarray, labels: np.ndarray) -> float:
+    return float((np.argmax(logits, axis=1) == labels).mean())

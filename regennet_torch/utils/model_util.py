@@ -47,14 +47,13 @@ def get_model_args(args, data) -> dict:
     elif args.dataset == "kit":
         data_rep, njoints, nfeats = "hml_vec", 251, 1
 
-    if args.dataset == "ntu":
-        num_frames = 60
-    elif args.dataset == "chi3d":
-        num_frames = 150
-    elif args.dataset in ("humanml", "kit"):
-        num_frames = 196
-    else:
-        num_frames = getattr(args, "num_frames", 60)
+    # the window the data gives the model (--num_frames): it shapes the mlp
+    # trunk's time mixing, as the input's T shapes the JAX package's at
+    # init; the dataset's reference length when it is unset
+    num_frames = getattr(args, "num_frames", 0) or 0
+    if num_frames <= 0:
+        num_frames = {"ntu": 60, "chi3d": 150, "humanml": 196,
+                      "kit": 196}.get(args.dataset, 60)
 
     return dict(
         njoints=njoints,

@@ -45,6 +45,9 @@ def parse_and_load_from_model(parser, with_data: bool = True, argv=None):
     # a run of the port's trainer records the activation it trained with
     if model_args.get("activation"):
         args.activation = model_args["activation"]
+    # the mlp trunk's time mixing is built for the frames it trained on
+    if args.arch == "mlp" and model_args.get("num_frames"):
+        args.num_frames = model_args["num_frames"]
     if args.cond_mask_prob == 0:
         args.guidance_param = 1
     return args

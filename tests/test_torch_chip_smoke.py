@@ -197,3 +197,124 @@ def test_gradient_past_its_tolerance_raises(monkeypatch, dtype):
         cs.hold_gradient("dv", past, AUTOGRAD, PLAIN_BACKWARD, dtype)
     with pytest.raises(AssertionError):
         cs.hold_gradient("dv", AUTOGRAD * float("nan"), AUTOGRAD, PLAIN_BACKWARD, dtype)
+
+
+@pytest.mark.parametrize("arch", ["gru", "mlp"])
+def test_trunk_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path, arch):
+    """Phase 7 at a cut size: train_mdm with --arch gru / mlp --cm_mode add
+    (no attention launches on any device: these trunks attend nothing),
+    the GRU's bias_hh check, and DDPM from the checkpoint."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, T=12, steps=4).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    for key, value in dict(batch=4, steps=4, steps_per_call=2).items():
+        monkeypatch.setitem(cs.TRAIN, key, value)
+    monkeypatch.setattr(cs, "TRUNK_STEPS", 4)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=16,
+                                             min_len=14, max_len=24),
+                  dataname="chi3d", split="test", num_frames=12, num_person=2,
+                  pose_rep="rot6d")
+    report = {}
+    assert cs.run_trunk(report, "cpu", tmp_path / arch, data, arch, device="cpu") == {
+        "forward": 0, "backward": 0}
+    assert report[f"{arch}_training"]["arch"] == arch
+    assert report[f"{arch}_sample"]["sampler"] == "DDPM 4"
+    assert report[f"{arch}_sample"]["ms_per_step"] > 0
+
+
+def _guard_results(**acc_fid):
+    """A learning-guard artefact that passes every threshold, with
+    (accuracy, FID) of a row replaced by acc_fid[row]."""
+    gt = acc_fid.pop("gt", 1.0)
+    rows = dict(trained=(0.4, 1.0), random_init=(0.125, 10.0), oracle=(0.9, 0.01))
+    rows.update(acc_fid)
+    out = {row: {"accuracy_gen_test": {"mean": a}, "fid_gen_test": {"mean": f}}
+           for row, (a, f) in rows.items()}
+    out["evaluator"] = {"gt_test_accuracy": gt}
+    return out
+
+
+@pytest.mark.parametrize("miss,name,what", [
+    (dict(gt=0.59), "evaluator_pass", "evaluator GT accuracy 0.5900"),
+    (dict(trained=(0.2, 1.0)), "trained_acc_above_chance", "chance + 0.10"),
+    (dict(random_init=(0.41, 10.0)), "trained_acc_above_random", "random-init 0.4100"),
+    (dict(random_init=(0.125, 3.9)), "trained_fid_much_below_random",
+     "0.25 x random-init FID 3.9"),
+    (dict(oracle=(0.49, 0.01)), "oracle_preserves_signal", "oracle accuracy 0.4900"),
+    (dict(oracle=(0.9, 0.1)), "oracle_fid_far_below_trained", "0.1 x trained FID"),
+    (dict(trained=(0.6, 1.0), oracle=(0.5, 0.01)), "oracle_is_ceiling", "+ 0.05"),
+])
+def test_a_learning_guard_threshold_that_misses_raises(monkeypatch, miss, name, what):
+    """Each check of the learning guard (the six thresholds of
+    tests/test_capability_smoke.py; the second splits in two) fails phase 8
+    alone when it misses, naming its numbers; an artefact that meets them
+    all passes."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    study = cs.load_capability_study()
+    study.require_learning(_guard_results())
+    checks = study.guard_checks(_guard_results(**dict(miss)))
+    assert [n for n, (held, _) in checks.items() if not held] == [name]
+    with pytest.raises(AssertionError, match="missed") as err:
+        study.require_learning(_guard_results(**miss))
+    assert what in str(err.value) and str(err.value).count(";") == 0
+
+
+def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_path):
+    """Phase 8's control flow with the study stubbed: the launch counts
+    are zeroed before the study and read after it; on the CPU the kernels
+    launch nothing, so every expected count is 0; a missed threshold fails
+    the phase after its numbers are printed."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.ops import attention
+
+    study = cs.load_capability_study()
+    results = _guard_results()
+    results.update(cmdm_training=dict(layers=2, steps=800, diffusion_steps=50),
+                   walls_s=dict(data=0.1), total_s=1.0)
+    results["checked"] = [what for _, what in study.guard_checks(results).values()]
+    attention.fused_attention_btd.launches = 5  # from an earlier phase
+
+    class Stub:
+        require_learning = staticmethod(study.require_learning)
+
+        @staticmethod
+        def run_study(device, workdir):
+            assert attention.fused_attention_btd.launches == 0
+            return dict(results)
+
+    monkeypatch.setattr(cs, "load_capability_study", lambda: Stub)
+    report = {}
+    launches = cs.run_learning_guard(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"fused_attention_btd": 0,
+                        "fused_attention_btd_train": {"forward": 0, "backward": 0}}
+    assert report["learning_guard"]["sampling_calls"] == 0
+    results["trained"]["accuracy_gen_test"]["mean"] = 0.1
+    with pytest.raises(AssertionError, match="missed"):
+        cs.run_learning_guard({}, "cpu", tmp_path, device="cpu")
+
+
+def test_path_launches_add_up(monkeypatch):
+    """The kernel line's launches: each kernel summed over its paths, B2
+    by direction, phase 8 included."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    paths = {"fused_attention_btd": {"phase 3": 24000, "phase 5": 8000, "phase 6": 64000,
+                                     "phase 8": 400},
+             "fused_attention_btd_train": {
+                 "phase 4": {"forward": 320, "backward": 320},
+                 "phase 5": {"forward": 128, "backward": 128},
+                 "phase 8": {"forward": 1600, "backward": 1600}},
+             "fused_causal_attention": {"phase 2c": 26}}
+    assert cs.path_launches(paths, "fused_attention_btd") == 96400
+    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2048
+    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2048
+    assert cs.path_launches(paths, "fused_causal_attention") == 26

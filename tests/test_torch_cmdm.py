@@ -165,12 +165,6 @@ def test_cfg_requires_condition_dropout():
         cmdm.make_cfg_model_fn(tm, 2.5)
 
 
-@pytest.mark.parametrize("arch", ["gru", "mlp"])
-def test_unported_trunks_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cmdm.CMDM(**_kwargs(arch=arch))
-
-
 def test_reference_checkpoint_file_loads(tmp_path):
     """A released-style .pt file (extra CLIP, body-model and positional
     table keys) loads strictly into the port."""

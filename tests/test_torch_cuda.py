@@ -120,13 +120,14 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rat
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,hd", [(4, 40), (8, 64), (2, 256)])
+@pytest.mark.parametrize("heads,hd", [(4, 16), (4, 40), (8, 64), (2, 256)])
 @pytest.mark.parametrize("T", [60, 151])
 @pytest.mark.parametrize("mask", ["causal", "kv_len"])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_train_kernels_at_other_head_dims(heads, hd, T, mask, dtype, softmax_f32, rate):
-    """The backward's column pass at a padded head dim (40: 48 columns of
+    """The backward's column pass at the learning guard's head dim (16:
+    latent 64 over 4 heads), a padded head dim (40: 48 columns of
     products), half the models' (64) and the widest a launch takes (256:
     two sweeps of 128 columns), with the forward and the row pass at the
     same shapes."""
@@ -244,7 +245,7 @@ def _check_forward(q, k, v, heads, causal, kv_len, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 16, 64])
 @pytest.mark.parametrize("T", [16, 20, 60, 150, 151, 197, 256, 512])
-@pytest.mark.parametrize("hd", [40, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 40, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mask", MASKS)
 def test_cuda_forward_kernel_matches_plain_versions(B, T, hd, dtype, mask):

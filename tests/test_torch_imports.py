@@ -1,5 +1,5 @@
-"""regennet_torch stands alone: no module of it, and not chip_smoke.py,
-imports JAX or the JAX package; and its entry points run on the GPU
+"""regennet_torch stands alone: no module of it, and neither chip_smoke.py
+nor scripts/capability_study_torch.py, imports JAX or the JAX package; and its entry points run on the GPU
 unless the caller asks for the CPU."""
 
 import os
@@ -21,6 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(regennet_torch.__path__, "regenne
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+chip_smoke.load_capability_study()
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "regennet_tpu")
           and sys.modules[m] is not None]
@@ -36,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 46  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 47  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -76,3 +77,20 @@ def test_eval_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_cmdm.main(args)
     assert not os.listdir(tmp_path)  # no results file
+
+
+def test_learning_guard_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
+    from regennet_torch.eval import train_stgcn
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        import capability_study_torch as study
+    finally:
+        sys.path.pop(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = Namespace(seed=0, save_dir=str(tmp_path / "stgcn"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_stgcn.run_training(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        study.run_study(workdir=str(tmp_path / "guard"))
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
