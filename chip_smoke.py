@@ -15,8 +15,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (the backward's long-row route); the forward's dropout mask against
      dropout_bits on each route of the kernel (T 48, 128, 200), its keep
      fraction, bit-identical repeats and the adjoint identity; their times
-     at the flagship training shape (the forward also at rate 0, the
-     backward also by pass, row and column, under torch.profiler);
+     at the flagship training shape, f32 and bf16, by device time under
+     torch.profiler with the wall of back-to-back calls beside it (the
+     forward also at rate 0, the backward also by pass, row and column);
   2c. the [B, H, T, hd] attention kernel (fused_causal_attention, which no
      model path reaches) driven through its entry point at its path's
      shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
@@ -57,12 +58,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      random-init and oracle rows), held to the six thresholds of
      tests/test_capability_smoke.py; before it, B1 and B2 at its shapes
      (head dim 16: [32, 24 and 25, 64], 4 heads) against their plain
-     versions.
+     versions;
+  9. bf16 training at the flagship width: train_mdm --compute_dtype
+     bfloat16 on phase 4's configuration (40 steps) with the in-training
+     evaluation (random ST-GCN, 32 samples) after each save; the state and
+     checkpoint f32; a bf16 step through the kernels against the plain
+     attention, at phase 2b's bf16 bound; the bf16 step's kernel groups
+     and GEMM kernels under torch.profiler; a bf16 DDIM-50 request from
+     the checkpoint; then the offline, gru and mlp trunks, 16 bf16 steps
+     each, each with a bf16 forward of its trained weights on the card
+     against the f32 forward of a CPU copy and its bf16 step time.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6 and 8 for B1; 4, 5 and 8 for B2; 2c for B3) and summed in the kernel
-line;
+5, 6, 8 and 9 for B1; 4, 5, 8 and 9 for B2; 2c for B3) and summed in the
+kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
-launches.
+launches; B2 has bf16 rows at [64, 150, 512], with phase 9's launches.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -70,6 +80,7 @@ Exits non-zero without CUDA, or without the regennet_torch package beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -157,8 +168,9 @@ def check_attention_kernel(report, card):
         ("bfloat16", False, False, 10),
     ]
     # the shapes the sampler gives the kernel: f32 batch 16 and 32 (CFG),
-    # 64 (the evaluation's batch 32 under CFG), bf16 batch 128 (and 256
-    # under CFG), T = 150 (Chi3D), 60 (NTU), 151 (the offline trunk)
+    # 64 (the evaluation's batch 32 under CFG), bf16 batch 16 and 32 (phase
+    # 9's sample and in-training evaluation), 128 (and 256 under CFG), T =
+    # 150 (Chi3D), 60 (NTU), 151 (the offline trunk)
     timed = {("float32", 16), ("float32", 32), ("float32", 64), ("bfloat16", 128),
              ("bfloat16", 256)}
     cases, worst = [], 0.0
@@ -166,7 +178,9 @@ def check_attention_kernel(report, card):
     for B in (16, 32, 64, 128, 256):
         for T in (150, 60, 151):
             for dtype, causal, softmax_f32, kv_off in modes:
-                if B in (16, 32, 64) and (dtype != "float32" or T != 150):
+                if B == 64 and (dtype != "float32" or T != 150):
+                    continue
+                if B in (16, 32) and dtype == "float32" and T != 150:
                     continue
                 kv_len = None if kv_off is None else T - kv_off
                 td = getattr(torch, dtype)
@@ -373,9 +387,12 @@ def check_train_kernels(report, card):
     kernel's plain version, which rounds where the kernel does."""
     import torch
 
-    cases, worst = [], {"forward": 0.0, "backward": 0.0, "backward_vjp": 0.0}
+    cases = []
+    by_dtype = {dtype: {"forward": 0.0, "backward": 0.0, "backward_vjp": 0.0}
+                for dtype in ("float32", "bfloat16")}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for B, T, causal, kv_len, dtype, rate in train_cases():
+        worst = by_dtype[dtype]
         ours, plain, vjp = _train_pair(B, T, dtype, causal, kv_len, rate, gen)
         case = dict(B=B, T=T, dtype=dtype, causal=causal, kv_len=kv_len, rate=rate)
 
@@ -397,6 +414,7 @@ def check_train_kernels(report, card):
             worst["backward"] = max(worst["backward"], err)
             worst["backward_vjp"] = max(worst["backward_vjp"], err_vjp)
         cases.append(case)
+    worst = {k: max(w[k] for w in by_dtype.values()) for k in by_dtype["float32"]}
     print(f"  training attention kernels match their plain version in {len(cases)} "
           f"cases (worst max_abs_err forward {worst['forward']:.3g}; backward "
           f"{worst['backward']:.3g} against autograd of the plain forward, "
@@ -417,9 +435,9 @@ def check_train_kernels(report, card):
               + terms)
     report["train_attention_cases"] = cases
     report["train_mask"] = check_train_mask()
-    timing = time_train_kernels(card)
+    timing = {dtype: time_train_kernels(card, dtype) for dtype in ("float32", "bfloat16")}
     report["train_attention_timing"] = timing
-    return worst, timing
+    return by_dtype, timing
 
 
 def train_mask(B, T, rate, seeds, causal):
@@ -537,7 +555,20 @@ def backward_pass_ms(fn, iters=20):
     """Device time per call of fn() in each pass of B2's backward kernel,
     {"rows": ms, "cols": ms}: the row pass (attention_train_rows, on either
     route) and the column pass (attention_train_cols), by kernel name
-    under torch.profiler over `iters` calls after a warm-up."""
+    (kernel_times)."""
+    by_name = kernel_times(fn, iters)[1]
+    found = {part: sum(ms for name, ms in by_name.items() if f"attention_train_{part}" in name)
+             for part in ("rows", "cols")}
+    if not all(found.values()):
+        raise AssertionError(f"the profiler recorded no time for a backward pass: {found}")
+    return found
+
+
+def kernel_times(fn, iters=20):
+    """Device time per call of fn() in ms, and per kernel name (the longest
+    first): every CUDA kernel and memory operation of `iters` calls after a
+    warm-up, summed under torch.profiler, over `iters`. The host's time
+    between launches is not in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -547,24 +578,28 @@ def backward_pass_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    found = {"rows": 0.0, "cols": 0.0}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for part in found:
-            if f"attention_train_{part}" in evt.key:
-                found[part] += evt.device_time_total
-    if not all(found.values()):
-        raise AssertionError(f"the profiler recorded no time for a backward pass: {found}")
-    return {part: us / 1e3 / iters for part, us in found.items()}
+    by_name = {evt.key: evt.device_time_total / 1e3 / iters for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA}
+    total = sum(by_name.values())
+    if not total > 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
-def time_train_kernels(card):
-    """Forward and backward times at the flagship training shape (f32,
-    B = 64, T = 150, rate 0.1, causal): the kernels, autograd of the plain
-    version, and F.scaled_dot_product_attention with dropout (its own mask:
-    a yardstick, not a check); the device time of each backward pass, row
-    and column, under torch.profiler; and the forward kernel at rate 0."""
+def device_ms(fn, iters=20):
+    """kernel_times' device time per call in ms."""
+    return kernel_times(fn, iters)[0]
+
+
+def time_train_kernels(card, dtype="float32"):
+    """Forward and backward times at the flagship training shape (B = 64,
+    T = 150, rate 0.1, causal) in `dtype`: the kernels, autograd of the
+    plain version, and F.scaled_dot_product_attention with dropout (its own
+    mask: a yardstick, not a check), each by device time under
+    torch.profiler (`*_ms`) and by CUDA events around back-to-back calls,
+    the host's launch time included (`*_wall_ms`); the device time of
+    each backward pass, row and column; and the forward kernel at rate 0
+    by CUDA events."""
     import warnings
 
     import torch
@@ -575,10 +610,11 @@ def time_train_kernels(card):
     B, T, D, H, rate = TRAIN["batch"], FLAGSHIP["T"], FLAGSHIP["latent_dim"], \
         FLAGSHIP["heads"], TRAIN["rate"]
     hd = D // H
+    td = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v = (torch.randn(B, T, D, device="cuda", generator=gen).requires_grad_()
+    q, k, v = (torch.randn(B, T, D, device="cuda", generator=gen).to(td).requires_grad_()
                for _ in range(3))
-    dout = torch.randn(B, T, D, device="cuda", generator=gen)
+    dout = torch.randn(B, T, D, device="cuda", generator=gen).to(td)
     seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
                           dtype=torch.int32)
     q4, k4, v4 = (x.view(B, T, H, hd).transpose(1, 2) for x in (q, k, v))
@@ -596,45 +632,54 @@ def time_train_kernels(card):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         backend = _sdpa_backend(q4.detach(), k4.detach(), v4.detach(), rate)
-    res = {"shape": dict(B=B, T=T, D=D, heads=H, dtype="float32", rate=rate,
+    res = {"shape": dict(B=B, T=T, D=D, heads=H, dtype=dtype, rate=rate,
                          causal=True), "library_backend": backend}
     for name, fn, grad_out, iters in (("kernel", kernel, dout, 20),
                                       ("plain", plain, dout, 5),
                                       ("library", library, dout4, 20)):
         with torch.no_grad():
-            res[f"{name}_forward_ms"] = time_ms(fn, iters=iters)
+            res[f"{name}_forward_ms"] = device_ms(fn, iters=iters)
+            res[f"{name}_forward_wall_ms"] = time_ms(fn, iters=iters)
         out = fn()
-        res[f"{name}_backward_ms"] = time_ms(lambda: torch.autograd.grad(
-            out, (q, k, v), grad_out, retain_graph=True), iters=iters)
+
+        def backward():
+            return torch.autograd.grad(out, (q, k, v), grad_out, retain_graph=True)
+
+        res[f"{name}_backward_ms"] = device_ms(backward, iters=iters)
+        res[f"{name}_backward_wall_ms"] = time_ms(backward, iters=iters)
     out = kernel()
     res["kernel_backward_passes_ms"] = backward_pass_ms(lambda: torch.autograd.grad(
         out, (q, k, v), dout, retain_graph=True))
     with torch.no_grad():
+        # by CUDA events, as B1's rows are timed
         res["kernel_forward_rate0_ms"] = time_ms(
             lambda: attention.fused_attention_btd_train(q, k, v, H, 0.0, seeds))
     res["forward_bound_ms"], res["forward_bound_by"] = attention_bound_ms(
-        B, T, D, H, "float32", True, None)
+        B, T, D, H, dtype, True, None)
     res["backward_bound_ms"], res["backward_bound_by"] = attention_bound_ms(
-        B, T, D, H, "float32", True, None, tensors=7, products=5)
+        B, T, D, H, dtype, True, None, tensors=7, products=5)
     # the row pass moves q, k, v, dO, dQ and computes QK^T, dO V^T, dS K; the
     # column pass moves q, k, v, dO, dK, dV and computes QK^T, dO V^T, dV, dK
     # (the [3, B, H, T] statistics between them are 0.5% of either's bytes)
     res["backward_pass_bound_ms"] = {
-        "rows": attention_bound_ms(B, T, D, H, "float32", True, None, tensors=5, products=3),
-        "cols": attention_bound_ms(B, T, D, H, "float32", True, None, tensors=6, products=4)}
+        "rows": attention_bound_ms(B, T, D, H, dtype, True, None, tensors=5, products=3),
+        "cols": attention_bound_ms(B, T, D, H, dtype, True, None, tensors=6, products=4)}
     for which in ("forward", "backward"):
-        print(f"  training attention {which}, f32 B={B} T={T} rate {rate} causal: "
-              f"kernel {res['kernel_' + which + '_ms']:.4f} ms, plain "
-              f"{res['plain_' + which + '_ms']:.4f} ms, sdpa ({backend}) "
-              f"{res['library_' + which + '_ms']:.4f} ms, bound "
-              f"{res[which + '_bound_ms']:.4f} ms ({res[which + '_bound_by']}) [{card}]")
+        print(f"  training attention {which}, {dtype} B={B} T={T} rate {rate} causal, "
+              f"device time (wall with launches): kernel "
+              + ", ".join(f"{label}{res[name + '_' + which + '_ms']:.4f} ms "
+                          f"({res[name + '_' + which + '_wall_ms']:.4f})"
+                          for name, label in (("kernel", ""), ("plain", "plain "),
+                                              ("library", f"sdpa ({backend}) ")))
+              + f", bound {res[which + '_bound_ms']:.4f} ms ({res[which + '_bound_by']}) "
+              f"[{card}]")
     passes, bounds = res["kernel_backward_passes_ms"], res["backward_pass_bound_ms"]
-    print("  training attention backward by pass (device time under torch.profiler): "
+    print(f"  training attention backward by pass ({dtype}, device time): "
           + ", ".join(f"{name} pass {passes[part]:.4f} ms (bound {bounds[part][0]:.4f} ms, "
                       f"{bounds[part][1]})" for name, part in (("row", "rows"),
                                                                 ("column", "cols")))
           + f" [{card}]")
-    print(f"  training attention forward at rate 0: kernel "
+    print(f"  training attention forward at rate 0 ({dtype}): kernel "
           f"{res['kernel_forward_rate0_ms']:.4f} ms [{card}]")
     return res
 
@@ -887,8 +932,22 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
     if unchanged or not (1 - rate) <= ema_ratio <= 1 - rate ** steps:
         raise AssertionError(f"unchanged parameters {unchanged} or EMA ratio {ema_ratio}")
 
+    # the master weights, their EMA and AdamW's moments stay f32 at any
+    # compute dtype, in memory and in the checkpoint
+    state = [("parameter", n, p) for n, p in loop.model.named_parameters()]
+    state += [("EMA", n, e) for n, e in loop.ema.items()]
+    state += [(f"AdamW {m}", n, loop.optimizer.state[p][m])
+              for n, p in loop.model.named_parameters() for m in ("exp_avg", "exp_avg_sq")]
+    saved = torch.load(save_dir / f"model{steps:09d}.pt", map_location="cpu",
+                       weights_only=True)
+    state += [("checkpoint", n, v) for n, v in saved.items()]
+    not_f32 = [f"{kind} {n}" for kind, n, v in state if v.dtype != torch.float32]
+    if not_f32:
+        raise AssertionError(f"not float32 after training: {not_f32[:5]}")
+
     ms_per_step = float(np.mean(block_ms[1:]))
-    row = dict(arch=args.arch, steps=steps, batch=B, steps_per_call=K,
+    row = dict(arch=args.arch, compute_dtype=args.compute_dtype, steps=steps, batch=B,
+               steps_per_call=K,
                block_ms_per_step=block_ms, ms_per_step=ms_per_step,
                samples_per_s=B / (ms_per_step / 1e3), wall_s=wall_s,
                wall_ms_per_step=wall_s * 1e3 / steps, data_build_s=data_s,
@@ -897,23 +956,54 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
                last_logged=dict(step=int(last["step"]), loss=float(last["loss"]),
                                 grad_norm=float(last["grad_norm"])),
                ema_ratio=ema_ratio, launches=launches)
-    print(f"  {steps} flagship training steps ({args.arch}, batch {B}, f32, K = "
-          f"{K}): {ms_per_step:.2f} ms/step and "
+    print(f"  {steps} flagship training steps ({args.arch}, batch {B}, "
+          f"{args.compute_dtype}, K = {K}): {ms_per_step:.2f} ms/step and "
           f"{row['samples_per_s']:.1f} samples/s over the device-synchronised "
           f"blocks after the first; {row['wall_ms_per_step']:.1f} ms/step wall with "
           f"batch collation and set-up [{card}]")
     print(f"  loss {row['first_logged']['loss']:.5f} at step {row['first_logged']['step']}"
           f", {row['last_logged']['loss']:.5f} at step {row['last_logged']['step']}; "
           f"grad_norm finite; EMA distance / parameter distance from init "
-          f"{ema_ratio:.5f} (within [{1 - rate:.4g}, {1 - rate ** steps:.4g}])")
+          f"{ema_ratio:.5f} (within [{1 - rate:.4g}, {1 - rate ** steps:.4g}]); "
+          f"parameters, EMA, AdamW moments and {steps:09d}.pt all float32")
     report[key] = row
     return loop, loader, launches
 
 
+def plain_backward_attention(q, k, v, num_heads, dropout_rate, seed, causal=True,
+                             softmax_f32=False, kv_len=None):
+    """B2 through its plain versions only: the plain forward, and as its
+    gradient the backward kernel's plain version, which rounds where the
+    kernel does (phase 2b's third reading)."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    rest = (num_heads, dropout_rate, seed, causal, softmax_f32, kv_len)
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return attention.attention_btd_train_reference(q, k, v, *rest)
+
+        @staticmethod
+        def backward(ctx, dout):
+            return attention.attention_btd_train_backward_reference(
+                *ctx.saved_tensors, dout, *rest)
+
+    return PlainBackward.apply(q, k, v)
+
+
 def check_train_step(report, loop, loader, key="train_step_check"):
-    """One training step through the kernels against the same step (same
-    weights, batch, t, noise and generator) through the plain versions;
-    and the EMA update of that step."""
+    """One training step at the loop's compute dtype through the kernels
+    against the same step (same weights, batch, t, noise and generator)
+    through the plain attention under autograd; and the EMA update of that
+    step. f32: the loss within 1e-4 relative, each gradient within 1e-4 x
+    max(1, max|g|). bf16: the loss within 2^-6 x max(1, |loss|), and each
+    gradient within the bound gradient_tolerance builds for phase 2b, from
+    a third step through plain_backward_attention: that step's distance
+    from the plain step plus 2^-7 x max(1, max|its gradient|)."""
     import torch
 
     from regennet_torch.models import transformer
@@ -926,9 +1016,14 @@ def check_train_step(report, loop, loader, key="train_step_check"):
     noise = torch.randn(batch["motion"].shape, device=device,
                         generator=torch.Generator(device=device).manual_seed(11))
     model = loop.model
+    dtype = "bfloat16" if loop.dtype == torch.bfloat16 else "float32"
+    routes = {"kernel": attention.fused_attention_btd_train,
+              "plain": attention.attention_btd_train_reference}
+    if dtype == "bfloat16":
+        routes["plain backward"] = plain_backward_attention
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    runs = []
-    for route in ("kernel", "plain"):
+    runs = {}
+    for route, attend in routes.items():
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(start[n])
@@ -936,37 +1031,46 @@ def check_train_step(report, loop, loader, key="train_step_check"):
         ema = {n: (p * 0.5).detach() for n, p in model.named_parameters()}
         ema_before = {n: e.clone() for n, e in ema.items()}
         step = training_loop.make_train_step(model, loop.sched, loop.cfg, optimizer,
-                                             loop.rot2xyz_fn, ema)
-        if route == "plain":
-            transformer.fused_attention_btd_train = attention.attention_btd_train_reference
+                                             loop.rot2xyz_fn, ema, dtype=loop.dtype)
+        transformer.fused_attention_btd_train = attend
         try:
             metrics = step(batch, torch.Generator(device=device).manual_seed(12), 0, noise)
         finally:
             transformer.fused_attention_btd_train = attention.fused_attention_btd_train
-        runs.append((float(metrics["loss"]),
-                     {n: p.grad.clone() for n, p in model.named_parameters()}))
+        runs[route] = (float(metrics["loss"]),
+                       {n: p.grad.clone() for n, p in model.named_parameters()})
         if route == "kernel":
             # ema <- r ema + (1 - r) p, with the updated parameters
             for n, p in model.named_parameters():
                 want = 0.9999 * ema_before[n] + (1 - 0.9999) * p.detach()
                 if not torch.allclose(ema[n], want, rtol=1e-6, atol=1e-7):
                     raise AssertionError(f"EMA update of {n} is off")
-    (loss_k, grads_k), (loss_p, grads_p) = runs
-    loss_err = abs(loss_k - loss_p)
-    if not loss_err <= 1e-4 * max(1.0, abs(loss_p)):
-        raise AssertionError(f"training step loss {loss_k} vs plain {loss_p}")
-    worst = 0.0
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    loss_tol = (1e-4 if dtype == "float32" else TOLERANCE[dtype]) * max(1.0, abs(loss_p))
+    hold(f"{dtype} training step loss {loss_k} against the plain {loss_p}",
+         abs(loss_k - loss_p), loss_tol)
+    worst = dict(ratio=0.0)
     for n, g in grads_p.items():
-        err = float((grads_k[n] - g).abs().max())
-        tol = 1e-4 * max(1.0, float(g.abs().max()))
-        if not (err <= tol and math.isfinite(err)):
-            raise AssertionError(f"gradient of {n}: max_abs_err {err} > {tol}")
-        worst = max(worst, err / max(1.0, float(g.abs().max())))
-    print(f"  one training step through the kernels vs the plain attention: loss "
+        if dtype == "float32":
+            err, tol, terms = max_abs_err(grads_k[n], g), 1e-4 * max(
+                1.0, float(g.abs().max())), None
+            hold(f"gradient of {n}", err, tol)
+        else:
+            err, tol, terms = hold_gradient(f"gradient of {n}", grads_k[n], g,
+                                            runs["plain backward"][1][n], dtype)
+        if err / tol >= worst["ratio"]:
+            worst = dict(ratio=err / tol, name=n, max_abs_err=err, tolerance=tol,
+                         terms=terms)
+    bound = ("1e-4 x max(1, max|g|)" if dtype == "float32" else
+             "the plain-backward step's distance + 2^-7 x max(1, max|its gradient|): "
+             "{:.3g} + {:.3g}".format(*worst["terms"]))
+    print(f"  one {dtype} training step through the kernels vs the plain attention: loss "
           f"{loss_k:.6f} vs {loss_p:.6f}; all {len(grads_p)} parameter gradients "
-          f"within 1e-4 x max(1, max|g|) (worst {worst:.3g}); EMA update exact")
-    report[key] = dict(loss_kernel=loss_k, loss_plain=loss_p,
-                       worst_grad_err_scaled=worst)
+          f"within their bound; worst {worst['name']}, max_abs_err "
+          f"{worst['max_abs_err']:.3g} of {worst['tolerance']:.3g} ({bound}); EMA update "
+          "exact")
+    report[key] = dict(dtype=dtype, loss_kernel=loss_k, loss_plain=loss_p,
+                       worst_gradient=worst)
 
 
 TRAIN_KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
@@ -992,47 +1096,41 @@ def _kernel_group(name):
                 "other elementwise")
 
 
-def profile_train_step(report, loop, loader, steps=3):
+def profile_train_step(report, loop, loader, steps=3, key="training"):
     """Device time per kernel group of `steps` training steps of the trained
     loop, under torch.profiler (CUDA activity); the idle share against the
-    untraced ms/step of the run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    untraced ms/step of the run report[key]; the GEMM kernels by name,
+    which show whether they ran on tensor cores. Into report[key +
+    "_profile"]."""
     it = iter(loader)
-    batches = [loop._to_device(loop._make_host_batch(*next(it))) for _ in range(steps)]
-    step = loop._train_step
-    step(batches[0], loop.generator, loop.state_step)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i, batch in enumerate(batches):
-            step(batch, loop.generator, loop.state_step + i)
-        torch.cuda.synchronize()
-    groups, total_us = {}, 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        group = _kernel_group(evt.key)
-        groups[group] = groups.get(group, 0.0) + evt.device_time_total
-        total_us += evt.device_time_total
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    per_step = {g: us / 1e3 / steps for g, us in sorted(groups.items(), key=lambda kv: -kv[1])}
-    busy = total_us / 1e3 / steps
-    wall = report["training"]["ms_per_step"]
-    print(f"  device time per training step under torch.profiler: busy {busy:.2f} ms "
-          f"of {wall:.2f} ms untraced (idle share {1 - busy / wall:.3f})")
+    # a warm-up step and `steps` profiled ones, each on its own batch
+    batches = iter([loop._to_device(loop._make_host_batch(*next(it)))
+                    for _ in range(steps + 1)])
+    busy, by_name = kernel_times(
+        lambda: loop._train_step(next(batches), loop.generator, loop.state_step), steps)
+    groups = {}
+    for name, ms in by_name.items():
+        group = _kernel_group(name)
+        groups[group] = groups.get(group, 0.0) + ms
+    per_step = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    gemms = {name: ms for name, ms in by_name.items()
+             if _kernel_group(name) == TRAIN_KERNEL_GROUPS[0][0]}
+    wall = report[key]["ms_per_step"]
+    print(f"  device time per {loop.args.compute_dtype} training step under torch.profiler: "
+          f"busy {busy:.2f} ms of {wall:.2f} ms untraced (idle share {1 - busy / wall:.3f})")
     for g, ms in per_step.items():
         print(f"    {g}: {ms:.3f} ms ({ms / busy:.1%})")
-    report["training_profile"] = dict(steps=steps, busy_ms=busy, idle_share=1 - busy / wall,
-                                      groups_ms=per_step)
+    print("    GEMM kernels, the longest first: " + "; ".join(
+        f"{name[:90]} {ms:.3f} ms" for name, ms in list(gemms.items())[:6]))
+    report[key + "_profile"] = dict(steps=steps, busy_ms=busy, idle_share=1 - busy / wall,
+                                    groups_ms=per_step, gemm_kernels_ms=gemms)
 
 
 def sample_trained(report, save_dir, data, device="cuda", steps=None, ddim=True,
-                   key="trained_sample"):
+                   key="trained_sample", compute_dtype="float32"):
     """cgenerate from the checkpoint of step `steps` (the last of phase 4
-    by default): batch 16, f32, DDIM 50 or, with ddim False, DDPM over
-    every step of the checkpoint's schedule."""
+    by default): batch 16 at `compute_dtype`, DDIM 50 or, with ddim False,
+    DDPM over every step of the checkpoint's schedule."""
     import numpy as np
 
     from regennet_torch.sample import cgenerate
@@ -1043,6 +1141,7 @@ def sample_trained(report, save_dir, data, device="cuda", steps=None, ddim=True,
         "--model_path", str(ckpt), "--output_dir", str(save_dir / "samples"),
         "--dataset", "chi3d", "--num_person", "2", "--body_model", "smplx",
         "--num_samples", "16", "--num_repetitions", "1", "--seed", "3",
+        "--compute_dtype", compute_dtype,
     ] + (["--use_ddim", "--timestep_respacing", "ddim50"] if ddim else []))
     times = []
     res = np.load(cgenerate.main(args, device=device, data=data, generate_ms=times),
@@ -1053,10 +1152,11 @@ def sample_trained(report, save_dir, data, device="cuda", steps=None, ddim=True,
             raise AssertionError(f"trained-checkpoint sample {name}: {res[name].shape}")
     sampler = "DDIM 50" if ddim else f"DDPM {args.diffusion_steps}"
     print(f"  cgenerate from {ckpt.name} ({args.arch}, {sampler}, batch 16, "
-          f"{args.activation}): outputs {res['output'].shape} finite, generate "
-          f"{times[0]:.1f} ms")
+          f"{compute_dtype}, {args.activation}): outputs {res['output'].shape} finite, "
+          f"generate {times[0]:.1f} ms")
     report[key] = dict(checkpoint=ckpt.name, arch=args.arch, sampler=sampler,
-                       generate_ms=times[0], activation=args.activation)
+                       compute_dtype=compute_dtype, generate_ms=times[0],
+                       activation=args.activation)
 
 
 OFFLINE_STEPS = 16
@@ -1223,67 +1323,39 @@ def run_eval(report, card, model_path, device="cuda"):
 TRUNK_STEPS = 16
 
 
-def check_trunk_forward(report, data, arch, device="cuda", key=None):
-    """One f32 denoiser forward of the `arch` trunk on the card against the
-    same forward of a CPU copy (same seed, same inputs)."""
-    import numpy as np
-    import torch
-
-    from regennet_torch.data.collate import ccollate
-    from regennet_torch.models import cmdm
-    from regennet_torch.utils.model_util import create_model_and_diffusion
-
-    n = 16
-    motion, cond_np = ccollate([data.get_cmotion(i % 8, "appointed", 0) for i in range(n)])
-    gen = torch.Generator().manual_seed(7)
-    x = torch.randn(motion.shape, generator=gen)
-    t = torch.randint(0, 1000, (n,), generator=gen)
-    cond = {"cmotion": torch.as_tensor(cond_np["y"]["cmotion"]),
-            "action": torch.as_tensor(cond_np["y"]["action"])}
-    outs = {}
-    for where in (device, "cpu"):
-        torch.manual_seed(7)
-        model, _, _ = create_model_and_diffusion(
-            request_args("", n, 1.0, "float32", seed=7, arch=arch, cm_mode="add"), data)
-        fn = cmdm.make_model_fn(model.to(where).eval())
-        outs[where] = fn(x.to(where), t.to(where),
-                         fn.prepare({k: v.to(where) for k, v in cond.items()})).cpu()
-    card, cpu = outs[device], outs["cpu"]
-    err = float((card - cpu).abs().max())
-    # f32 sums in other orders (cuDNN's GRU, cuBLAS) through 8 layers
-    tol = 1e-4 * max(1.0, float(cpu.abs().max()))
-    row = dict(arch=arch, batch=n, max_abs_err=err, tolerance=tol)
-    print(f"  {arch} denoiser forward f32 batch {n}: card vs CPU max_abs_err {err:.3g} "
-          f"(tolerance 1e-4 x max(1, max|cpu|) = {tol:.3g})")
-    if not (err <= tol and np.isfinite(err)):
-        raise AssertionError(f"{arch} forward on the card disagrees with the CPU: {row}")
-    report[key or f"{arch}_forward_check"] = row
-
-
-def run_trunk(report, card, save_dir, data, arch, device="cuda"):
-    """Phase 7, one trunk: train_mdm for TRUNK_STEPS flagship steps with
-    --arch `arch` --cm_mode add, the GRU's bias_hh r/z slices against its
-    initialisation, a DDPM cgenerate request (f32 batch 16) from the
-    checkpoint, and a forward on the card against a CPU copy."""
+def check_gru_rz(loop, args, loader):
+    """The GRU's bias_hh r/z slices after training equal their seeded
+    initialisation (the gradient hook keeps them still)."""
     import torch
 
     from regennet_torch.utils.fixseed import fixseed
     from regennet_torch.utils.model_util import create_model_and_diffusion
 
+    fixseed(args.seed)
+    init, _, _ = create_model_and_diffusion(args, loader)
+    D = args.latent_dim
+    for i in range(args.layers):
+        name = f"bias_hh_l{i}"
+        trained = getattr(loop.model.gru, name).detach().cpu()
+        if not torch.equal(trained[: 2 * D], getattr(init.gru, name)[: 2 * D].detach()):
+            raise AssertionError(f"gru.{name}'s r/z slices moved in training")
+    print(f"  gru: the r/z slices of bias_hh_l0..{args.layers - 1} are unchanged after "
+          f"{args.num_steps} {args.compute_dtype} steps")
+
+
+def run_trunk(report, card, save_dir, data, arch, device="cuda"):
+    """Phase 7, one trunk: train_mdm for TRUNK_STEPS flagship steps with
+    --arch `arch` --cm_mode add, the GRU's bias_hh r/z slices against its
+    initialisation, a forward of the trained weights on the card against a
+    CPU copy, and a DDPM cgenerate request (f32 batch 16) from the
+    checkpoint."""
     args = offline_train_args(save_dir, TRUNK_STEPS, ("--arch", arch, "--cm_mode", "add"))
     loop, loader, launches = run_training(report, card, save_dir, device, args,
                                           key=f"{arch}_training")
     if arch == "gru":
-        fixseed(args.seed)
-        init, _, _ = create_model_and_diffusion(args, loader)
-        D = args.latent_dim
-        for i in range(args.layers):
-            name = f"bias_hh_l{i}"
-            trained = getattr(loop.model.gru, name).detach().cpu()
-            if not torch.equal(trained[: 2 * D], getattr(init.gru, name)[: 2 * D].detach()):
-                raise AssertionError(f"gru.{name}'s r/z slices moved in training")
-        print(f"  gru: the r/z slices of bias_hh_l0..{args.layers - 1} are unchanged after "
-              f"{TRUNK_STEPS} steps")
+        check_gru_rz(loop, args, loader)
+    if device != "cpu":
+        check_trunk_forward(report, card, data, loop.model, arch, "float32", device)
     del loop, loader
     key = f"{arch}_sample"
     sample_trained(report, save_dir, data, device, steps=TRUNK_STEPS, ddim=False, key=key)
@@ -1294,8 +1366,6 @@ def run_trunk(report, card, save_dir, data, arch, device="cuda"):
     print(f"  {arch}: training {train['ms_per_step']:.2f} ms/step ({train['samples_per_s']:.1f}"
           f" samples/s); sampling {row['seqs_per_s']:.3f} seqs/s, {row['ms_per_step']:.3f} ms "
           f"per denoiser step [{card}]")
-    if device != "cpu":
-        check_trunk_forward(report, data, arch, device)
     return launches
 
 
@@ -1406,6 +1476,156 @@ def run_learning_guard(report, card, workdir, device="cuda"):
     return launches
 
 
+BF16_EVAL_SAMPLES = 32  # phase 9's --eval_num_samples
+# a bf16 denoiser forward against the f32 forward of the same weights:
+# every layer rounds to bf16 (about 2^-8 relative), through 8 layers
+TOLERANCE_BF16_VS_F32 = 2.0 ** -4  # x max(1, max|f32|)
+
+
+def run_bf16_training(report, card, save_dir, data, device="cuda"):
+    """Phase 9, the online trunk: train_mdm on the flagship training
+    configuration with --compute_dtype bfloat16 and --eval_during_training
+    (--rec_model_path random, --eval_num_samples 32), B1's launches read
+    around the run (its in-training evaluations: layers x steps x sampling
+    calls) and each evaluation's metrics; one bf16 step through the kernels
+    against the plain attention; the bf16 step's kernel groups under
+    torch.profiler (on the card); a bf16 cgenerate request (DDIM 50) from
+    the checkpoint with B1's launches read around it. Returns (B2's
+    launches, B1's launches)."""
+    from regennet_torch.eval import stgcn_eval
+    from regennet_torch.ops import attention
+
+    args = train_args(save_dir)
+    vars(args).update(compute_dtype="bfloat16", eval_during_training=True,
+                      rec_model_path="random", eval_num_samples=BF16_EVAL_SAMPLES)
+    calls, evals = [], []
+    sample_output, evaluate = stgcn_eval._sample_output, stgcn_eval.evaluate
+
+    def counted(*a, **kw):
+        calls.append(a[3][0])
+        return sample_output(*a, **kw)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        result = evaluate(*a, **kw)
+        evals.append(dict(wall_s=time.perf_counter() - t0, metrics=result["feats"]))
+        return result
+
+    b1 = attention.fused_attention_btd
+    b1.launches = 0
+    stgcn_eval._sample_output, stgcn_eval.evaluate = counted, timed
+    try:
+        loop, loader, train_launches = run_training(report, card, save_dir, device, args,
+                                                    key="bf16_training")
+    finally:
+        stgcn_eval._sample_output, stgcn_eval.evaluate = sample_output, evaluate
+    eval_launches = b1.launches
+    on_card = device != "cpu"
+    want = args.layers * args.diffusion_steps * len(calls) * on_card
+    print(f"  in-training evaluations: {len(evals)} (one after each save), "
+          f"{len(calls)} sampling calls of {calls[0] if calls else 0} sequences; B1 "
+          f"launches {eval_launches} (layers x steps x sampling calls = {args.layers} x "
+          f"{args.diffusion_steps} x {len(calls)}); walls "
+          + ", ".join(f"{e['wall_s']:.2f} s" for e in evals) + f" [{card}]")
+    metric_names = {f"accuracy_{k}_{s}" for k in ("gen", "gt") for s in ("train", "test")}
+    if eval_launches != want or len(evals) != 2 or not all(
+            set(e["metrics"]) == metric_names
+            and all(0.0 <= float(v[0]) <= 1.0 for v in e["metrics"].values())
+            for e in evals):
+        raise AssertionError(f"in-training evaluation: launches {eval_launches} != {want}, "
+                             f"or its evaluations {evals}")
+    print(f"  metrics of the last evaluation: {evals[-1]['metrics']}")
+    row = report["bf16_training"]
+    row.update(evaluations=evals, eval_sampling_calls=len(calls),
+               eval_launches=eval_launches,
+               wall_s_without_evaluation=row["wall_s"] - sum(e["wall_s"] for e in evals))
+    check_train_step(report, loop, loader, key="bf16_train_step_check")
+    if on_card:
+        profile_train_step(report, loop, loader, key="bf16_training")
+    del loop, loader
+    b1.launches = 0
+    sample_trained(report, save_dir, data, device, key="bf16_trained_sample",
+                   compute_dtype="bfloat16")
+    sample_launches = b1.launches
+    want = args.layers * 50 * on_card
+    print(f"  B1 launches over the bf16 request: {sample_launches} (layers x steps = "
+          f"{want})")
+    if sample_launches != want:
+        raise AssertionError(f"bf16 request launches {sample_launches} != {want}")
+    return train_launches, eval_launches + sample_launches
+
+
+def check_trunk_forward(report, card, data, model, arch, dtype, device="cuda", key=None):
+    """One denoiser forward of `model`'s weights on `device` at `dtype`
+    against the f32 forward of a CPU copy (batch 16, the same inputs): f32
+    within 1e-4 x max(1, max|cpu|) (sums in other orders, cuDNN's GRU and
+    cuBLAS, through 8 layers), bf16 within TOLERANCE_BF16_VS_F32. On the
+    card, the denoiser step's time at batch 16 by CUDA events and by device
+    time, with its longest kernels."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.collate import ccollate
+    from regennet_torch.models import cmdm
+
+    n = 16
+    motion, cond_np = ccollate([data.get_cmotion(i % 8, "appointed", 0) for i in range(n)])
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(motion.shape, generator=gen)
+    t = torch.randint(0, 1000, (n,), generator=gen)
+    cond = {"cmotion": torch.as_tensor(cond_np["y"]["cmotion"]),
+            "action": torch.as_tensor(cond_np["y"]["action"])}
+    runs = []
+    for where, td in ((device, getattr(torch, dtype)), ("cpu", torch.float32)):
+        fn = cmdm.make_model_fn(copy.deepcopy(model).to(device=where, dtype=td).eval())
+        runs.append(functools.partial(fn, x.to(where), t.to(where), fn.prepare(
+            {k: v.to(where) for k, v in cond.items()})))
+    step = runs[0]
+    ours, ref = step().cpu(), runs[1]()
+    err = float((ours - ref).abs().max())
+    tol = (1e-4 if dtype == "float32" else TOLERANCE_BF16_VS_F32) * max(
+        1.0, float(ref.abs().max()))
+    row = dict(arch=arch, dtype=dtype, batch=n, max_abs_err=err, tolerance=tol,
+               max_abs_f32=float(ref.abs().max()),
+               mean_abs_err=float((ours - ref).abs().mean()))
+    print(f"  {arch} denoiser forward {dtype} batch {n} ({device}) vs f32 (CPU copy): "
+          f"max_abs_err {err:.3g} (tolerance {tol:.3g}: "
+          f"{'1e-4' if dtype == 'float32' else '2^-4'} x max(1, max|f32|), max|f32| "
+          f"{row['max_abs_f32']:.3g}), mean {row['mean_abs_err']:.3g}")
+    if not (err <= tol and np.isfinite(err)):
+        raise AssertionError(f"{dtype} {arch} forward disagrees with the f32 CPU copy: {row}")
+    if device != "cpu":
+        row["step_ms"] = time_ms(step)
+        row["step_device_ms"], kernels = kernel_times(step)
+        row["longest_kernels_ms"] = dict(list(kernels.items())[:6])
+        print(f"  {arch} {dtype} denoiser step at batch {n}: {row['step_ms']:.3f} ms "
+              f"(device {row['step_device_ms']:.3f} ms); longest kernels: " + "; ".join(
+                  f"{name[:80]} {ms:.3f} ms" for name, ms in row["longest_kernels_ms"].items())
+              + f" [{card}]")
+    report[key or f"{arch}_{dtype}_forward_check"] = row
+
+
+def run_bf16_trunk(report, card, save_dir, data, arch, device="cuda"):
+    """Phase 9, one more trunk: train_mdm --compute_dtype bfloat16 for
+    TRUNK_STEPS flagship steps (trans_enc: phase 5's configuration; gru,
+    mlp: phase 7's, --cm_mode add), the GRU's bias_hh r/z slices, and
+    check_bf16_forward on the trained weights. Returns B2's launches."""
+    extra = ("--compute_dtype", "bfloat16")
+    if arch != "trans_enc":
+        extra += ("--arch", arch, "--cm_mode", "add")
+    args = offline_train_args(save_dir, TRUNK_STEPS, extra)
+    if args.arch != arch:
+        raise AssertionError(f"trained --arch {args.arch!r}, not {arch!r}")
+    loop, loader, launches = run_training(report, card, save_dir, device, args,
+                                          key=f"bf16_{arch}_training")
+    if arch == "gru":
+        check_gru_rz(loop, args, loader)
+    check_trunk_forward(report, card, data, loop.model, arch, "bfloat16", device)
+    return launches
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -1474,11 +1694,19 @@ def main() -> int:
         print("phase 8: the learning guard (scripts/capability_study_torch.py, smokefit)")
         guard_worst = check_guard_kernels(report)
         guard = run_learning_guard(report, card, Path(tmp) / "guard")
+        print("phase 9: bf16 training at the flagship width")
+        bf16_train, bf16_b1 = run_bf16_training(report, card, Path(tmp) / "bf16", data)
+        bf16_trunks = [run_bf16_trunk(report, card, Path(tmp) / f"bf16_{arch}", data, arch)
+                       for arch in ("trans_enc", "gru", "mlp")]
+    bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
+               for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
                                      "phase 6": eval_launches,
-                                     "phase 8": guard["fused_attention_btd"]},
+                                     "phase 8": guard["fused_attention_btd"],
+                                     "phase 9": bf16_b1},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
-                                           "phase 8": guard["fused_attention_btd_train"]},
+                                           "phase 8": guard["fused_attention_btd_train"],
+                                           "phase 9": bf16_b2},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -1495,22 +1723,34 @@ def main() -> int:
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape))]
-    for which, line, source in (("forward", 382, "attention_fwd.cu"),
-                                ("backward", 415, "attention_btd_train.cu")):
+    for dtype, which, line, source in (
+            ("float32", "forward", 382, "attention_fwd.cu"),
+            ("float32", "backward", 415, "attention_btd_train.cu"),
+            ("bfloat16", "forward", 382, "attention_fwd.cu"),
+            ("bfloat16", "backward", 415, "attention_btd_train.cu")):
+        # B2's times by device time under torch.profiler; its f32 rows count
+        # every path's launches, its bf16 rows phase 9's
+        timing, worst_err = train_timing[dtype], train_worst[dtype]
+        err = worst_err["forward" if which == "forward" else "backward_vjp"]
+        if dtype == "float32":
+            name = f"fused_attention_btd_train ({which})"
+            launched = path_launches(paths, "fused_attention_btd_train", which)
+            err = max(err, guard_worst["train_forward" if which == "forward" else "backward"])
+        else:
+            name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
+            launched = paths["fused_attention_btd_train"]["phase 9"][which]
         kernel_rows.append({
-            "name": f"fused_attention_btd_train ({which})",
+            "name": name,
             "route": "cuda",
             "source": f"regennet_torch/csrc/{source}",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
-            "launches": path_launches(paths, "fused_attention_btd_train", which),
-            "max_abs_err": max(train_worst["forward" if which == "forward" else "backward_vjp"],
-                               guard_worst["train_forward" if which == "forward"
-                                           else "backward"]),
-            "ms": train_timing[f"kernel_{which}_ms"],
-            "plain_ms": train_timing[f"plain_{which}_ms"],
-            "bound_ms": train_timing[f"{which}_bound_ms"],
-            "bound_by": train_timing[f"{which}_bound_by"],
-            "library_ms": train_timing[f"library_{which}_ms"],
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": timing[f"kernel_{which}_ms"],
+            "plain_ms": timing[f"plain_{which}_ms"],
+            "bound_ms": timing[f"{which}_bound_ms"],
+            "bound_by": timing[f"{which}_bound_by"],
+            "library_ms": timing[f"library_{which}_ms"],
         })
     kernel_rows.append({
         "name": "fused_causal_attention",
@@ -1523,10 +1763,10 @@ def main() -> int:
                                          "library_ms")},
     })
     report["kernels"] = kernel_rows
-    print(f"  training attention forward at rate 0 (B1's function): "
-          f"{train_timing['kernel_forward_rate0_ms']:.4f} ms; B1 f32 [64, 150, 512] "
-          f"{eval_shape['ms']:.4f} ms (ratio "
-          f"{train_timing['kernel_forward_rate0_ms'] / eval_shape['ms']:.3f}) [{card}]")
+    rate0 = train_timing["float32"]["kernel_forward_rate0_ms"]
+    print(f"  training attention forward at rate 0 (B1's function): {rate0:.4f} ms; B1 f32 "
+          f"[64, 150, 512] {eval_shape['ms']:.4f} ms (ratio {rate0 / eval_shape['ms']:.3f}) "
+          f"[{card}]")
     report["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -16,9 +16,11 @@ the reference torch checkpoints (`input_process.poseEmbedding`,
 `load_state_dict` once its frozen CLIP, body-model and positional-table
 keys are stripped (train/checkpoint.py).
 The model computes in the dtype of its parameters: `.to(torch.bfloat16)`
-gives the bf16 sampler. `forward(..., train=True, generator=g)` is the
-training forward: condition dropout, positional, residual and attention
-dropout, each drawn from the torch.Generator `g`.
+gives the bf16 sampler, and the trainer runs it on bf16 copies of its
+float32 parameters (`torch.func.functional_call`).
+`forward(..., train=True, generator=g)` is the training forward: condition
+dropout, positional, residual and attention dropout, each drawn from the
+torch.Generator `g`.
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ class TimestepEmbedder(nn.Module):
                              persistent=False)
 
     def forward(self, timesteps):
-        return self.time_embed(self.pe[timesteps])
+        # the f32 table's rows rounded to the compute dtype, as the JAX
+        # package rounds them (a no-op once the module is cast)
+        return self.time_embed(self.pe[timesteps].to(self.time_embed[0].weight.dtype))
 
 
 class EmbedAction(nn.Module):

@@ -9,10 +9,19 @@ learning-rate anneal and decoupled weight decay on every parameter, and
 the EMA update. Timesteps are drawn on the host by a schedule sampler
 from its own numpy Generator, as in the JAX loop.
 
+`--compute_dtype bfloat16` trains as the JAX package's `CMDM(dtype=bf16)`
+does: the parameters, their gradients, the AdamW moments and the EMA stay
+float32, and each step runs the model on bfloat16 copies of the
+parameters (`torch.func.functional_call`), whose gradients come back to
+the float32 leaves through the cast. The model's output is float32, so
+the loss terms and the joint decode are too.
+
 `--steps_per_call K` keeps the JAX loop's step boundaries: K single steps
 run back to back, their host batches drawn first; saves, logs and the
 DIFFUSION_TRAINING_TEST exit fall at the same steps, and `--nan_guard`
-rolls back whole K-step blocks.
+rolls back whole K-step blocks. `--eval_during_training` runs the a2m
+debug evaluation after every save; `--profile_steps` writes a
+torch.profiler Chrome trace of a window of steps.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from regennet_torch.diffusion import losses
 from regennet_torch.diffusion.resample import (
@@ -34,6 +44,7 @@ from regennet_torch.ops import body_model as bm
 from regennet_torch.ops.pose_decode import make_rot2xyz
 from regennet_torch.train import checkpoint
 from regennet_torch.utils import kvlogger as logger
+from regennet_torch.utils.model_util import model_dtype
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -80,7 +91,8 @@ def load_train_state(model, optimizer: torch.optim.Optimizer,
 def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
                     rot2xyz_fn, ema: Dict[str, torch.Tensor],
                     ema_rate: float = 0.9999, num_timesteps: int = 1000,
-                    lr_schedule: Optional[Callable[[int], float]] = None):
+                    lr_schedule: Optional[Callable[[int], float]] = None,
+                    dtype: torch.dtype = torch.float32):
     """Build step(batch, generator, step, noise=None) -> metrics.
 
     batch: device tensors {"motion", "t", "weights", "cond"}; step: the
@@ -89,7 +101,8 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
     the model, the optimizer and `ema` in place; the gradients stay on the
     parameters until the next step. metrics: 0-dim device tensors (the
     weighted term means, loss, grad_norm, param_norm, loss_q0..3) and the
-    per-example loss_per_elem [B]."""
+    per-example loss_per_elem [B]. dtype: the compute dtype; below float32
+    the model runs on copies of the float32 parameters cast to it."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     ema_list = [ema[n] for n in names]
@@ -102,7 +115,11 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
                                 dtype=x.dtype)
 
         def model_fn(x_t, ts, cond):
-            return model(x_t, ts, cond, train=True, generator=generator)
+            kwargs = dict(train=True, generator=generator)
+            if dtype == torch.float32:
+                return model(x_t, ts, cond, **kwargs)
+            cast = {n: p.to(dtype) for n, p in zip(names, params)}
+            return functional_call(model, cast, (x_t, ts, cond), kwargs)
 
         optimizer.zero_grad(set_to_none=True)
         terms = losses.training_losses(sched, cfg, model_fn, x, t, batch["cond"],
@@ -138,14 +155,12 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
 class TrainLoop:
     def __init__(self, args, train_platform, model, sched, cfg, data,
                  device: torch.device):
-        if getattr(args, "eval_during_training", False):
-            raise NotImplementedError("in-training evaluation is not ported")
-        if int(getattr(args, "profile_steps", 0) or 0) > 0:
-            raise NotImplementedError("--profile_steps is not ported")
         self.args = args
         self.train_platform = train_platform
         self.device = device
+        # the master weights: float32 whatever the compute dtype
         self.model = model.to(device=device, dtype=torch.float32)
+        self.dtype = model_dtype(args)
         self.sched = sched
         self.cfg = cfg
         self.data = data
@@ -188,6 +203,7 @@ class TrainLoop:
             ema_rate=float(getattr(args, "ema_rate", 0.9999)),
             num_timesteps=sched.num_timesteps,
             lr_schedule=lambda s: learning_rate(self.lr, self.lr_anneal_steps, s),
+            dtype=self.dtype,
         )
         self._nan_guard = bool(getattr(args, "nan_guard", False))
         self._nan_skips = 0
@@ -202,6 +218,7 @@ class TrainLoop:
             )
         self._block_buf = []
         self._last_save_at = None  # self.step value (pre-increment) last saved
+        self._profiler = None
 
     # -- state ----------------------------------------------------------
 
@@ -322,6 +339,7 @@ class TrainLoop:
             for motion, cond in self.data:
                 if self._steps_remaining() <= 0:
                     break
+                self._maybe_profile()
                 if K > 1 and self._steps_remaining() >= K:
                     self._block_buf.append((motion, cond))
                     if len(self._block_buf) < K:
@@ -331,18 +349,22 @@ class TrainLoop:
                 else:
                     per_step = [self.run_step(motion, cond)]
                 if self._bookkeep(per_step, start):
+                    self._stop_profile()
                     return  # DIFFUSION_TRAINING_TEST early exit
             # epoch boundary: flush a partial block with single steps
             for motion, cond in self._block_buf:
                 if self._steps_remaining() <= 0:
                     break
                 if self._bookkeep([self.run_step(motion, cond)], start):
+                    self._stop_profile()
                     return
             self._block_buf = []
             if self.state_step >= self.num_steps:
                 break
+        self._stop_profile()  # the run ended inside the window
         if self._last_save_at != self.step - 1:
             self.save()
+            self.evaluate()
 
     def _bookkeep(self, per_step_metrics, start) -> bool:
         """Logging and boundary saves of one device call (one step or a
@@ -371,6 +393,7 @@ class TrainLoop:
         crossings = [s for s in range(first, self.step) if s % self.save_interval == 0]
         if crossings:
             self.save()
+            self.evaluate()
             self._last_save_at = self.step - 1
             # exit only when a crossing step was > 0, for K = 1 and K > 1 alike
             if os.environ.get("DIFFUSION_TRAINING_TEST", "") and any(
@@ -386,3 +409,89 @@ class TrainLoop:
                    "generator": self.generator.get_state()},
         )
         logger.log(f"saved checkpoint: {path}")
+
+    # -- profiling and evaluation ----------------------------------------
+
+    def _maybe_profile(self):
+        """The JAX loop's window: trace steps [profile_start, profile_start +
+        profile_steps) with torch.profiler (the CUDA activity on the card),
+        started and stopped at the call boundaries where the loop sees
+        those steps."""
+        n = int(getattr(self.args, "profile_steps", 0) or 0)
+        if n <= 0:
+            return
+        start = int(getattr(self.args, "profile_start", 10) or 0)
+        if start <= self.step < start + n and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profile_dir = os.path.join(self.save_dir, "profile")
+            os.makedirs(self._profile_dir, exist_ok=True)
+            self._profile_first = self.state_step
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        elif self.step >= start + n and self._profiler is not None:
+            self._stop_profile()
+
+    def _stop_profile(self):
+        """Close an open trace and write it as a Chrome trace (no
+        TensorBoard needed) into <save_dir>/profile."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        path = os.path.join(self._profile_dir, f"trace_steps{self._profile_first:09d}-"
+                                               f"{self.state_step:09d}.json")
+        prof.export_chrome_trace(path)
+        logger.log(f"profiler trace written to {path}")
+
+    def evaluate(self):
+        """In-training evaluation after a save, with --eval_during_training
+        (regennet_tpu TrainLoop.evaluate): the eval_cmdm protocol in debug
+        mode (min(eval_num_samples, 100) samples, one seed, accuracy only)
+        at eval_batch_size, sampling from the current parameters (not the
+        EMA) at the run's compute dtype, against the ST-GCN of
+        --rec_model_path or REGENNET_REC_MODEL_PATH ('random' builds it
+        from --seed). Each metric goes to the train platform under "Eval"."""
+        if not getattr(self.args, "eval_during_training", False):
+            return
+        if self.args.dataset in ("humanml", "kit"):
+            raise NotImplementedError(
+                "in-training evaluation of humanml/kit needs the t2m evaluation "
+                "stack (eval/eval_humanml.py), which is not ported")
+        rec = getattr(self.args, "rec_model_path", "") or os.environ.get(
+            "REGENNET_REC_MODEL_PATH", "")
+        if not rec:
+            logger.log("eval_during_training set but no rec_model_path; skipping")
+            return
+        if self.args.dataset in ("humanact12", "uestc"):
+            raise NotImplementedError(
+                "in-training evaluation of humanact12/uestc needs "
+                "data/legacy_a2m.py and eval/eval_humanact12_uestc.py, which are "
+                "not ported")
+        from argparse import Namespace
+
+        from regennet_torch.eval import eval_cmdm, stgcn_eval
+        from regennet_torch.models.cmdm import make_model_fn
+
+        start = time.time()
+        eval_args = Namespace(**vars(self.args))
+        eval_args.batch_size = self.args.eval_batch_size
+        eval_args.num_samples = min(self.args.eval_num_samples, 100)
+        eval_args.num_seeds = 1
+        eval_args.eval_mode = "debug"
+        dataset = getattr(self.data, "dataset", self.data)
+        eval_args.num_actions = getattr(dataset, "num_actions", 1)
+        model = copy.deepcopy(self.model).to(self.dtype).eval()
+        evaluator = eval_cmdm.load_stgcn_evaluator(eval_args, rec, self.device)
+        eval_dict = stgcn_eval.evaluate(
+            eval_args, lambda: make_model_fn(model), self.sched, self.cfg, dataset,
+            evaluator, setting=self.args.setting, acc_only=True)
+        for k, v in eval_dict["feats"].items():
+            self.train_platform.report_scalar(
+                name=k, value=float(v[0]), iteration=self.state_step, group_name="Eval")
+        logger.log(f"Evaluation time: {round(time.time() - start) / 60}min")

@@ -171,7 +171,8 @@ def add_training_options(parser):
     group.add_argument("--eval_batch_size", default=32, type=int)
     group.add_argument("--eval_split", default="test", choices=["val", "test"])
     group.add_argument("--eval_during_training", action="store_true",
-                       help="Not ported: in-training evaluation raises.")
+                       help="Evaluate (eval_cmdm debug mode, a2m datasets) "
+                            "after every save, against --rec_model_path.")
     group.add_argument("--rec_model_path", default="", type=str)
     group.add_argument("--nan_guard", action="store_true",
                        help="Drop non-finite training steps (loss or grad "
@@ -185,7 +186,9 @@ def add_training_options(parser):
     group.add_argument("--num_steps", default=600_000, type=int)
     group.add_argument("--num_frames", default=60, type=int)
     group.add_argument("--profile_steps", default=0, type=int,
-                       help="Not ported: a value above 0 raises.")
+                       help="Trace this many steps from --profile_start with "
+                            "torch.profiler into <save_dir>/profile (a Chrome "
+                            "trace); 0 traces nothing.")
     group.add_argument("--profile_start", default=10, type=int)
     group.add_argument("--resume_checkpoint", default="", type=str)
     group.add_argument("--data_parallel", default=-1, type=int,
@@ -197,7 +200,9 @@ def add_training_options(parser):
                        help="Single device only: replicated.")
     group.add_argument("--compute_dtype", default="float32",
                        choices=["float32", "bfloat16"], type=str,
-                       help="Training runs in float32 only.")
+                       help="Dtype the denoiser computes in; parameters, "
+                            "gradients, AdamW moments and the EMA stay "
+                            "float32.")
     group.add_argument("--steps_per_call", default=8, type=int,
                        help="Steps per loop iteration: K single optimizer "
                             "steps run back to back; saves and evaluation "
@@ -218,7 +223,7 @@ def train_args(argv=None):
 
 def check_single_device_training(args):
     """Raise for the options this port does not train with: more than one
-    device, a sharded state, or bf16 compute."""
+    device or a sharded state."""
     if getattr(args, "data_parallel", -1) not in (-1, 1):
         raise NotImplementedError("distributed training is not ported: "
                                   "--data_parallel must be -1 or 1")
@@ -227,9 +232,6 @@ def check_single_device_training(args):
                                   "--tensor_parallel must be 1")
     if getattr(args, "param_sharding", "replicated") != "replicated":
         raise NotImplementedError("--param_sharding fsdp is not ported")
-    if getattr(args, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError("bf16 training is not ported: "
-                                  "--compute_dtype must be float32")
 
 
 def add_evaluation_options(parser):

@@ -13,6 +13,17 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for each test: the suite runs in several
+    processes at once, and torch's spinning thread pools then slow these
+    runs of small ops by more than ten times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_exits_nonzero_without_cuda():
     assert not torch.cuda.is_available()
     proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
@@ -225,6 +236,45 @@ def test_trunk_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path, arch):
     assert report[f"{arch}_training"]["arch"] == arch
     assert report[f"{arch}_sample"]["sampler"] == "DDPM 4"
     assert report[f"{arch}_sample"]["ms_per_step"] > 0
+
+
+def test_bf16_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 9 at a cut size: bf16 train_mdm with the in-training
+    evaluation after each save, its state f32, a bf16 step check (three
+    routes, phase 2b's bf16 bound), a bf16 DDIM request; then the offline,
+    gru and mlp trunks at bf16 with the bf16-vs-f32 forward check (the CPU
+    runs launch nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    # a 50-step schedule: the evaluations sample DDPM 50, the request DDIM 50
+    for key, value in dict(layers=2, latent_dim=32, heads=2, T=12, steps=50).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    for key, value in dict(batch=4, steps=8, steps_per_call=2).items():
+        monkeypatch.setitem(cs.TRAIN, key, value)
+    monkeypatch.setattr(cs, "TRUNK_STEPS", 4)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=16,
+                                             min_len=14, max_len=24),
+                  dataname="chi3d", split="test", num_frames=12, num_person=2,
+                  pose_rep="rot6d")
+    report = {}
+    b2, b1 = cs.run_bf16_training(report, "cpu", tmp_path / "bf16", data, device="cpu")
+    assert b2 == {"forward": 0, "backward": 0} and b1 == 0
+    row = report["bf16_training"]
+    assert row["compute_dtype"] == "bfloat16" and len(row["evaluations"]) == 2
+    assert row["eval_sampling_calls"] == 4  # one batch of 32 a split, at each save
+    check = report["bf16_train_step_check"]
+    assert check["dtype"] == "bfloat16" and check["loss_kernel"] == check["loss_plain"]
+    assert check["worst_gradient"]["max_abs_err"] == 0.0  # the CPU runs the plain path
+    assert report["bf16_trained_sample"]["compute_dtype"] == "bfloat16"
+    for arch in ("trans_enc", "gru", "mlp"):
+        assert cs.run_bf16_trunk(report, "cpu", tmp_path / arch, data, arch,
+                                 device="cpu") == {"forward": 0, "backward": 0}
+        assert report[f"bf16_{arch}_training"]["compute_dtype"] == "bfloat16"
+        assert report[f"{arch}_bfloat16_forward_check"]["max_abs_err"] > 0
 
 
 def _guard_results(**acc_fid):
