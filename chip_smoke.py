@@ -23,6 +23,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
      151, causal or not, f32 and bf16), each call against its plain
      version, and timed at bf16 [128, 4, 150, 128];
+  2d. B1 and B2 at phase 10's f32 [64, 61, 512], non-causal, timed by
+     device time under torch.profiler beside their plain versions, SDPA and
+     the bounds;
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
@@ -67,12 +70,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and GEMM kernels under torch.profiler; a bf16 DDIM-50 request from
      the checkpoint; then the offline, gru and mlp trunks, 16 bf16 steps
      each, each with a bf16 forward of its trained weights on the card
-     against the f32 forward of a CPU copy and its bf16 step time.
+     against the f32 forward of a CPU copy and its bf16 step time;
+  10. the single-person a2m path at the a2m CMDM's width (the offline
+     trunk, 8 layers, latent 512, SMPL 25x6, T 60: 61 tokens, non-causal):
+     B1 (B 32, 64, 128) and B2 (B 64) there against their plain versions;
+     synthetic HumanAct12 and UESTC archives written by the
+     port's writers; train_mdm on HumanAct12 from --data_path (16 f32
+     steps at batch 64, the legacy in-training evaluation after each save,
+     a random GRU classifier); eval_humanact12_uestc (debug) on its
+     checkpoint; an --unconstrained model (a 50-step schedule) through the
+     unconstrained protocol (1000 samples, a random openpose ST-GCN saved as
+     the port's .pt, a synthetic modi-struct array); UESTC (8 steps, then
+     its evaluation route); compute_accuracy on a random full-width ST-GCN
+     over in-memory Chi3D clips; the GRU classifier and the openpose ST-GCN
+     on the card against CPU copies.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8 and 9 for B1; 4, 5, 8 and 9 for B2; 2c for B3) and summed in the
-kernel line;
+5, 6, 8, 9 and 10 for B1; 4, 5, 8, 9 and 10 for B2; 2c for B3) and summed
+in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
-launches; B2 has bf16 rows at [64, 150, 512], with phase 9's launches.
+launches, and a third at the a2m evaluations' [64, 61, 512], with phase
+10's; B2 has bf16 rows at [64, 150, 512], with phase 9's launches, and
+f32 rows at [64, 61, 512], with phase 10's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -534,7 +552,7 @@ def check_train_mask():
     return out
 
 
-def _sdpa_backend(q4, k4, v4, rate):
+def _sdpa_backend(q4, k4, v4, rate, causal=True):
     """The first SDPA backend, in torch's order of preference, that takes
     these inputs with this dropout."""
     import torch.nn.functional as F
@@ -544,7 +562,7 @@ def _sdpa_backend(q4, k4, v4, rate):
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([backend]):
-                F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=True)
+                F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=causal)
             return backend.name
         except RuntimeError:
             continue
@@ -591,9 +609,10 @@ def device_ms(fn, iters=20):
     return kernel_times(fn, iters)[0]
 
 
-def time_train_kernels(card, dtype="float32"):
+def time_train_kernels(card, dtype="float32", T=None, causal=True):
     """Forward and backward times at the flagship training shape (B = 64,
-    T = 150, rate 0.1, causal) in `dtype`: the kernels, autograd of the
+    T = 150, rate 0.1, causal; or T and causal as given) in `dtype`: the
+    kernels, autograd of the
     plain version, and F.scaled_dot_product_attention with dropout (its own
     mask: a yardstick, not a check), each by device time under
     torch.profiler (`*_ms`) and by CUDA events around back-to-back calls,
@@ -607,8 +626,8 @@ def time_train_kernels(card, dtype="float32"):
 
     from regennet_torch.ops import attention
 
-    B, T, D, H, rate = TRAIN["batch"], FLAGSHIP["T"], FLAGSHIP["latent_dim"], \
-        FLAGSHIP["heads"], TRAIN["rate"]
+    B, D, H, rate = TRAIN["batch"], FLAGSHIP["latent_dim"], FLAGSHIP["heads"], TRAIN["rate"]
+    T = T or FLAGSHIP["T"]
     hd = D // H
     td = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -621,19 +640,19 @@ def time_train_kernels(card, dtype="float32"):
     dout4 = dout.view(B, T, H, hd).transpose(1, 2)
 
     def kernel():
-        return attention.fused_attention_btd_train(q, k, v, H, rate, seeds)
+        return attention.fused_attention_btd_train(q, k, v, H, rate, seeds, causal)
 
     def plain():
-        return attention.attention_btd_train_reference(q, k, v, H, rate, seeds)
+        return attention.attention_btd_train_reference(q, k, v, H, rate, seeds, causal)
 
     def library():
-        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=True)
+        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=causal)
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        backend = _sdpa_backend(q4.detach(), k4.detach(), v4.detach(), rate)
+        backend = _sdpa_backend(q4.detach(), k4.detach(), v4.detach(), rate, causal)
     res = {"shape": dict(B=B, T=T, D=D, heads=H, dtype=dtype, rate=rate,
-                         causal=True), "library_backend": backend}
+                         causal=causal), "library_backend": backend}
     for name, fn, grad_out, iters in (("kernel", kernel, dout, 20),
                                       ("plain", plain, dout, 5),
                                       ("library", library, dout4, 20)):
@@ -653,19 +672,20 @@ def time_train_kernels(card, dtype="float32"):
     with torch.no_grad():
         # by CUDA events, as B1's rows are timed
         res["kernel_forward_rate0_ms"] = time_ms(
-            lambda: attention.fused_attention_btd_train(q, k, v, H, 0.0, seeds))
+            lambda: attention.fused_attention_btd_train(q, k, v, H, 0.0, seeds, causal))
     res["forward_bound_ms"], res["forward_bound_by"] = attention_bound_ms(
-        B, T, D, H, dtype, True, None)
+        B, T, D, H, dtype, causal, None)
     res["backward_bound_ms"], res["backward_bound_by"] = attention_bound_ms(
-        B, T, D, H, dtype, True, None, tensors=7, products=5)
+        B, T, D, H, dtype, causal, None, tensors=7, products=5)
     # the row pass moves q, k, v, dO, dQ and computes QK^T, dO V^T, dS K; the
     # column pass moves q, k, v, dO, dK, dV and computes QK^T, dO V^T, dV, dK
     # (the [3, B, H, T] statistics between them are 0.5% of either's bytes)
     res["backward_pass_bound_ms"] = {
-        "rows": attention_bound_ms(B, T, D, H, dtype, True, None, tensors=5, products=3),
-        "cols": attention_bound_ms(B, T, D, H, dtype, True, None, tensors=6, products=4)}
+        "rows": attention_bound_ms(B, T, D, H, dtype, causal, None, tensors=5, products=3),
+        "cols": attention_bound_ms(B, T, D, H, dtype, causal, None, tensors=6, products=4)}
     for which in ("forward", "backward"):
-        print(f"  training attention {which}, {dtype} B={B} T={T} rate {rate} causal, "
+        print(f"  training attention {which}, {dtype} B={B} T={T} rate {rate} "
+              f"{'causal' if causal else 'non-causal'}, "
               f"device time (wall with launches): kernel "
               + ", ".join(f"{label}{res[name + '_' + which + '_ms']:.4f} ms "
                           f"({res[name + '_' + which + '_wall_ms']:.4f})"
@@ -840,9 +860,11 @@ def train_args(save_dir):
 
 
 def run_training(report, card, save_dir, device="cuda", args=None, key="training"):
-    """Phase 4 (and 5): train_mdm.main on the flagship training
+    """Phase 4 (and 5, 7, 9, 10): train_mdm.main on the flagship training
     configuration, or on `args` (device "cpu" rehearses it at a cut size,
-    through the plain attention, which launches nothing)."""
+    through the plain attention, which launches nothing). The Chi3D clips
+    are built in memory; HumanAct12 and UESTC (phase 10) are read from
+    --data_path, as a user's run reads them."""
     import numpy as np
     import torch
 
@@ -858,12 +880,14 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
     args = args or train_args(save_dir)
     T, B, steps, K = args.num_frames, args.batch_size, args.num_steps, args.steps_per_call
     t0 = time.perf_counter()
-    # steps batches in one epoch: the loop's epoch count is steps // (len + 1)
-    clips = synthetic.make_clips("chi3d", "train", num_clips=B * steps,
-                                 min_len=T + 10, max_len=T + 60)
-    feeder = Feeder(clips=clips, dataname="chi3d", split="train", num_frames=T,
-                    num_person=2, pose_rep="rot6d")
-    loader = BatchLoader(feeder, B, get_collate_fn("chi3d", "cmdm"))
+    loader = None
+    if args.dataset == "chi3d":
+        # steps batches in one epoch: the loop's epoch count is steps // (len + 1)
+        clips = synthetic.make_clips("chi3d", "train", num_clips=B * steps,
+                                     min_len=T + 10, max_len=T + 60)
+        feeder = Feeder(clips=clips, dataname="chi3d", split="train", num_frames=T,
+                        num_person=2, pose_rep="rot6d")
+        loader = BatchLoader(feeder, B, get_collate_fn("chi3d", "cmdm"))
     data_s = time.perf_counter() - t0
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
 
@@ -892,6 +916,7 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
         wall_s = time.perf_counter() - t0
     finally:
         training_loop.TrainLoop.run_block = run_block
+    loader = loop.data
     launches = {"forward": fn.launches, "backward": fn.backward_launches}
     # the gru and mlp trunks attend nothing
     expected = args.layers * steps if device != "cpu" and args.arch in TRANSFORMER_ARCHS \
@@ -929,6 +954,10 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
         ema_moved += float(((loop.ema[name].cpu() - init[name].detach()).double() ** 2).sum())
     rate = args.ema_rate
     ema_ratio = math.sqrt(ema_moved / moved)
+    # the mdm setting's actor input is zero: the weight that projects it
+    # gets a zero gradient (its bias does not)
+    if args.setting == "mdm" and unchanged == ["cmo_process.poseEmbedding.weight"]:
+        unchanged = []
     if unchanged or not (1 - rate) <= ema_ratio <= 1 - rate ** steps:
         raise AssertionError(f"unchanged parameters {unchanged} or EMA ratio {ema_ratio}")
 
@@ -945,7 +974,7 @@ def run_training(report, card, save_dir, device="cuda", args=None, key="training
     if not_f32:
         raise AssertionError(f"not float32 after training: {not_f32[:5]}")
 
-    ms_per_step = float(np.mean(block_ms[1:]))
+    ms_per_step = float(np.mean(block_ms[1:] or block_ms))  # the first only if alone
     row = dict(arch=args.arch, compute_dtype=args.compute_dtype, steps=steps, batch=B,
                steps_per_call=K,
                block_ms_per_step=block_ms, ms_per_step=ms_per_step,
@@ -1380,47 +1409,59 @@ def load_capability_study():
     return module
 
 
-def check_guard_kernels(report):
-    """B1 and B2 at the learning guard's shapes (f32, 4 heads of 16, B 32,
-    T 24 and 25, causal, B2 at its dropout 0.1) against their plain
-    versions, as phases 2 and 2b hold them. Returns the worst errors."""
+def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed):
+    """B1 at each (B, T, dtype) of b1_shapes, and B2 (rate TRAIN["rate"],
+    forward and backward) at each of b2_shapes, on [B, T, D] inputs with H
+    heads, against their plain versions as phases 2 and 2b hold them.
+    Returns (the worst errors: B1, B2's forward, B2's backward against its
+    plain backward; the cases)."""
     import torch
 
     from regennet_torch.ops import attention
 
-    B, D, H = 32, 64, 4
-    gen = torch.Generator(device="cuda").manual_seed(6)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"forward": 0.0, "train_forward": 0.0, "backward": 0.0}
     cases = []
-    for T in (24, 25):
-        packed = torch.randn(B, T, 3 * D, device="cuda", generator=gen)
-        q, k, v = packed.split(D, dim=-1)
-        ref = attention.attention_btd_reference(q, k, v, H, True)
-        err = max_abs_err(attention.fused_attention_btd(q, k, v, H, True), ref)
-        hold(f"fused_attention_btd at [{B}, {T}, {D}], {H} heads", err,
-             TOLERANCE["float32"] * max(1.0, float(ref.abs().max())))
+    for B, T, dtype in b1_shapes:
+        what = f"fused_attention_btd at {dtype} [{B}, {T}, {D}], {H} heads, causal {causal}"
+        q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(
+            getattr(torch, dtype)).split(D, dim=-1)
+        ref = attention.attention_btd_reference(q, k, v, H, causal)
+        err = max_abs_err(attention.fused_attention_btd(q, k, v, H, causal), ref)
+        hold(what, err, TOLERANCE[dtype] * max(1.0, float(ref.float().abs().max())))
         worst["forward"] = max(worst["forward"], err)
-        ours, plain, vjp = _train_pair(B, T, "float32", True, None, 0.1, gen, D=D, H=H)
-        case = dict(B=B, T=T, D=D, heads=H, fused_attention_btd_err=err)
+        cases.append(dict(kernel="fused_attention_btd", B=B, T=T, D=D, heads=H, dtype=dtype,
+                          causal=causal, max_abs_err=err))
+    for B, T, dtype in b2_shapes:
+        what = f"fused_attention_btd_train at {dtype} [{B}, {T}, {D}], {H} heads, causal {causal}"
+        ours, plain, vjp = _train_pair(B, T, dtype, causal, None, TRAIN["rate"], gen, D=D, H=H)
+        case = dict(kernel="fused_attention_btd_train", B=B, T=T, D=D, heads=H, dtype=dtype,
+                    causal=causal)
         err = max_abs_err(ours[0], plain[0])
-        hold(f"fused_attention_btd_train out at T {T}", err,
-             TOLERANCE["float32"] * max(1.0, float(plain[0].abs().max())))
+        hold(f"{what}: out", err, TOLERANCE[dtype] * max(1.0, float(plain[0].float().abs().max())))
         worst["train_forward"] = max(worst["train_forward"], err)
-        case["train_out_err"] = err
+        case["out_err"] = err
         for name, a, b, c in zip(("dq", "dk", "dv"), ours[1:], plain[1:], vjp):
-            err, _, _ = hold_gradient(f"fused_attention_btd_train {name} at T {T}", a, b, c,
-                                      "float32")
+            case[f"{name}_err"] = hold_gradient(f"{what}: {name}", a, b, c, dtype)[0]
             err_vjp = max_abs_err(a, c)
-            hold(f"fused_attention_btd_train {name} against the plain backward at T {T}",
-                 err_vjp, TOLERANCE_VJP["float32"] * max(1.0, float(c.abs().max())))
+            hold(f"{what}: {name} against the plain backward", err_vjp,
+                 TOLERANCE_VJP[dtype] * max(1.0, float(c.float().abs().max())))
             worst["backward"] = max(worst["backward"], err_vjp)
-            case[f"{name}_err"], case[f"{name}_vjp_err"] = err, err_vjp
+            case[f"{name}_vjp_err"] = err_vjp
         cases.append(case)
-    print(f"  B1 and B2 at head dim 16 ([{B}, 24 and 25, {D}], {H} heads, f32, causal, B2 at "
+    return worst, cases
+
+
+def check_guard_kernels(report):
+    """B1 and B2 at the learning guard's shapes (f32, 4 heads of 16, B 32,
+    T 24 and 25, causal, B2 at its dropout 0.1) against their plain
+    versions, as phases 2 and 2b hold them. Returns the worst errors."""
+    shapes = [(32, T, "float32") for T in (24, 25)]
+    worst, report["guard_kernel_cases"] = hold_kernels_at(shapes, shapes, True, 64, 4, seed=6)
+    print(f"  B1 and B2 at head dim 16 ([32, 24 and 25, 64], 4 heads, f32, causal, B2 at "
           f"rate 0.1) match their plain versions (worst max_abs_err B1 {worst['forward']:.3g}, "
           f"B2 forward {worst['train_forward']:.3g}, backward {worst['backward']:.3g} against "
           "the plain backward; tolerance 1e-5 x max(1, max|plain|))")
-    report["guard_kernel_cases"] = cases
     return worst
 
 
@@ -1626,6 +1667,444 @@ def run_bf16_trunk(report, card, save_dir, data, arch, device="cuda"):
     return launches
 
 
+# Phase 10: the single-person a2m path. HumanAct12 (and UESTC) SMPL 25x6 at
+# T 60 on the offline trunk at the flagship width: 61 tokens a row (60
+# frames and the embedding token), non-causal. Clip counts: HumanAct12
+# holds enough for the unconstrained protocol's 1000 samples in batches of
+# 64; UESTC's train split (two thirds of the videos, all past the 45-frame
+# filter) holds uestc_steps batches.
+A2M = dict(T=60, batch=64, steps=16, eval_batch=32, eval_samples=16, uestc_steps=8,
+           uncon_steps=8, uncon_diffusion_steps=50, clips=1100, uestc_videos=800,
+           modi_struct=1000)
+
+
+def check_a2m_kernels(report):
+    """Phase 10: B1 (non-causal, f32 and bf16, B 32, 64 and 128: the
+    in-training evaluation, the evaluations and UESTC's two stacked seeds)
+    and B2 (f32 and bf16, [64, 61, 512], rate 0.1, forward and backward) at
+    the a2m CMDM's 61 tokens against their plain versions, at phases 2 and
+    2b's tolerances. Returns the worst errors."""
+    D, H, T, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], A2M["T"] + 1, TRAIN["batch"]
+    dtypes = ("float32", "bfloat16")
+    worst, report["a2m_kernel_cases"] = hold_kernels_at(
+        [(b, T, dtype) for b in (32, 64, 128) for dtype in dtypes],
+        [(B, T, dtype) for dtype in dtypes], False, D, H, seed=10)
+    print(f"  B1 at [32, 64 and 128, {T}, {D}] and B2 at [{B}, {T}, {D}] (non-causal, f32 and "
+          f"bf16, B2 at rate {TRAIN['rate']}) match their plain versions (worst max_abs_err B1 "
+          f"{worst['forward']:.3g}, B2 forward {worst['train_forward']:.3g}, backward "
+          f"{worst['backward']:.3g} against the plain backward; tolerances of phases 2 and 2b)")
+    return worst
+
+
+def time_a2m_kernels(report, card):
+    """Phase 2d: B1 and B2 at phase 10's f32 [64, 61, 512], non-causal, by
+    device time under torch.profiler, beside their plain versions, SDPA
+    and the bounds (B2 as phase 2b times it). At 61 tokens a launch takes
+    about as long as the host needs to issue it, so the CUDA-event time of
+    back-to-back calls (B1's *_wall_ms) reads the host. Timed here, beside
+    phase 2b's profiles: in one full run a profile of B1 taken in phase 10
+    recorded no kernel, which a run of phase 10 alone did not repeat.
+    Returns (B1's timing, B2's timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from regennet_torch.ops import attention
+
+    D, H, T, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], A2M["T"] + 1, TRAIN["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).split(D, dim=-1)
+    q4, k4, v4 = (x.view(B, T, H, D // H).transpose(1, 2) for x in (q, k, v))
+    b1_timing = {}
+    for name, fn, iters in (
+            ("", lambda: attention.fused_attention_btd(q, k, v, H, False), 20),
+            ("plain_", lambda: attention.attention_btd_reference(q, k, v, H, False), 5),
+            ("library_", lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)):
+        b1_timing[f"{name}ms"] = device_ms(fn, iters=iters)
+        b1_timing[f"{name}wall_ms"] = time_ms(fn, iters=iters)
+    b1_timing["bound_ms"], b1_timing["bound_by"] = attention_bound_ms(
+        B, T, D, H, "float32", False, None)
+    print(f"  B1 f32 [{B}, {T}, {D}] non-causal, device time (wall with launches): kernel "
+          + ", ".join(f"{label}{b1_timing[name + 'ms']:.4f} ms ({b1_timing[name + 'wall_ms']:.4f})"
+                      for name, label in (("", ""), ("plain_", "plain "),
+                                          ("library_", "sdpa ")))
+          + f", bound {b1_timing['bound_ms']:.4f} ms ({b1_timing['bound_by']}) [{card}]")
+    b2_timing = time_train_kernels(card, "float32", T=T, causal=False)
+    report["a2m_attention_timing"] = {"fused_attention_btd": b1_timing,
+                                      "fused_attention_btd_train": b2_timing}
+    return b1_timing, b2_timing
+
+
+def counted_run(fn, device="cuda"):
+    """fn() with B1's and B2's launch counts set to 0 before it and read
+    after it, each sampling loop it runs counted (its rows, its steps and
+    its device-synchronised ms), and its wall. Returns (fn's result,
+    counts)."""
+    import torch
+
+    from regennet_torch.diffusion import sampling
+    from regennet_torch.ops import attention
+
+    b1, b2 = attention.fused_attention_btd, attention.fused_attention_btd_train
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    loops = []
+    p_sample_loop = sampling.p_sample_loop
+
+    def counted(sched, cfg, model_fn, shape, *rest, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = p_sample_loop(sched, cfg, model_fn, shape, *rest, **kw)
+        sync()
+        loops.append(dict(rows=shape[0], steps=sched.num_timesteps,
+                          ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    b1.launches = b2.launches = b2.backward_launches = 0
+    sampling.p_sample_loop = counted
+    try:
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        sampling.p_sample_loop = p_sample_loop
+    sampling_ms = sum(lp["ms"] for lp in loops)
+    steps = sum(lp["steps"] for lp in loops)
+    return result, dict(
+        wall_s=wall_s, b1=b1.launches, b2={"forward": b2.launches,
+                                           "backward": b2.backward_launches},
+        sampling_calls=len(loops), sampling_rows=[lp["rows"] for lp in loops],
+        sampling_steps=steps, sampling_s=sampling_ms / 1e3,
+        ms_per_denoiser_step=sampling_ms / steps if steps else None)
+
+
+def hold_b1_launches(what, counts, layers, device):
+    """B1's launches over a run: layers x the steps of its sampling loops."""
+    want = layers * counts["sampling_steps"] * (device != "cpu")
+    print(f"  B1 launches over {what}: {counts['b1']} (layers x steps x calls = {layers} x "
+          f"{counts['sampling_steps']} over {counts['sampling_calls']} calls)")
+    if counts["b1"] != want:
+        raise AssertionError(f"{what}: B1 launches {counts['b1']} != {want}")
+
+
+def a2m_train_args(save_dir, dataset, data_path, steps, extra=()):
+    """train_mdm's arguments for an a2m CMDM, as a user passes them: the
+    dataset from --data_path, --setting mdm --num_person 1 --body_model
+    smpl, the default --arch (the offline trunk) at the flagship width,
+    f32 batch 64."""
+    from regennet_torch.utils import parser_util
+
+    return parser_util.train_args([
+        "--save_dir", str(save_dir), "--dataset", dataset, "--data_path", str(data_path),
+        "--setting", "mdm", "--num_person", "1", "--body_model", "smpl",
+        "--num_frames", str(A2M["T"]), "--batch_size", str(A2M["batch"]),
+        "--num_steps", str(steps), "--steps_per_call", str(TRAIN["steps_per_call"]),
+        "--save_interval", str(steps), "--log_interval", str(TRAIN["steps_per_call"]),
+        "--seed", "0", "--layers", str(FLAGSHIP["layers"]),
+        "--latent_dim", str(FLAGSHIP["latent_dim"]),
+        "--diffusion_steps", str(FLAGSHIP["steps"]), *extra,
+    ])
+
+
+def write_a2m_assets(workdir):
+    """The synthetic HumanAct12 and UESTC archives (the port's writers), a
+    modi-struct array [N, 24, 3, T] of the unconstrained protocol and a
+    random openpose ST-GCN saved as the port's .pt."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.models.stgcn import make_unconstrained_stgcn, random_init_
+
+    T = A2M["T"]
+    t0 = time.perf_counter()
+    paths = {
+        "humanact12": synthetic.write_humanact12_pkl(
+            str(workdir / "HumanAct12Poses"), num_clips=A2M["clips"], min_len=T // 2,
+            max_len=3 * T // 2),
+        "uestc": synthetic.write_uestc_assets(
+            str(workdir / "uestc"), num_videos=A2M["uestc_videos"], min_len=T,
+            max_len=3 * T // 2),
+        "modi_struct": str(workdir / "humanact12_modi_struct.npy"),
+        "unconstrained_stgcn": str(workdir / "unconstrained_stgcn" / "model000000001.pt"),
+    }
+    rng = np.random.default_rng(11)
+    motions = np.cumsum(rng.normal(size=(A2M["modi_struct"], 24, 3, T)) * 0.02, axis=-1)
+    np.save(paths["modi_struct"], (motions + rng.normal(size=(1, 24, 3, 1))).astype(np.float32))
+    os.makedirs(os.path.dirname(paths["unconstrained_stgcn"]))
+    torch.save(random_init_(make_unconstrained_stgcn(), torch.Generator().manual_seed(12))
+               .state_dict(), paths["unconstrained_stgcn"])
+    return paths, time.perf_counter() - t0
+
+
+A2M_GRU_METRICS = {f"{m}_{k}" for m in ("accuracy", "diversity", "multimodality", "fid")
+                   for k in ("gen", "gt", "gt2")}
+
+
+def run_a2m_eval(report, card, model_path, key, extra=(), device="cuda"):
+    """eval_humanact12_uestc.main in debug mode on `model_path` (batch 64,
+    guidance 1, a random classifier from --seed), B1's launches and each sampling
+    loop counted around it, each classifier call timed; the results file
+    against the returned metrics. Returns (metrics, counts)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.eval import eval_humanact12_uestc, gru_eval, stgcn_eval, tools
+    from regennet_torch.utils import parser_util
+
+    args = parser_util.evaluation_parser([
+        "--model_path", str(model_path), "--rec_model_path", "random", "--seed", "0",
+        "--guidance_param", "1", "--batch_size", str(A2M["batch"]), *extra])
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    classifier_ms = []
+    calls = {cls: cls.__call__ for cls in (gru_eval.A2MEvaluator, stgcn_eval.STGCNEvaluator)}
+
+    def timed(call):
+        def wrapped(self, *a):
+            sync()
+            t0 = time.perf_counter()
+            out = call(self, *a)
+            classifier_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    for cls, call in calls.items():
+        cls.__call__ = timed(call)
+    try:
+        result, counts = counted_run(lambda: eval_humanact12_uestc.main(args, device=device),
+                                     device)
+    finally:
+        for cls, call in calls.items():
+            cls.__call__ = call
+    hold_b1_launches(f"eval_humanact12_uestc ({args.dataset}{', unconstrained' if args.unconstrained else ''})",
+                     counts, args.layers, device)
+    path = eval_humanact12_uestc.results_path(args)
+    if tools.load_metrics(path) != result:
+        raise AssertionError(f"{path} does not hold the returned metrics")
+    feats = result["feats"]
+    if args.dataset == "uestc":
+        want = {f"accuracy_{k}_{s}" for k in ("gen", "gt") for s in ("train", "test")}
+    else:
+        want = set(A2M_GRU_METRICS)
+        if args.unconstrained:
+            want |= {"fid_unconstrained", "kid_unconstrained", "kid_std_unconstrained",
+                     "diversity_gen_unconstrained", "diversity_gt_unconstrained"}
+    per_seed = {k: v for k, v in feats.items() if isinstance(v, list)}
+    nan_ok = {"accuracy_gen", "accuracy_gt", "accuracy_gt2", "multimodality_gen",
+              "multimodality_gt", "multimodality_gt2"} if args.unconstrained else set()
+    values = [float(x) for k, v in feats.items() if k not in nan_ok
+              for x in (v if isinstance(v, list) else [v])]
+    if set(feats) != want or not all(len(v) == args.num_seeds for v in per_seed.values()) \
+            or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{key}: metrics {feats}")
+    row = dict(metrics=feats, results_file=os.path.basename(path), dataset=args.dataset,
+               unconstrained=args.unconstrained, diffusion_steps=args.diffusion_steps,
+               classifier_calls=len(classifier_ms),
+               classifier_ms_per_batch=float(np.mean(classifier_ms)), **counts)
+    print(f"  {key}: wall {counts['wall_s']:.2f} s; {counts['sampling_calls']} sampling calls "
+          f"({sum(counts['sampling_rows'])} rows, {counts['sampling_steps']} steps) "
+          f"{counts['sampling_s']:.2f} s, {counts['ms_per_denoiser_step']:.3f} ms a denoiser "
+          f"step; classifier {row['classifier_ms_per_batch']:.2f} ms a batch over "
+          f"{len(classifier_ms)} batches [{card}]")
+    report[key] = row
+    return feats, counts
+
+
+def check_a2m_classifiers(report, card, paths, device="cuda"):
+    """The GRU classifier (cuDNN's GRU on the card) on decoded HumanAct12
+    ground-truth batches, and the openpose ST-GCN on the modi-struct
+    motions, on the card against CPU copies of the same weights: features
+    and logits within 1e-4 x max(1, max|cpu|)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.collate import collate
+    from regennet_torch.data.get_data import BatchLoader, get_dataset
+    from regennet_torch.eval import eval_humanact12_uestc, gru_eval
+    from regennet_torch.eval import unconstrained as U
+    from regennet_torch.models.stgcn import make_unconstrained_stgcn
+    from regennet_torch.train import checkpoint
+
+    data = get_dataset("humanact12", A2M["T"], data_path=paths["humanact12"], setting="mdm")
+    gt = gru_eval._build_batches(None, None, BatchLoader(data, A2M["batch"], collate,
+                                                         shuffle=False),
+                                 4 * A2M["batch"], "gt", gru_eval.smpl_rot2xyz(device), device)
+    args = Namespace(seed=0)
+    on_card, on_cpu = (eval_humanact12_uestc.load_gru_evaluator(args, "random", d)
+                       for d in (device, "cpu"))
+    pairs = [(on_card(b["output_xyz"], b["lengths"]), on_cpu(b["output_xyz"], b["lengths"]))
+             for b in gt]
+    motions = np.load(paths["modi_struct"])[:4 * A2M["batch"], :15]
+    models = [checkpoint.load_classifier_state(make_unconstrained_stgcn(),
+                                          paths["unconstrained_stgcn"]).to(d)
+              for d in (device, "cpu")]
+    (f_card, y_card), (f_cpu, y_cpu) = (U.extract_unconstrained_features(m, motions)
+                                        for m in models)
+    pairs.append(({"features": f_card, "yhat": y_card}, {"features": f_cpu, "yhat": y_cpu}))
+    worst = {}
+    for i, (a, b) in enumerate(pairs):
+        name = "unconstrained ST-GCN" if i == len(pairs) - 1 else "GRU classifier"
+        for k in ("features", "yhat"):
+            scale = max(1.0, float(np.abs(b[k]).max()))
+            err = float(np.abs(a[k] - b[k]).max())
+            hold(f"{name} {k} on the card vs the CPU", err, 1e-4 * scale)
+            worst[name] = max(worst.get(name, 0.0), err / scale)
+    print(f"  on the card vs a CPU copy: the GRU classifier over {len(gt)} decoded batches of "
+          f"{A2M['batch']}, the unconstrained ST-GCN over {len(motions)} motions; features and "
+          f"logits within 1e-4 x max(1, max|cpu|) (worst scaled "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + ")")
+    report["a2m_classifiers_card_vs_cpu_worst_scaled"] = worst
+
+
+def run_compute_accuracy(report, card, workdir, device="cuda"):
+    """compute_accuracy.main on a random full-width ST-GCN (Chi3D, SMPL-X,
+    two persons) saved as train_stgcn's model{epoch}.pt, over in-memory
+    Chi3D clips at T 150."""
+    import torch
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.eval import compute_accuracy, tools
+    from regennet_torch.models.stgcn import STGCN, random_init_
+
+    T = FLAGSHIP["T"]
+    path = workdir / "stgcn" / "model000000010.pt"
+    path.parent.mkdir()
+    torch.save(random_init_(STGCN(12, 8, num_person=2, layout="smplx"),
+                            torch.Generator().manual_seed(13)).state_dict(), path)
+    clips = synthetic.make_clip_pair("chi3d", num_clips=128, min_len=T + 10, max_len=2 * T)
+    datasets = {split: Feeder(clips=clips[split], dataname="chi3d", split=split,
+                              num_frames=T, num_person=2) for split in ("train", "test")}
+    args = compute_accuracy.parse_args(["--checkpoint", str(path), "--data_path", "",
+                                        "--num_frames", str(T)])
+    t0 = time.perf_counter()
+    acc = compute_accuracy.main(args, device=device, datasets=datasets)
+    wall_s = time.perf_counter() - t0
+    saved = tools.load_metrics(str(path.parent / "recognition_accuracies_on_samedata_10.yaml"))
+    if set(acc) != {"train", "test"} or not all(0.0 <= v <= 1.0 for v in acc.values()) \
+            or set(saved) != set(acc):
+        raise AssertionError(f"compute_accuracy: {acc}, saved {saved}")
+    print(f"  compute_accuracy: {acc} over {len(datasets['train'])} + {len(datasets['test'])} "
+          f"clips, wall {wall_s:.2f} s [{card}]")
+    report["a2m_compute_accuracy"] = dict(accuracies=acc, wall_s=wall_s)
+
+
+def run_a2m(report, card, workdir, device="cuda"):
+    """Phase 10, the single-person a2m path at the a2m CMDM's width (the
+    offline trunk, 8 layers, latent 512, 4 heads, SMPL 25x6, T 60):
+    train_mdm on HumanAct12 (A2M["steps"] f32 steps at batch 64, the
+    legacy in-training evaluation after each save with a random GRU
+    classifier); eval_humanact12_uestc (debug) on its checkpoint; an
+    --unconstrained CMDM (a 50-step schedule) through the unconstrained
+    protocol (1000 samples, a random openpose ST-GCN saved as the port's
+    .pt, a synthetic modi-struct array); UESTC (A2M["uestc_steps"] steps,
+    then eval_humanact12_uestc); compute_accuracy; the classifiers on the
+    card against CPU copies. B1's and B2's launches are read around each
+    run. Returns {"b1": launches, "b2": {forward, backward}}."""
+    from regennet_torch.eval import eval_humanact12_uestc, gru_eval
+
+    t_phase = time.perf_counter()
+    paths, data_s = write_a2m_assets(workdir)
+    layers, steps = FLAGSHIP["layers"], A2M["steps"]
+    print(f"  synthetic assets: {A2M['clips']} HumanAct12 clips, {A2M['uestc_videos']} UESTC "
+          f"videos, a [{A2M['modi_struct']}, 24, 3, {A2M['T']}] modi-struct array, written "
+          f"in {data_s:.2f} s")
+    b1, b2 = 0, {"forward": 0, "backward": 0}
+
+    def add_b2(counts):
+        for w in b2:
+            b2[w] += counts[w]
+
+    # HumanAct12: training with the legacy in-training evaluation
+    evals = []
+    evaluate = eval_humanact12_uestc.evaluate
+
+    def recorded(*a, **kw):
+        evals.append(evaluate(*a, **kw)["feats"])
+        return {"feats": evals[-1]}
+
+    save_dir = workdir / "humanact12"
+    args = a2m_train_args(save_dir, "humanact12", paths["humanact12"], steps, (
+        "--eval_during_training", "--rec_model_path", "random", "--eval_rep_times", "1",
+        "--eval_batch_size", str(A2M["eval_batch"]), "--eval_num_samples",
+        str(A2M["eval_samples"])))
+    eval_humanact12_uestc.evaluate = recorded
+    try:
+        (loop, _, train_b2), counts = counted_run(
+            lambda: run_training(report, card, save_dir, device, args, key="a2m_training"),
+            device)
+    finally:
+        eval_humanact12_uestc.evaluate = evaluate
+    del loop
+    hold_b1_launches("the in-training evaluations", counts, layers, device)
+    if len(evals) != 2 or not all(set(e) == A2M_GRU_METRICS and len(v) == 1
+                                  for e in evals for v in e.values()):
+        raise AssertionError(f"in-training evaluations: {evals}")
+    b1 += counts["b1"]
+    add_b2(train_b2)
+    row = report["a2m_training"]
+    row.update(evaluations=evals, eval_sampling=counts)
+    print(f"  in-training evaluations: {len(evals)}, {counts['sampling_calls']} sampling calls "
+          f"of {A2M['eval_batch']}, {counts['ms_per_denoiser_step']:.3f} ms a denoiser step; "
+          f"accuracy_gen {[e['accuracy_gen'][0] for e in evals]} [{card}]")
+    _, counts = run_a2m_eval(report, card, save_dir / f"model{steps:09d}.pt",
+                             "a2m_eval_humanact12", device=device)
+    b1 += counts["b1"]
+
+    # the unconstrained protocol, on a CMDM trained without action conditioning
+    save_dir = workdir / "unconstrained"
+    args = a2m_train_args(save_dir, "humanact12", paths["humanact12"], A2M["uncon_steps"], (
+        "--unconstrained", "--diffusion_steps", str(A2M["uncon_diffusion_steps"])))
+    loop, _, train_b2 = run_training(report, card, save_dir, device, args,
+                                     key="a2m_unconstrained_training")
+    del loop
+    add_b2(train_b2)
+    built = []
+    build = gru_eval._build_batches
+
+    def recorded_build(sample_fn, generator, loader, num_samples, mode, *rest):
+        batches = build(sample_fn, generator, loader, num_samples, mode, *rest)
+        built.append((num_samples, sum(len(b["output"]) for b in batches)))
+        return batches
+
+    gru_eval._build_batches = recorded_build
+    try:
+        feats, counts = run_a2m_eval(
+            report, card, save_dir / f"model{A2M['uncon_steps']:09d}.pt",
+            "a2m_eval_unconstrained", ("--unconstrained_rec_path", paths["unconstrained_stgcn"],
+                                       "--unconstrained_data_path", paths["modi_struct"]),
+            device)
+    finally:
+        gru_eval._build_batches = build
+    # the protocol scores its 1000 samples, or every whole batch of a
+    # smaller dataset
+    scored = [n for asked, n in built if asked == gru_eval.NUM_SAMPLES_UNCONSTRAINED]
+    want = min(gru_eval.NUM_SAMPLES_UNCONSTRAINED, A2M["clips"] // A2M["batch"] * A2M["batch"])
+    if scored != [want]:
+        raise AssertionError(f"the unconstrained protocol scored {scored} motions, not {want}")
+    print(f"  unconstrained protocol: {want} motions sampled and scored; fid_unconstrained "
+          f"{feats['fid_unconstrained']}, kid_unconstrained {feats['kid_unconstrained']}")
+    b1 += counts["b1"]
+
+    # UESTC
+    save_dir = workdir / "uestc_run"
+    args = a2m_train_args(save_dir, "uestc", paths["uestc"], A2M["uestc_steps"])
+    loop, _, train_b2 = run_training(report, card, save_dir, device, args,
+                                     key="a2m_uestc_training")
+    del loop
+    add_b2(train_b2)
+    _, counts = run_a2m_eval(report, card, save_dir / f"model{A2M['uestc_steps']:09d}.pt",
+                             "a2m_eval_uestc", device=device)
+    b1 += counts["b1"]
+
+    run_compute_accuracy(report, card, workdir, device)
+    check_a2m_classifiers(report, card, paths, device)
+    wall_s = time.perf_counter() - t_phase
+    print(f"  phase 10: {wall_s:.1f} s; B1 launches {b1}, B2 {b2} [{card}]")
+    report["a2m"] = dict(wall_s=wall_s, data_s=data_s, launches={"b1": b1, "b2": b2},
+                         training_ms_per_step=report["a2m_training"]["ms_per_step"])
+    return {"b1": b1, "b2": b2}
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -1672,6 +2151,8 @@ def main() -> int:
     train_worst, train_timing = check_train_kernels(report, card)
     print("phase 2c: fused_causal_attention on its path, against its plain version")
     causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
+    print("phase 2d: B1 and B2 timed at the a2m CMDM's shape (phase 10's path)")
+    a2m_b1_timing, a2m_b2_timing = time_a2m_kernels(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
@@ -1698,15 +2179,18 @@ def main() -> int:
         bf16_train, bf16_b1 = run_bf16_training(report, card, Path(tmp) / "bf16", data)
         bf16_trunks = [run_bf16_trunk(report, card, Path(tmp) / f"bf16_{arch}", data, arch)
                        for arch in ("trans_enc", "gru", "mlp")]
+        print("phase 10: the single-person a2m path (HumanAct12, UESTC) at the a2m width")
+        a2m_worst = check_a2m_kernels(report)
+        a2m = run_a2m(report, card, Path(tmp) / "a2m")
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
                                      "phase 6": eval_launches,
                                      "phase 8": guard["fused_attention_btd"],
-                                     "phase 9": bf16_b1},
+                                     "phase 9": bf16_b1, "phase 10": a2m["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
-                                           "phase 9": bf16_b2},
+                                           "phase 9": bf16_b2, "phase 10": a2m["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -1717,12 +2201,17 @@ def main() -> int:
         "source": "regennet_torch/csrc/attention_fwd.cu",
         "replaces": "regennet_tpu/ops/pallas_attention.py:222",
         "launches": launches,
-        "max_abs_err": max(worst, guard_worst["forward"]),
+        "max_abs_err": err,
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for name, launches, timing in (
-        ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship),
+    } for name, launches, timing, err in (
+        ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
+         max(worst, guard_worst["forward"], a2m_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
-        ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape))]
+        ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
+         max(worst, guard_worst["forward"])),
+        # the a2m evaluations' shape, non-causal at 61 tokens: phase 10's launches
+        ("fused_attention_btd (f32 [64, 61, 512], non-causal, phase 10)", b1["phase 10"],
+         a2m_b1_timing, a2m_worst["forward"]))]
     for dtype, which, line, source in (
             ("float32", "forward", 382, "attention_fwd.cu"),
             ("float32", "backward", 415, "attention_btd_train.cu"),
@@ -1735,7 +2224,8 @@ def main() -> int:
         if dtype == "float32":
             name = f"fused_attention_btd_train ({which})"
             launched = path_launches(paths, "fused_attention_btd_train", which)
-            err = max(err, guard_worst["train_forward" if which == "forward" else "backward"])
+            err = max(err, guard_worst["train_forward" if which == "forward" else "backward"],
+                      a2m_worst["train_forward" if which == "forward" else "backward"])
         else:
             name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
             launched = paths["fused_attention_btd_train"]["phase 9"][which]
@@ -1751,6 +2241,23 @@ def main() -> int:
             "bound_ms": timing[f"{which}_bound_ms"],
             "bound_by": timing[f"{which}_bound_by"],
             "library_ms": timing[f"library_{which}_ms"],
+        })
+    for which, line, source in (("forward", 382, "attention_fwd.cu"),
+                                ("backward", 415, "attention_btd_train.cu")):
+        # the a2m training shape, non-causal at 61 tokens: phase 10's launches
+        kernel_rows.append({
+            "name": f"fused_attention_btd_train ({which}, f32 [64, 61, 512], non-causal, "
+                    "phase 10)",
+            "route": "cuda",
+            "source": f"regennet_torch/csrc/{source}",
+            "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
+            "launches": paths["fused_attention_btd_train"]["phase 10"][which],
+            "max_abs_err": a2m_worst["train_forward" if which == "forward" else "backward"],
+            "ms": a2m_b2_timing[f"kernel_{which}_ms"],
+            "plain_ms": a2m_b2_timing[f"plain_{which}_ms"],
+            "bound_ms": a2m_b2_timing[f"{which}_bound_ms"],
+            "bound_by": a2m_b2_timing[f"{which}_bound_by"],
+            "library_ms": a2m_b2_timing[f"library_{which}_ms"],
         })
     kernel_rows.append({
         "name": "fused_causal_attention",

@@ -2,8 +2,10 @@
 JAX train state -> the port's training state.
 
 The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for every
-trunk (online / trans_dec, offline / trans_enc, gru, mlp), and of
-::convert_stgcn for the ST-GCN classifier. It takes the param tree as
+trunk (online / trans_dec, offline / trans_enc, gru, mlp), of
+::convert_stgcn for the ST-GCN classifiers (two-person, single-person and
+the unconstrained openpose one), and of ::convert_gru_classifier for the
+a2m GRU classifier. It takes the param tree as
 nested dicts of numpy arrays (no JAX import), so weights of a model
 trained by the JAX package load into regennet_torch.models.cmdm.CMDM with
 `load_state_dict`.
@@ -38,24 +40,25 @@ def _mha(sd, prefix, attn):
     _linear(sd, f"{prefix}.out_proj", attn["out_proj"])
 
 
-def _gru_layer(sd, layer, cell):
-    """Flax GRUCell {ir, iz, in, hr, hz, hn} -> torch GRU layer `layer`
-    (gate order r, z, n). Flax's one r/z bias goes into bias_ih and the r/z
-    slices of bias_hh are zero (the port holds them there in training); the
-    n gate keeps its input bias in bias_ih and its hidden bias in bias_hh."""
+def _gru_layer(sd, prefix, layer, cell):
+    """Flax GRUCell {ir, iz, in, hr, hz, hn} -> layer `layer` of the torch
+    GRU `prefix` (gate order r, z, n). Flax's one r/z bias goes into
+    bias_ih and the r/z slices of bias_hh are zero (the CMDM's trunk holds
+    them there in training); the n gate keeps its input bias in bias_ih
+    and its hidden bias in bias_hh."""
     def kernel(name):
         return np.asarray(cell[name]["kernel"]).T
 
     def bias(name):
         return np.asarray(cell[name]["bias"])
 
-    sd[f"gru.weight_ih_l{layer}"] = np.ascontiguousarray(
+    sd[f"{prefix}.weight_ih_l{layer}"] = np.ascontiguousarray(
         np.concatenate([kernel(n) for n in ("ir", "iz", "in")], axis=0))
-    sd[f"gru.weight_hh_l{layer}"] = np.ascontiguousarray(
+    sd[f"{prefix}.weight_hh_l{layer}"] = np.ascontiguousarray(
         np.concatenate([kernel(n) for n in ("hr", "hz", "hn")], axis=0))
-    sd[f"gru.bias_ih_l{layer}"] = np.concatenate([bias(n) for n in ("ir", "iz", "in")])
+    sd[f"{prefix}.bias_ih_l{layer}"] = np.concatenate([bias(n) for n in ("ir", "iz", "in")])
     hn = bias("hn")
-    sd[f"gru.bias_hh_l{layer}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
+    sd[f"{prefix}.bias_hh_l{layer}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
 
 
 def _mlp_block(sd, prefix, block):
@@ -87,7 +90,7 @@ def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     if "GRUCell_0" in params:
         i = 0
         while f"GRUCell_{i}" in params:
-            _gru_layer(sd, i, params[f"GRUCell_{i}"])
+            _gru_layer(sd, "gru", i, params[f"GRUCell_{i}"])
             i += 1
         return sd
     if "mlp_0" in params:
@@ -153,6 +156,22 @@ def stgcn_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
         sd[f"edge_importance.{j}"] = np.asarray(params[f"edge_importance_{j}"])
         j += 1
     _conv(sd, "fcn", params["fcn"])
+    return sd
+
+
+def gru_classifier_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Flax MotionDiscriminator {"params": {GRUCell_i, linear1, linear2}}
+    (or its params) -> the reference classifier's state dict
+    (`recurrent.*_l{i}`, `linear1`, `linear2`), which
+    regennet_torch.models.gru_classifier.MotionDiscriminator loads."""
+    params = variables.get("params", variables)
+    sd: Dict[str, np.ndarray] = {}
+    i = 0
+    while f"GRUCell_{i}" in params:
+        _gru_layer(sd, "recurrent", i, params[f"GRUCell_{i}"])
+        i += 1
+    _linear(sd, "linear1", params["linear1"])
+    _linear(sd, "linear2", params["linear2"])
     return sd
 
 

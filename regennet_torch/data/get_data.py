@@ -1,5 +1,7 @@
 """Dataset and loader factory (the port's copy of
-regennet_tpu/data/get_data.py for the NTU / Chi3D / GTA feeder).
+regennet_tpu/data/get_data.py): the two-person feeder for NTU, Chi3D and
+GTA, the single-person HumanAct12 and UESTC datasets (data/legacy_a2m.py).
+HumanML and KIT (the text datasets) are not ported.
 
 `BatchLoader` is the epoch iterator training uses: shuffled, drop-last
 minibatches of numpy arrays through a collate. Datasets are small and
@@ -13,16 +15,27 @@ from typing import Callable, Iterator, Tuple
 
 import numpy as np
 
-from regennet_torch.data.collate import ccollate
+from regennet_torch.data.collate import ccollate, collate
 from regennet_torch.data.feeder import Feeder
 
 
+def get_dataset_class(name: str):
+    if name in ("ntu", "chi3d", "gta"):
+        return Feeder
+    if name in ("humanact12", "uestc"):
+        from regennet_torch.data import legacy_a2m
+
+        return legacy_a2m.HumanAct12Poses if name == "humanact12" else legacy_a2m.UESTC
+    if name in ("humanml", "kit"):
+        raise NotImplementedError(f"dataset {name!r} is not ported yet")
+    raise ValueError(f"Unsupported dataset name [{name}]")
+
+
 def get_collate_fn(name: str, setting: str = "cmdm"):
-    if name in ("humanml", "kit") or setting != "cmdm":
-        raise NotImplementedError(
-            f"the collate of dataset {name!r}, setting {setting!r} is not ported"
-        )
-    return ccollate
+    """ccollate (actor and reactor) for the cmdm setting, else collate."""
+    if name in ("humanml", "kit"):
+        raise NotImplementedError(f"the collate of dataset {name!r} is not ported")
+    return ccollate if setting == "cmdm" else collate
 
 
 class BatchLoader:
@@ -69,10 +82,9 @@ def get_dataset(
     shard: int = 0,
     num_shards: int = 1,
     **kwargs,
-) -> Feeder:
-    if name not in ("ntu", "chi3d", "gta"):
-        raise NotImplementedError(f"dataset {name!r} is not ported yet")
-    return Feeder(
+):
+    cls = get_dataset_class(name)
+    return cls(
         datapath=data_path,
         split=split,
         num_frames=num_frames,

@@ -6,8 +6,10 @@ Clips follow the on-disk contract of the NTU120-AS / Chi3D archives:
 the key name. `make_clips` returns them in memory (for Feeder(clips=...));
 `write_dataset` / `make_dataset_pair` write h5 files (h5py imported only
 there). `learnable=True` gives clips whose action is learnable from the
-motion (make_action_clip). Same seed, same clips as the JAX package's
-generator.
+motion (make_action_clip). `write_humanact12_pkl` and `write_uestc_assets`
+write the single-person archives (pickle and text files, no h5py) that
+data/legacy_a2m.py reads. Same seed, same clips and files as the JAX
+package's generator.
 """
 
 from __future__ import annotations
@@ -198,3 +200,65 @@ def make_dataset_pair(root: str, dataname: str = "chi3d", num_clips: int = 16,
     for split, clips in make_clip_pair(dataname, num_clips, **kwargs).items():
         _write_clips(os.path.join(root, f"{dataname}_{split}.h5"), clips)
     return os.path.join(root, f"{dataname}_train.h5")
+
+
+def write_humanact12_pkl(root: str, num_clips: int = 24, min_len: int = 30,
+                         max_len: int = 90, seed: int = 0) -> str:
+    """Synthetic HumanAct12-format pickle: poses [T, 72] axis-angle, 3-D
+    joints [T, 24, 3] and labels, under {root}/humanact12poses.pkl;
+    returns root."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    poses, joints, ys = [], [], []
+    for i in range(num_clips):
+        T = int(rng.integers(min_len, max_len))
+        poses.append((_smooth_noise(rng, (T, 24, 3)) * 0.4).reshape(T, 72))
+        j = _smooth_noise(rng, (T, 24, 3)) * 0.3
+        j[:, 0] += np.cumsum(_smooth_noise(rng, (T, 3)) * 0.02, axis=0)
+        joints.append(j)
+        ys.append(i % 12)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "humanact12poses.pkl"), "wb") as f:
+        pickle.dump({"poses": poses, "joints3D": joints, "y": ys}, f)
+    return root
+
+
+def write_uestc_assets(root: str, num_videos: int = 16, min_len: int = 30,
+                       max_len: int = 80, seed: int = 0) -> str:
+    """Synthetic UESTC asset layout: info/{names,num_frames_min,
+    action_classes}.txt and vibe_cache_refined.pkl with [T, 72] poses,
+    [T, 49, 3] VIBE joints and [T, 4] crop cameras; both camera sides, so
+    the front-view rotation runs. Returns root."""
+    import pickle
+
+    from regennet_torch.data.legacy_a2m import UESTC_TRAIN_SUBJECTS
+
+    rng = np.random.default_rng(seed)
+    test_subjects = [3, 4, 5]
+    names, lengths, poses, joints, cams = [], [], [], [], []
+    for i in range(num_videos):
+        action = i % 40
+        view = i % 8  # views 0-7 (view 8 only exists for side 1)
+        subject = (UESTC_TRAIN_SUBJECTS[i % 8] if i % 3 else
+                   test_subjects[i % 3 - 1])
+        side = 1 if i % 2 else 2
+        names.append(f"a{action}_d{view}_p{subject:03d}_c{side}_color.avi")
+        T = int(rng.integers(min_len, max_len))
+        lengths.append(T)
+        poses.append((_smooth_noise(rng, (T, 24, 3)) * 0.4).reshape(T, 72))
+        joints.append(_smooth_noise(rng, (T, 49, 3)) * 0.3)
+        cams.append(np.concatenate(
+            [rng.uniform(0.5, 2.0, size=(T, 2)), _smooth_noise(rng, (T, 2))],
+            axis=1).astype(np.float32))
+    info = os.path.join(root, "info")
+    os.makedirs(info, exist_ok=True)
+    with open(os.path.join(info, "names.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(info, "num_frames_min.txt"), "w") as f:
+        f.write("\n".join(str(n) for n in lengths) + "\n")
+    with open(os.path.join(info, "action_classes.txt"), "w") as f:
+        f.write("\n".join(f"uestc_class_{i}" for i in range(40)) + "\n")
+    with open(os.path.join(root, "vibe_cache_refined.pkl"), "wb") as f:
+        pickle.dump({"pose": poses, "joints3d": joints, "orig_cam": cams}, f)
+    return root

@@ -64,10 +64,11 @@ def calculate_fid(statistics_1, statistics_2) -> float:
 
 def calculate_diversity_multimodality(
     activations: np.ndarray, labels: np.ndarray, num_labels: int, seed=None,
-    actor_quirks=False,
+    unconstrained: bool = False, actor_quirks=False,
 ) -> Tuple[float, float]:
     """seed=None consumes the ambient numpy stream (the reference's default
-    in both eval harnesses).
+    in both eval harnesses); unconstrained skips the label-quota
+    multimodality loop and returns nan for it (an unconditioned model).
 
     actor_quirks selects the vendored ACTOR evaluators' variants:
     - True or "stgcn" (reference: actor-x/src/evaluate/stgcn/diversity.py:
@@ -84,7 +85,8 @@ def calculate_diversity_multimodality(
     """
     diversity_times = 200
     multimodality_times = 20
-    labels = np.asarray(labels, dtype=np.int64)
+    if not unconstrained:
+        labels = np.asarray(labels, dtype=np.int64)
     num_motions = activations.shape[0]
 
     if seed is not None:
@@ -95,6 +97,8 @@ def calculate_diversity_multimodality(
     diversity = float(
         np.mean(np.linalg.norm(activations[first] - activations[second], axis=1))
     )
+    if unconstrained:
+        return diversity, float("nan")
 
     multimodality = 0.0
     if actor_quirks:

@@ -49,7 +49,7 @@ class STGCNEvaluator:
             size_kw = dict(channels=tuple(channels), strides=tuple(strides))
         model = STGCN(in_channels=nfeats, num_class=num_classes, num_person=num_person,
                       layout=body_model, **size_kw)
-        checkpoint.load_stgcn_state(model, state_dict)
+        checkpoint.load_classifier_state(model, state_dict)
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
 

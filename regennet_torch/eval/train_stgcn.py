@@ -6,7 +6,7 @@ adam's betas 0.9 / 0.999 and eps 1e-8 added to sqrt(nu_hat)), BatchNorm in
 train mode (models/stgcn.py), the held-out accuracy after every epoch and
 a checkpoint every `save_every` epochs and at the last. The checkpoint is
 the classifier's state dict, `model{epoch:09d}.pt`, which
-eval_cmdm.load_stgcn_evaluator and checkpoint.load_stgcn_state read.
+eval_cmdm.load_stgcn_evaluator and checkpoint.load_classifier_state read.
 
 CLI: python -m regennet_torch.eval.train_stgcn --data_path ... --save_dir ...
 """

@@ -3,10 +3,12 @@ regennet_tpu/models/stgcn.py), the frozen evaluator of the CMDM protocol.
 
 Ten st-gcn blocks 64 -> 128 -> 256 (or the `channels` / `strides` given),
 learnable per-block edge importance, the spatial-partition graph of
-models/stgcn_graph.py, a 2-person input reshape and a data BatchNorm over
-the (person, joint, channel) axis; no dropout (the classifier is only
-evaluated). It returns pooled `features` (for
-FID, diversity and multimodality) and `yhat` logits (for accuracy).
+models/stgcn_graph.py, the input split into its persons (one or two) and
+a data BatchNorm over the (person, joint, channel) axis; no dropout (the
+classifier is only evaluated). It returns pooled `features` (for FID,
+diversity and multimodality) and `yhat` logits (for accuracy).
+`make_unconstrained_stgcn` builds the six-block openpose evaluator of the
+unconstrained protocol.
 
 Convolutions run NCHW over [N * M, C, T, V] with plain torch.nn
 functional convolutions (the JAX package runs them outside any kernel of
@@ -130,6 +132,13 @@ class STGCN(nn.Module):
         feat = h.mean(dim=(2, 3)).view(N, M, -1).mean(dim=1)
         yhat = self.fcn(feat[:, :, None, None])[:, :, 0, 0]
         return {"features": feat, "yhat": yhat}
+
+
+def make_unconstrained_stgcn(num_class: int = 12) -> STGCN:
+    """The unconstrained HumanAct12 evaluator: six blocks over 15
+    openpose-layout xyz joints of one person."""
+    return STGCN(in_channels=3, num_class=num_class, num_person=1, layout="openpose",
+                 channels=(64, 64, 64, 128, 128, 256), strides=(1, 1, 1, 2, 1, 2))
 
 
 def random_init_(model: STGCN, generator: torch.Generator) -> STGCN:

@@ -1,9 +1,11 @@
 """Skeleton graph of the ST-GCN action classifier (the port's numpy copy of
-regennet_tpu/models/stgcn_graph.py, the layouts the CMDM evaluation uses).
+regennet_tpu/models/stgcn_graph.py, the layouts the evaluations use).
 
 Layouts: 'smpl' (24 joints and a root-translation node) and 'smplx' (55
-and 1), from the body-model kinematic trees; the 'spatial' partition
-strategy (root / closer / further), the one the classifier uses.
+and 1), from the body-model kinematic trees; 'openpose' (15 joints, no
+translation node, centre joint 1), the skeleton of the unconstrained
+HumanAct12 evaluator. The 'spatial' partition strategy (root / closer /
+further), the one the classifier uses.
 """
 
 from __future__ import annotations
@@ -22,16 +24,21 @@ class Graph:
         self.get_adjacency()
 
     def get_edge(self, layout):
-        if layout == "smpl":
-            joints, parents = 24, SMPL_PARENTS
-        elif layout == "smplx":
-            joints, parents = 55, SMPLX_PARENTS
+        if layout in ("smpl", "smplx"):
+            joints, parents = (24, SMPL_PARENTS) if layout == "smpl" else (55, SMPLX_PARENTS)
+            self.num_node = joints + 1
+            neighbor_link = [(j, int(parents[j])) for j in range(1, joints)]
+            neighbor_link.append((0, joints))  # root rotation <-> translation node
+            self.center = 0
+        elif layout == "openpose":
+            # joint order of eval/unconstrained.SMPL_TO_OPENPOSE15
+            self.num_node = 15
+            neighbor_link = [(4, 3), (3, 2), (2, 1), (7, 6), (6, 5), (5, 1), (1, 0),
+                             (14, 13), (13, 12), (12, 8), (11, 10), (10, 9), (9, 8),
+                             (8, 1)]
+            self.center = 1
         else:
             raise NotImplementedError(f"layout {layout!r} is not ported")
-        self.num_node = joints + 1
-        neighbor_link = [(j, int(parents[j])) for j in range(1, joints)]
-        neighbor_link.append((0, joints))  # root rotation <-> translation node
-        self.center = 0
         self.edge = [(i, i) for i in range(self.num_node)] + neighbor_link
 
     def get_adjacency(self):

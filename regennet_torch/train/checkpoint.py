@@ -11,10 +11,10 @@ Released reference files carry keys the denoiser does not own (the frozen
 CLIP tower, body-model buffers, the positional tables); they are dropped
 before `load_state_dict(strict=True)`.
 
-`load_stgcn_state` loads the evaluation's ST-GCN classifier from the
-port's `.pt` file, a released recognition `.pth.tar` (its state dict,
-possibly wrapped as {"model": ...} or {"state_dict": ...}), or a state
-dict in that layout.
+`load_classifier_state` loads an evaluation classifier (an ST-GCN, the
+GRU classifier) from the port's `.pt` file, a released `.pth.tar` or
+`.tar` (its state dict, possibly wrapped as {"model": ...} or
+{"state_dict": ...}), or a state dict in that layout.
 """
 
 from __future__ import annotations
@@ -132,10 +132,10 @@ def load_checkpoint(path: str, model: nn.Module,
     return {k: v for k, v in state.items() if k not in ("optimizer", "ema")}
 
 
-def load_stgcn_state(model: nn.Module,
-                     state: Union[str, os.PathLike, Mapping[str, Any]]) -> nn.Module:
-    """Load an ST-GCN classifier's weights into `model` from a file path or
-    a state dict of tensors or numpy arrays in the reference layout. The
+def load_classifier_state(model: nn.Module,
+                          state: Union[str, os.PathLike, Mapping[str, Any]]) -> nn.Module:
+    """Load a classifier's weights into `model` from a file path or a state
+    dict of tensors or numpy arrays in the reference layout. An ST-GCN's
     adjacency buffer "A" (rebuilt from the layout) and BatchNorm's
     num_batches_tracked may be present or absent; every other key must
     match."""
@@ -149,6 +149,6 @@ def load_stgcn_state(model: nn.Module,
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
-        raise ValueError(f"ST-GCN state does not match the model: missing "
+        raise ValueError(f"classifier state does not match the model: missing "
                          f"{missing[:10]}, unexpected {unexpected[:10]}")
     return model

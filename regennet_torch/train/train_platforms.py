@@ -1,6 +1,8 @@
 """Scalar-reporting backends of the training loop (the port's copy of
-regennet_tpu/train/train_platforms.py): `NoPlatform` only; the other
-platform names are known but not ported."""
+regennet_tpu/train/train_platforms.py): `NoPlatform`, and
+`TensorboardPlatform`, which writes event files into the run's directory
+(torch.utils.tensorboard, imported when the platform is built).
+ClearmlPlatform is known but not ported: `clearml` is not a dependency."""
 
 
 class TrainPlatform:
@@ -21,7 +23,20 @@ class NoPlatform(TrainPlatform):
     pass
 
 
-PLATFORM_REGISTRY = {"NoPlatform": NoPlatform}
+class TensorboardPlatform(TrainPlatform):
+    def __init__(self, save_dir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(log_dir=save_dir)
+
+    def report_scalar(self, name, value, iteration, group_name=None):
+        self.writer.add_scalar(f"{group_name}/{name}", value, iteration)
+
+    def close(self):
+        self.writer.close()
+
+
+PLATFORM_REGISTRY = {"NoPlatform": NoPlatform, "TensorboardPlatform": TensorboardPlatform}
 KNOWN_PLATFORMS = ("NoPlatform", "ClearmlPlatform", "TensorboardPlatform")
 
 

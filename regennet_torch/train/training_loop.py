@@ -19,8 +19,8 @@ the loss terms and the joint decode are too.
 `--steps_per_call K` keeps the JAX loop's step boundaries: K single steps
 run back to back, their host batches drawn first; saves, logs and the
 DIFFUSION_TRAINING_TEST exit fall at the same steps, and `--nan_guard`
-rolls back whole K-step blocks. `--eval_during_training` runs the a2m
-debug evaluation after every save; `--profile_steps` writes a
+rolls back whole K-step blocks. `--eval_during_training` runs the debug
+evaluation of the dataset after every save; `--profile_steps` writes a
 torch.profiler Chrome trace of a window of steps.
 """
 
@@ -451,12 +451,15 @@ class TrainLoop:
 
     def evaluate(self):
         """In-training evaluation after a save, with --eval_during_training
-        (regennet_tpu TrainLoop.evaluate): the eval_cmdm protocol in debug
-        mode (min(eval_num_samples, 100) samples, one seed, accuracy only)
-        at eval_batch_size, sampling from the current parameters (not the
-        EMA) at the run's compute dtype, against the ST-GCN of
-        --rec_model_path or REGENNET_REC_MODEL_PATH ('random' builds it
-        from --seed). Each metric goes to the train platform under "Eval"."""
+        (regennet_tpu TrainLoop.evaluate), at eval_batch_size on
+        min(eval_num_samples, 100) samples, sampling from the current
+        parameters (not the EMA) at the run's compute dtype, against the
+        classifier of --rec_model_path or REGENNET_REC_MODEL_PATH ('random'
+        builds it from --seed): for humanact12 and uestc
+        eval_humanact12_uestc.evaluate in debug mode with eval_rep_times
+        seeds, else the eval_cmdm protocol in debug mode (one seed,
+        accuracy only). Each metric of the first seed goes to the train
+        platform under "Eval"."""
         if not getattr(self.args, "eval_during_training", False):
             return
         if self.args.dataset in ("humanml", "kit"):
@@ -468,14 +471,9 @@ class TrainLoop:
         if not rec:
             logger.log("eval_during_training set but no rec_model_path; skipping")
             return
-        if self.args.dataset in ("humanact12", "uestc"):
-            raise NotImplementedError(
-                "in-training evaluation of humanact12/uestc needs "
-                "data/legacy_a2m.py and eval/eval_humanact12_uestc.py, which are "
-                "not ported")
         from argparse import Namespace
 
-        from regennet_torch.eval import eval_cmdm, stgcn_eval
+        from regennet_torch.eval import eval_cmdm, eval_humanact12_uestc, stgcn_eval
         from regennet_torch.models.cmdm import make_model_fn
 
         start = time.time()
@@ -487,10 +485,16 @@ class TrainLoop:
         dataset = getattr(self.data, "dataset", self.data)
         eval_args.num_actions = getattr(dataset, "num_actions", 1)
         model = copy.deepcopy(self.model).to(self.dtype).eval()
-        evaluator = eval_cmdm.load_stgcn_evaluator(eval_args, rec, self.device)
-        eval_dict = stgcn_eval.evaluate(
-            eval_args, lambda: make_model_fn(model), self.sched, self.cfg, dataset,
-            evaluator, setting=self.args.setting, acc_only=True)
+        if self.args.dataset in ("humanact12", "uestc"):
+            eval_args.num_seeds = self.args.eval_rep_times
+            eval_dict = eval_humanact12_uestc.evaluate(
+                eval_args, lambda: make_model_fn(model), self.sched, self.cfg, dataset,
+                rec)
+        else:
+            evaluator = eval_cmdm.load_stgcn_evaluator(eval_args, rec, self.device)
+            eval_dict = stgcn_eval.evaluate(
+                eval_args, lambda: make_model_fn(model), self.sched, self.cfg, dataset,
+                evaluator, setting=self.args.setting, acc_only=True)
         for k, v in eval_dict["feats"].items():
             self.train_platform.report_scalar(
                 name=k, value=float(v[0]), iteration=self.state_step, group_name="Eval")

@@ -2,8 +2,8 @@
 regennet_tpu/utils/kvlogger.py).
 
 The surface the training loop uses (logkv / logkv_mean / dumpkvs / log)
-with human-readable stdout, CSV and JSON-lines writers; the
-TensorBoard writer is not ported. State is a module-level current logger.
+with human-readable stdout, CSV, JSON-lines and TensorBoard writers
+(the last under {log_dir}/tb). State is a module-level current logger.
 """
 
 from __future__ import annotations
@@ -84,6 +84,27 @@ class JSONOutputFormat(KVWriter):
             f.write(json.dumps(out) + "\n")
 
 
+class TensorBoardOutputFormat(KVWriter):
+    """Scalar events per dump into {log_dir} (torch.utils.tensorboard's
+    SummaryWriter, imported here), at the dump's "step" key, else one past
+    the last."""
+
+    def __init__(self, log_dir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(log_dir=log_dir)
+        self.step = 0
+
+    def writekvs(self, kvs):
+        self.step = int(kvs.get("step", self.step + 1))
+        for k, v in kvs.items():
+            try:
+                self.writer.add_scalar(k, float(v), self.step)
+            except (TypeError, ValueError):
+                continue
+        self.writer.flush()
+
+
 class Logger:
     def __init__(self, log_dir: Optional[str] = None, formats=("human", "csv")):
         self.name2val = defaultdict(float)
@@ -103,9 +124,9 @@ class Logger:
                 self.writers.append(
                     JSONOutputFormat(os.path.join(log_dir, "progress.json"))
                 )
-            elif fmt == "tensorboard":
-                raise NotImplementedError(
-                    "the tensorboard log format is not ported"
+            elif fmt == "tensorboard" and log_dir:
+                self.writers.append(
+                    TensorBoardOutputFormat(os.path.join(log_dir, "tb"))
                 )
 
     def logkv(self, key, val):
@@ -130,7 +151,7 @@ _CURRENT: Optional[Logger] = None
 
 def configure(log_dir: Optional[str] = None, formats=None):
     """formats default: human,csv; REGENNET_LOG_FORMAT overrides them (a
-    comma list of human/csv/json)."""
+    comma list of human/csv/json/tensorboard)."""
     global _CURRENT
     if formats is None:
         formats = tuple(

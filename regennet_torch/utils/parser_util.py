@@ -1,4 +1,4 @@
-"""CLI arguments of the trainer, the sampler and the evaluation, with the
+"""CLI arguments of the trainer, the sampler and the evaluations, with the
 args.json round-trip (the port's copy of the `train_args`,
 `cgenerate_args` and `evaluation_parser` parts of
 regennet_tpu/utils/parser_util.py).
@@ -162,7 +162,8 @@ def add_training_options(parser):
     group.add_argument("--train_platform_type", default="NoPlatform",
                        choices=["NoPlatform", "ClearmlPlatform",
                                 "TensorboardPlatform"], type=str,
-                       help="Only NoPlatform is ported.")
+                       help="TensorboardPlatform writes event files into "
+                            "--save_dir; ClearmlPlatform is not ported.")
     group.add_argument("--lr", default=1e-4, type=float)
     group.add_argument("--weight_decay", default=0.0, type=float)
     group.add_argument("--lr_anneal_steps", default=0, type=int)
@@ -171,8 +172,9 @@ def add_training_options(parser):
     group.add_argument("--eval_batch_size", default=32, type=int)
     group.add_argument("--eval_split", default="test", choices=["val", "test"])
     group.add_argument("--eval_during_training", action="store_true",
-                       help="Evaluate (eval_cmdm debug mode, a2m datasets) "
-                            "after every save, against --rec_model_path.")
+                       help="Evaluate after every save, against "
+                            "--rec_model_path: eval_cmdm's debug protocol, or "
+                            "for humanact12/uestc eval_humanact12_uestc's.")
     group.add_argument("--rec_model_path", default="", type=str)
     group.add_argument("--nan_guard", action="store_true",
                        help="Drop non-finite training steps (loss or grad "
@@ -239,15 +241,25 @@ def add_evaluation_options(parser):
     group.add_argument("--model_path", required=True, type=str,
                        help="The CMDM's .pt file, with args.json beside it.")
     group.add_argument("--rec_model_path", required=True, type=str,
-                       help="The ST-GCN recognition classifier: the port's "
-                            ".pt or a released .pth.tar; 'random' builds it "
-                            "from --seed.")
+                       help="The recognition classifier (the ST-GCN; the GRU "
+                            "classifier for humanact12): the port's .pt or a "
+                            "released file; 'random' builds it from --seed.")
     group.add_argument("--eval_mode", default="debug", choices=["debug", "full"],
-                       type=str, help="debug: 100 samples, 1 seed, accuracy "
-                                      "only; full: 1000 samples, 20 seeds.")
+                       type=str, help="eval_cmdm: debug 100 samples, 1 seed, "
+                                      "accuracy only; full 1000 samples, 20 "
+                                      "seeds. eval_humanact12_uestc: debug 10 "
+                                      "samples, 2 seeds.")
     group.add_argument("--guidance_param", default=2.5, type=float)
     group.add_argument("--auto_regressive", action="store_true",
                        help="Re-sample once per revealed actor frame.")
+    group.add_argument("--unconstrained_rec_path", default="", type=str,
+                       help="The openpose ST-GCN of the unconstrained HumanAct12 "
+                            "protocol (a released .pth.tar or the port's .pt); "
+                            "with --unconstrained_data_path an --unconstrained "
+                            "model is scored by it.")
+    group.add_argument("--unconstrained_data_path", default="", type=str,
+                       help="The dataset motions of the unconstrained protocol "
+                            "(humanact12_modi_struct.npy, [N, >=15, 3, T]).")
     group.add_argument("--eval_seed_batch", default=0, type=int,
                        help="Stack this many evaluation seeds into one "
                             "sampling batch (0: 128 // batch size; 1: none).")

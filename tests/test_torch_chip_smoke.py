@@ -277,6 +277,44 @@ def test_bf16_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
         assert report[f"{arch}_bfloat16_forward_check"]["max_abs_err"] > 0
 
 
+def test_a2m_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 10 at a cut size: train_mdm on HumanAct12 from --data_path
+    with the legacy in-training evaluation, eval_humanact12_uestc on its
+    checkpoint, an --unconstrained CMDM through the unconstrained protocol,
+    UESTC training and evaluation, compute_accuracy, the classifiers'
+    CPU-vs-CPU comparison (the CPU runs launch nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, T=12, steps=10).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)  # T: compute_accuracy's Chi3D clips
+    monkeypatch.setitem(cs.TRAIN, "steps_per_call", 2)
+    for key, value in dict(batch=4, steps=4, eval_batch=4, eval_samples=2,
+                           uestc_steps=2, uncon_steps=2, uncon_diffusion_steps=5, clips=24,
+                           uestc_videos=24, modi_struct=20).items():
+        monkeypatch.setitem(cs.A2M, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    report = {}
+    launches = cs.run_a2m(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"b1": 0, "b2": {"forward": 0, "backward": 0}}
+    training = report["a2m_training"]
+    assert (training["arch"], training["steps"], training["batch"]) == ("trans_enc", 4, 4)
+    assert len(training["evaluations"]) == 2 and training["eval_sampling"]["sampling_calls"] == 2
+    # debug mode, 10 samples at batch 4: 3 batches a seed (the third crosses
+    # 10); the unconstrained protocol then samples the 24 clips' 6 batches;
+    # UESTC stacks both seeds' batches (train 3, test the split's 8 clips)
+    for key, rows, steps in (("a2m_eval_humanact12", [4] * 6, 10),
+                             ("a2m_eval_unconstrained", [4] * 12, 5),
+                             ("a2m_eval_uestc", [8] * 5, 10)):
+        row = report[key]
+        assert row["sampling_rows"] == rows, key
+        assert row["sampling_steps"] == len(rows) * steps, key
+        assert row["classifier_calls"] > 0 and row["ms_per_denoiser_step"] > 0
+    assert set(report["a2m_compute_accuracy"]["accuracies"]) == {"train", "test"}
+    assert report["a2m_classifiers_card_vs_cpu_worst_scaled"] == {
+        "GRU classifier": 0.0, "unconstrained ST-GCN": 0.0}
+
+
 def _guard_results(**acc_fid):
     """A learning-guard artefact that passes every threshold, with
     (accuracy, FID) of a row replaced by acc_fid[row]."""
@@ -353,18 +391,19 @@ def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_p
 
 def test_path_launches_add_up(monkeypatch):
     """The kernel line's launches: each kernel summed over its paths, B2
-    by direction, phase 8 included."""
+    by direction, phases 8 and 10 included."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
 
     paths = {"fused_attention_btd": {"phase 3": 24000, "phase 5": 8000, "phase 6": 64000,
-                                     "phase 8": 400},
+                                     "phase 8": 400, "phase 10": 53200},
              "fused_attention_btd_train": {
                  "phase 4": {"forward": 320, "backward": 320},
                  "phase 5": {"forward": 128, "backward": 128},
-                 "phase 8": {"forward": 1600, "backward": 1600}},
+                 "phase 8": {"forward": 1600, "backward": 1600},
+                 "phase 10": {"forward": 256, "backward": 256}},
              "fused_causal_attention": {"phase 2c": 26}}
-    assert cs.path_launches(paths, "fused_attention_btd") == 96400
-    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2048
-    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2048
+    assert cs.path_launches(paths, "fused_attention_btd") == 149600
+    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2304
+    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2304
     assert cs.path_launches(paths, "fused_causal_attention") == 26

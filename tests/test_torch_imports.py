@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 47  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 53  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -76,6 +76,19 @@ def test_eval_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
                      eval_mode="debug")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_cmdm.main(args)
+    assert not os.listdir(tmp_path)  # no results file
+
+
+@pytest.mark.parametrize("entry", ["eval_humanact12_uestc", "compute_accuracy"])
+def test_a2m_eval_entry_points_without_device_need_cuda(monkeypatch, tmp_path, entry):
+    import importlib
+
+    module = importlib.import_module(f"regennet_torch.eval.{entry}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = Namespace(seed=0, device=0, model_path=str(tmp_path / "model000000001.pt"),
+                     checkpoint=str(tmp_path / "model000000001.pt"), eval_mode="debug")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(args)
     assert not os.listdir(tmp_path)  # no results file
 
 

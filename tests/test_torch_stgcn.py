@@ -58,7 +58,7 @@ def _variables(jm, x, seed):
 
 def _port(variables, **kw):
     model = STGCN(in_channels=12, num_class=8, num_person=2, layout="smplx", **kw)
-    checkpoint.load_stgcn_state(model, stgcn_state_dict_from_flax(variables))
+    checkpoint.load_classifier_state(model, stgcn_state_dict_from_flax(variables))
     return model.eval()
 
 
@@ -105,12 +105,12 @@ def test_released_style_file_loads(tmp_path):
     sd["A"] = src.A.clone()
     path = tmp_path / "checkpoint_0100.pth.tar"
     torch.save({"model": sd}, path)
-    dst = checkpoint.load_stgcn_state(STGCN(12, 8, layout="smplx", **REDUCED), str(path))
+    dst = checkpoint.load_classifier_state(STGCN(12, 8, layout="smplx", **REDUCED), str(path))
     for k, v in src.state_dict().items():
         torch.testing.assert_close(dst.state_dict()[k], v, rtol=0, atol=0)
     del sd["fcn.bias"]
     with pytest.raises(ValueError, match="does not match"):
-        checkpoint.load_stgcn_state(STGCN(12, 8, layout="smplx", **REDUCED), sd)
+        checkpoint.load_classifier_state(STGCN(12, 8, layout="smplx", **REDUCED), sd)
 
 
 def test_random_init_is_seeded():

@@ -5,8 +5,12 @@ the JAX package's TrainLoop.
 * Evaluation runs after every save, in eval_cmdm's debug protocol, and
   reports the debug metrics under "Eval"; its protocol (batch, sample
   count, seeds, mode, classifier path, reported names and steps) is the
-  JAX loop's, both loops run with their evaluation entry stubbed. Without
-  a classifier it logs and skips; humanml/kit and humanact12/uestc raise.
+  JAX loop's, both loops run with their evaluation entry stubbed. For
+  HumanAct12 and UESTC it runs eval_humanact12_uestc's route with
+  eval_rep_times seeds, as the JAX loop does. Without a classifier it
+  logs and skips; humanml/kit raise.
+* TensorBoard: the platform and the log format write event files, and
+  train_mdm on HumanAct12 logs its loss and evaluations there.
 * The profiler window opens and closes at the steps where the JAX loop's
   does (its run_loop driven with the device steps and jax.profiler
   stubbed) and leaves a Chrome trace under <save_dir>/profile.
@@ -172,13 +176,169 @@ def test_eval_takes_the_classifier_from_the_environment(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("dataset,missing", [
-    ("humanml", "eval_humanml"), ("kit", "eval_humanml"),
-    ("humanact12", "legacy_a2m"), ("uestc", "legacy_a2m")])
+    ("humanml", "eval_humanml"), ("kit", "eval_humanml")])
 def test_eval_of_unported_datasets_raises(tmp_path, dataset, missing):
     loop = _loop(tmp_path, eval_during_training=True, rec_model_path="random")
     loop.args.dataset = dataset
     with pytest.raises(NotImplementedError, match=missing):
         loop.evaluate()
+
+
+@pytest.fixture(scope="module")
+def a2m_roots(tmp_path_factory):
+    from regennet_torch.data import synthetic
+
+    return {"humanact12": synthetic.write_humanact12_pkl(
+                str(tmp_path_factory.mktemp("ha12")), num_clips=24),
+            "uestc": synthetic.write_uestc_assets(
+                str(tmp_path_factory.mktemp("uestc")), num_videos=24)}
+
+
+def _a2m_loop(tmp_path, roots, dataset, **over):
+    from regennet_torch.data.get_data import get_dataset_loader
+
+    over = dict(dataset=dataset, num_person=1, body_model="smpl", setting="mdm",
+                arch="trans_enc", data_path=roots[dataset], **over)
+    data = get_dataset_loader(dataset, 4, 16, data_path=roots[dataset], setting="mdm")
+    return _loop(tmp_path, data=data, **over)
+
+
+# what the a2m evaluation of each dataset reports in debug mode (the names
+# of the JAX package's legacy evaluate; tests/test_torch_gru_eval.py holds
+# the two key sets equal)
+LEGACY_METRICS = {
+    "humanact12": {f"{m}_{k}" for m in ("accuracy", "diversity", "multimodality", "fid")
+                   for k in ("gen", "gt", "gt2")},
+    "uestc": DEBUG_METRICS,
+}
+
+
+@pytest.mark.parametrize("dataset", ["humanact12", "uestc"])
+def test_eval_of_a2m_datasets_runs_the_legacy_route(monkeypatch, tmp_path, a2m_roots,
+                                                    dataset):
+    """TrainLoop.evaluate on HumanAct12 (the GRU classifier) and UESTC
+    (the single-person ST-GCN), random classifiers: eval_humanact12_uestc
+    runs with eval_rep_times seeds, every metric of its first seed is
+    reported under "Eval"."""
+    from regennet_torch.eval import eval_humanact12_uestc
+
+    loop = _a2m_loop(tmp_path, a2m_roots, dataset, eval_during_training=True,
+                     rec_model_path="random", eval_batch_size=4, eval_num_samples=8,
+                     diffusion_steps=10, eval_rep_times=2)
+    results = []
+    evaluate = eval_humanact12_uestc.evaluate
+    monkeypatch.setattr(eval_humanact12_uestc, "evaluate",
+                        lambda *a, **kw: results.append(evaluate(*a, **kw)) or results[-1])
+    loop.step, loop.resume_step = 2, 3
+    loop.evaluate()
+    feats = results[0]["feats"]
+    assert set(feats) == LEGACY_METRICS[dataset]
+    assert all(len(v) == 2 for v in feats.values())
+    assert sorted(loop.train_platform.scalars) == sorted(
+        (k, float(v[0]), 5, "Eval") for k, v in feats.items())
+
+
+def _jax_legacy_call(monkeypatch, args, data):
+    """What the JAX loop's evaluate hands eval_humanact12_uestc.evaluate."""
+    from regennet_tpu.eval import eval_humanact12_uestc as jlegacy
+
+    calls = {}
+
+    def evaluate(eval_args, make_fn, sched, cfg, dataset, rec):
+        calls.update(args=eval_args, dataset=dataset, rec=rec)
+        return {"feats": {"accuracy_gen": ["0.5", "0.25"]}}
+
+    monkeypatch.setattr(jlegacy, "evaluate", evaluate)
+    loop = object.__new__(jtl.TrainLoop)
+    loop.args, loop.data, loop.train_platform = args, data, Recorder()
+    loop.state, loop.model, loop.sched, loop.cfg = {"params": {}}, None, None, None
+    loop.step, loop.resume_step = 3, 4
+    loop.evaluate()
+    return calls, loop.train_platform.scalars
+
+
+@pytest.mark.parametrize("dataset", ["humanact12", "uestc"])
+def test_legacy_eval_protocol_is_the_jax_loops(monkeypatch, tmp_path, a2m_roots, dataset):
+    from regennet_torch.eval import eval_humanact12_uestc
+
+    loop = _a2m_loop(tmp_path, a2m_roots, dataset, eval_during_training=True,
+                     rec_model_path="/ckpt/classifier.tar", eval_num_samples=1000,
+                     eval_batch_size=16, eval_rep_times=5)
+    calls = {}
+
+    def evaluate(eval_args, make_fn, sched, cfg, dataset, rec):
+        calls.update(args=eval_args, dataset=dataset, rec=rec)
+        return {"feats": {"accuracy_gen": ["0.5", "0.25"]}}
+
+    monkeypatch.setattr(eval_humanact12_uestc, "evaluate", evaluate)
+    loop.step, loop.resume_step = 3, 4
+    loop.evaluate()
+    jcalls, jscalars = _jax_legacy_call(monkeypatch, loop.args, loop.data)
+    for key in ("batch_size", "num_samples", "num_seeds", "eval_mode", "num_actions"):
+        assert getattr(calls["args"], key) == getattr(jcalls["args"], key), key
+    assert (calls["args"].batch_size, calls["args"].num_samples,
+            calls["args"].num_seeds) == (16, 100, 5)
+    assert calls["rec"] == jcalls["rec"] == "/ckpt/classifier.tar"
+    assert calls["dataset"] is jcalls["dataset"] is loop.data.dataset
+    assert loop.train_platform.scalars == jscalars == [("accuracy_gen", 0.5, 7, "Eval")]
+
+
+def _event_scalars(log_dir):
+    """{tag: [(step, value)]} of the event files under log_dir."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(log_dir))
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}
+
+
+def test_tensorboard_platform_and_log_format_write_events(tmp_path):
+    pytest.importorskip("torch.utils.tensorboard")
+    from regennet_torch.train.train_platforms import TensorboardPlatform, get_platform
+    from regennet_torch.utils import kvlogger
+
+    assert get_platform("TensorboardPlatform") is TensorboardPlatform
+    platform = TensorboardPlatform(str(tmp_path / "platform"))
+    platform.report_scalar("loss", 0.5, 3, group_name="Loss")
+    platform.report_scalar("accuracy_gen", 0.25, 4, group_name="Eval")
+    platform.close()
+    assert _event_scalars(tmp_path / "platform") == {"Loss/loss": [(3, 0.5)],
+                                                     "Eval/accuracy_gen": [(4, 0.25)]}
+    log = kvlogger.Logger(str(tmp_path / "log"), formats=("tensorboard",))
+    for step, loss in ((0, 2.0), (5, 1.5)):
+        log.logkv("step", step)
+        log.logkv_mean("loss", loss)
+        log.dumpkvs()
+    assert _event_scalars(tmp_path / "log" / "tb") == {
+        "loss": [(0, 2.0), (5, 1.5)], "step": [(0, 0.0), (5, 5.0)]}
+
+
+def test_train_mdm_on_humanact12_with_tensorboard(monkeypatch, tmp_path, a2m_roots):
+    """train_mdm.main as a user runs it on HumanAct12 (--setting mdm
+    --num_person 1 --body_model smpl, the dataset from --data_path), with
+    the in-training evaluation and TensorBoard: the loss and the legacy
+    route's metrics land in the run's event file."""
+    pytest.importorskip("torch.utils.tensorboard")
+    from regennet_torch.train import train_mdm
+    from regennet_torch.utils import parser_util
+
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")
+    args = parser_util.train_args([
+        "--save_dir", str(tmp_path / "run"), "--dataset", "humanact12", "--data_path",
+        a2m_roots["humanact12"], "--setting", "mdm", "--num_person", "1", "--body_model",
+        "smpl", "--num_frames", "16", "--batch_size", "4", "--num_steps", "4",
+        "--steps_per_call", "2", "--save_interval", "4", "--log_interval", "2",
+        "--layers", "2", "--latent_dim", "32", "--diffusion_steps", "10",
+        "--eval_during_training", "--rec_model_path", "random", "--eval_rep_times", "1",
+        "--eval_batch_size", "4", "--eval_num_samples", "8",
+        "--train_platform_type", "TensorboardPlatform"])
+    loop = train_mdm.main(args, device="cpu")
+    assert loop.state_step == 4 and loop.model.cmo_process is not None
+    scalars = _event_scalars(tmp_path / "run")
+    assert [s for s, _ in scalars["Loss/loss"]] == [0, 2]
+    assert {f"Eval/{k}" for k in LEGACY_METRICS["humanact12"]} <= set(scalars)
+    assert [s for s, _ in scalars["Eval/accuracy_gen"]] == [2, 4]  # after each save
 
 
 def _jax_profile_window(num_batches, num_steps, steps_per_call, start, n, monkeypatch):
