@@ -23,9 +23,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      shapes (those of the JAX package's tests, and B 2 and 128, T 16, 150,
      151, causal or not, f32 and bf16), each call against its plain
      version, and timed at bf16 [128, 4, 150, 128];
-  2d. B1 and B2 at phase 10's f32 [64, 61, 512], non-causal, timed by
-     device time under torch.profiler beside their plain versions, SDPA and
-     the bounds;
+  2d. B1 and B2 at the model paths' own f32 shapes, non-causal: phase
+     10's [64, 61, 512] and phase 11's [64, 197, 512] (the three-pass
+     forward, the long-row backward), timed by device time under
+     torch.profiler beside their plain versions, SDPA and the bounds;
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
@@ -83,14 +84,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the port's .pt, a synthetic modi-struct array); UESTC (8 steps, then
      its evaluation route); compute_accuracy on a random full-width ST-GCN
      over in-memory Chi3D clips; the GRU classifier and the openpose ST-GCN
-     on the card against CPU copies.
+     on the card against CPU copies;
+  11. the text-to-motion path at the CLIs' default width (--dataset
+     humanml, the offline trunk, 8 layers, latent 512, 263 features, the
+     196-frame window: 197 tokens, non-causal): B1 (B 20 and 64) and B2
+     (B 64) there against their plain versions; a seeded CLIP ViT-B/32 text
+     tower saved as an OpenAI-layout .pt with a tiny merge table
+     (REGENNET_CLIP_PATH and REGENNET_CLIP_BPE for the phase), its encoder
+     on the card against a CPU copy; synthetic HumanML3D written by the
+     port's writer, Mean/Std from the data; train_mdm --dataset humanml for
+     16 f32 steps at batch 64; a step through the kernels against the plain
+     attention; sample.generate on the checkpoint (10 samples of one
+     prompt, CFG 2.5, DDPM 1000) and its results.npy; no caption or prompt
+     falls back to the hashed text embeddings.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8, 9 and 10 for B1; 4, 5, 8, 9 and 10 for B2; 2c for B3) and summed
-in the kernel line;
+5, 6, 8, 9, 10 and 11 for B1; 4, 5, 8, 9, 10 and 11 for B2; 2c for B3) and
+summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
-launches, and a third at the a2m evaluations' [64, 61, 512], with phase
-10's; B2 has bf16 rows at [64, 150, 512], with phase 9's launches, and
-f32 rows at [64, 61, 512], with phase 10's.
+launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
+and a fourth at [64, 197, 512], with phase 11's; B2 has bf16 rows at [64,
+150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with phase
+10's, and f32 rows at [64, 197, 512], with phase 11's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -99,6 +113,7 @@ Exits non-zero without CUDA, or without the regennet_torch package beside it.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -1444,10 +1459,11 @@ def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed):
         for name, a, b, c in zip(("dq", "dk", "dv"), ours[1:], plain[1:], vjp):
             case[f"{name}_err"] = hold_gradient(f"{what}: {name}", a, b, c, dtype)[0]
             err_vjp = max_abs_err(a, c)
-            hold(f"{what}: {name} against the plain backward", err_vjp,
-                 TOLERANCE_VJP[dtype] * max(1.0, float(c.float().abs().max())))
+            tol_vjp = TOLERANCE_VJP[dtype] * max(1.0, float(c.float().abs().max()))
+            hold(f"{what}: {name} against the plain backward", err_vjp, tol_vjp)
             worst["backward"] = max(worst["backward"], err_vjp)
             case[f"{name}_vjp_err"] = err_vjp
+            case[f"{name}_vjp_share"] = err_vjp / tol_vjp  # of its tolerance
         cases.append(case)
     return worst, cases
 
@@ -1696,21 +1712,18 @@ def check_a2m_kernels(report):
     return worst
 
 
-def time_a2m_kernels(report, card):
-    """Phase 2d: B1 and B2 at phase 10's f32 [64, 61, 512], non-causal, by
-    device time under torch.profiler, beside their plain versions, SDPA
-    and the bounds (B2 as phase 2b times it). At 61 tokens a launch takes
-    about as long as the host needs to issue it, so the CUDA-event time of
-    back-to-back calls (B1's *_wall_ms) reads the host. Timed here, beside
-    phase 2b's profiles: in one full run a profile of B1 taken in phase 10
-    recorded no kernel, which a run of phase 10 alone did not repeat.
-    Returns (B1's timing, B2's timing)."""
+def time_btd_kernels(card, T):
+    """B1 and B2 at f32 [64, T, 512], non-causal, by device time under
+    torch.profiler, beside their plain versions, SDPA and the bounds (B2
+    as phase 2b times it). At 61 tokens a launch takes about as long as the
+    host needs to issue it, so the CUDA-event time of back-to-back calls
+    (B1's *_wall_ms) reads the host. Returns (B1's timing, B2's timing)."""
     import torch
     import torch.nn.functional as F
 
     from regennet_torch.ops import attention
 
-    D, H, T, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], A2M["T"] + 1, TRAIN["batch"]
+    D, H, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], TRAIN["batch"]
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).split(D, dim=-1)
     q4, k4, v4 = (x.view(B, T, H, D // H).transpose(1, 2) for x in (q, k, v))
@@ -1728,10 +1741,23 @@ def time_a2m_kernels(report, card):
                       for name, label in (("", ""), ("plain_", "plain "),
                                           ("library_", "sdpa ")))
           + f", bound {b1_timing['bound_ms']:.4f} ms ({b1_timing['bound_by']}) [{card}]")
-    b2_timing = time_train_kernels(card, "float32", T=T, causal=False)
-    report["a2m_attention_timing"] = {"fused_attention_btd": b1_timing,
-                                      "fused_attention_btd_train": b2_timing}
-    return b1_timing, b2_timing
+    return b1_timing, time_train_kernels(card, "float32", T=T, causal=False)
+
+
+def time_model_kernels(report, card):
+    """Phase 2d: B1 and B2 timed at the model paths' own non-causal shapes,
+    f32 [64, T, 512]: phase 10's a2m CMDM (61 tokens) and phase 11's text
+    CMDM (197 tokens: the three-pass forward and the long-row backward).
+    Timed here, beside phase 2b's profiles, not in phases 10 and 11: in one
+    full run a profile of B1 taken in phase 10 recorded no kernel, which a
+    run of phase 10 alone did not repeat. Returns {"a2m": (B1's timing,
+    B2's timing), "t2m": (...)}."""
+    timings = {}
+    for key, T in (("a2m", A2M["T"] + 1), ("t2m", T2M["T"] + 1)):
+        b1_timing, b2_timing = timings[key] = time_btd_kernels(card, T)
+        report[f"{key}_attention_timing"] = {"fused_attention_btd": b1_timing,
+                                             "fused_attention_btd_train": b2_timing}
+    return timings
 
 
 def counted_run(fn, device="cuda"):
@@ -2105,6 +2131,203 @@ def run_a2m(report, card, workdir, device="cuda"):
     return {"b1": b1, "b2": b2}
 
 
+# phase 11: the text-to-motion CMDM of the CLIs' defaults (the offline trunk,
+# 8 layers, latent 512, HumanML3D's 263 features at its 196-frame window: 197
+# tokens), trained on synthetic HumanML, sampled with CFG from a prompt
+T2M = dict(T=196, batch=64, steps=16, clips=1024, samples=10, guidance=2.5,
+           prompt="a person walks forward and turns left")
+# the CLIP ViT-B/32 text tower (random weights from a seed)
+CLIP_TOWER = dict(vocab_size=49408, context_length=77, dim=512, heads=8, num_layers=12,
+                  proj_dim=512)
+# a tiny BPE merge table: the public one is not in the repository
+BPE_MERGES = [("a", "</w>"), ("p", "e"), ("r", "s"), ("pe", "rs"), ("o", "n</w>"),
+              ("pers", "on</w>"), ("w", "a"), ("l", "k"), ("wa", "lk"), ("s", "</w>"),
+              ("walk", "s</w>"), ("t", "u"), ("r", "n"), ("tu", "rn"), ("turn", "s</w>")]
+
+
+def write_t2m_assets(workdir):
+    """Synthetic HumanML3D (the port's writer: T2M["clips"] clips of 40-199
+    frames, every one in the train split), its Mean.npy and Std.npy from the
+    data, the CLIP text tower saved as an OpenAI-layout ViT-B-32.pt and a
+    tiny merge table. Returns (paths, seconds)."""
+    import gzip
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.humanml.dataset import write_synthetic_humanml
+    from regennet_torch.models.clip_text_tower import ClipTextTower
+
+    t0 = time.perf_counter()
+    root = write_synthetic_humanml(str(workdir / "HumanML3D"), num_clips=T2M["clips"],
+                                   seed=0, min_len=40, max_len=T2M["T"] + 4)
+    clips = [np.load(path) for path in sorted((workdir / "HumanML3D" / "new_joint_vecs")
+                                              .glob("*.npy"))]
+    frames = np.concatenate(clips).astype(np.float64)
+    np.save(os.path.join(root, "Mean.npy"), frames.mean(0).astype(np.float32))
+    np.save(os.path.join(root, "Std.npy"), frames.std(0).astype(np.float32))
+    tower = ClipTextTower(**CLIP_TOWER)
+    tower.reset_parameters(torch.Generator().manual_seed(13))
+    paths = {"humanml": root, "clip": str(workdir / "ViT-B-32.pt"),
+             "bpe": str(workdir / "bpe_simple_vocab_16e6.txt.gz")}
+    torch.save(tower.state_dict(), paths["clip"])
+    with gzip.open(paths["bpe"], "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in BPE_MERGES))
+    return paths, time.perf_counter() - t0
+
+
+def check_clip_tower(report, card, prompts, device="cuda"):
+    """The CLIP text encoder of REGENNET_CLIP_PATH on the card against a
+    CPU copy, f32, within 1e-5 x max(1, max|cpu|)."""
+    import torch
+
+    from regennet_torch.models import clip_text
+
+    encoder = clip_text.ClipTextEncoder(device=device)
+    t0 = time.perf_counter()
+    ours = encoder(prompts)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    ref = clip_text.ClipTextEncoder(device="cpu")(prompts)
+    err, tol = max_abs_err(torch.tensor(ours), torch.tensor(ref)), 1e-5 * max(
+        1.0, float(abs(ref).max()))
+    hold(f"the CLIP text tower on {device} against its CPU copy", err, tol)
+    print(f"  CLIP text tower ({CLIP_TOWER['num_layers']} layers, width {CLIP_TOWER['dim']}, "
+          f"vocab {CLIP_TOWER['vocab_size']}) on {device}: {len(prompts)} prompts in "
+          f"{encode_ms:.1f} ms (the first call), max_abs_err {err:.3g} against a CPU copy "
+          f"(tolerance {tol:.3g}) [{card}]")
+    report["t2m_clip_tower"] = dict(prompts=len(prompts), encode_ms=encode_ms,
+                                    max_abs_err=err, tolerance=tol, shape=list(ours.shape))
+
+
+def check_t2m_kernels(report):
+    """Phase 11: B1 (non-causal, f32 and bf16, B 2 x T2M["samples"]: the
+    generate request's CFG batch, and B 64) and B2 (f32 and bf16, [64, 197,
+    512], rate 0.1, forward and backward) at the text CMDM's 197 tokens
+    against their plain versions, at phases 2 and 2b's tolerances. Returns
+    the worst errors."""
+    D, H, T, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], T2M["T"] + 1, T2M["batch"]
+    dtypes = ("float32", "bfloat16")
+    worst, report["t2m_kernel_cases"] = hold_kernels_at(
+        [(b, T, dtype) for b in (2 * T2M["samples"], B) for dtype in dtypes],
+        [(B, T, dtype) for dtype in dtypes], False, D, H, seed=12)
+    print(f"  B1 at [{2 * T2M['samples']} and {B}, {T}, {D}] and B2 at [{B}, {T}, {D}] "
+          f"(non-causal, f32 and bf16, B2 at rate {TRAIN['rate']}) match their plain versions "
+          f"(worst max_abs_err B1 {worst['forward']:.3g}, B2 forward "
+          f"{worst['train_forward']:.3g}, backward {worst['backward']:.3g} against the plain "
+          "backward; tolerances of phases 2 and 2b)")
+    shares = {f"{c['dtype']} {name}": c[f"{name}_vjp_share"]
+              for c in report["t2m_kernel_cases"] if "dq_vjp_share" in c
+              for name in ("dq", "dk", "dv")}
+    print("  B2's backward against the plain backward at 197 tokens, share of the tolerance: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    return worst
+
+
+def t2m_train_args(save_dir, data_path):
+    """train_mdm's arguments for the text CMDM, as a user passes them: the
+    CLI's defaults (--dataset humanml, --arch trans_enc, --setting mdm,
+    batch 64, DDPM 1000) at the flagship width, T2M["steps"] f32 steps."""
+    from regennet_torch.utils import parser_util
+
+    return parser_util.train_args([
+        "--save_dir", str(save_dir), "--dataset", "humanml", "--data_path", str(data_path),
+        "--batch_size", str(T2M["batch"]), "--num_steps", str(T2M["steps"]),
+        "--steps_per_call", str(TRAIN["steps_per_call"]), "--save_interval",
+        str(T2M["steps"]), "--log_interval", str(TRAIN["steps_per_call"]), "--seed", "0",
+        "--layers", str(FLAGSHIP["layers"]), "--latent_dim", str(FLAGSHIP["latent_dim"]),
+        "--diffusion_steps", str(FLAGSHIP["steps"])])
+
+
+def run_t2m(report, card, workdir, device="cuda"):
+    """Phase 11, the text-to-motion path at the CLIs' default width: the
+    CLIP tower on the card against a CPU copy (REGENNET_CLIP_PATH and
+    REGENNET_CLIP_BPE name a seeded ViT-B/32 text tower and a tiny merge
+    table for the phase); train_mdm --dataset humanml on synthetic HumanML
+    (T2M["steps"] f32 steps at batch 64: B2 at 197 tokens) with its B2
+    launches; a step through the kernels against the plain attention; then
+    sample.generate on the checkpoint (--num_samples 10, CFG 2.5, DDPM
+    1000: B1 at [20, 197, 512]) with its B1 launches, and its results.npy.
+    No caption or prompt takes the hashed stand-in for CLIP. Returns
+    {"b1": launches, "b2": {forward, backward}}."""
+    import numpy as np
+
+    from regennet_torch.models import clip_text
+    from regennet_torch.sample import generate
+    from regennet_torch.utils import parser_util
+
+    t_phase = time.perf_counter()
+    paths, data_s = write_t2m_assets(workdir)
+    print(f"  synthetic HumanML3D: {T2M['clips']} clips of 40-{T2M['T'] + 3} frames with "
+          f"Mean/Std from the data, a seeded CLIP text tower and a merge table, written in "
+          f"{data_s:.2f} s")
+    layers = FLAGSHIP["layers"]
+    hashed = clip_text.hashed_text_embeddings
+    fallbacks = []
+
+    def counted_hashed(texts, *a, **kw):
+        fallbacks.append(len(texts))
+        return hashed(texts, *a, **kw)
+
+    env = {k: os.environ.get(k) for k in ("REGENNET_CLIP_PATH", "REGENNET_CLIP_BPE")}
+    os.environ.update(REGENNET_CLIP_PATH=paths["clip"], REGENNET_CLIP_BPE=paths["bpe"])
+    clip_text.hashed_text_embeddings = counted_hashed
+    try:
+        check_clip_tower(report, card, [T2M["prompt"], "a person walks forward",
+                                        "a person turns"], device)
+        save_dir = workdir / "humanml_run"
+        args = t2m_train_args(save_dir, paths["humanml"])
+        loop, loader, b2 = run_training(report, card, save_dir, device, args,
+                                        key="t2m_training")
+        check_train_step(report, loop, loader, key="t2m_train_step_check")
+        del loop, loader
+
+        steps = T2M["steps"]
+        out_dir = workdir / "generate"
+        gen_args = parser_util.generate_args([
+            "--model_path", str(save_dir / f"model{steps:09d}.pt"),
+            "--data_path", paths["humanml"], "--text_prompt", T2M["prompt"],
+            "--num_samples", str(T2M["samples"]), "--guidance_param", str(T2M["guidance"]),
+            "--output_dir", str(out_dir)])
+        _, counts = counted_run(lambda: generate.main(gen_args, device=device), device)
+    finally:
+        clip_text.hashed_text_embeddings = hashed
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    hold_b1_launches("the generate request", counts, layers, device)
+    if counts["sampling_rows"] != [T2M["samples"]]:
+        raise AssertionError(f"generate sampled {counts['sampling_rows']} rows")
+    if fallbacks:
+        raise AssertionError(f"the hashed text embeddings stood in for CLIP: {fallbacks}")
+    results = np.load(out_dir / "results.npy", allow_pickle=True).item()
+    frames = min(int(gen_args.motion_length * 20), T2M["T"])  # HumanML3D: 20 fps
+    shapes = {k: np.shape(results[k]) for k in ("motion", "feature", "lengths")}
+    want = {"motion": (T2M["samples"], frames, 22, 3), "feature": (T2M["samples"], frames, 263),
+            "lengths": (T2M["samples"],)}
+    if set(results) != {"motion", "feature", "text", "lengths", "num_samples"} or \
+            shapes != want or results["text"] != [T2M["prompt"]] * T2M["samples"] or \
+            not np.isfinite(results["motion"]).all():
+        raise AssertionError(f"results.npy: keys {sorted(results)}, shapes {shapes}")
+    wall_s = time.perf_counter() - t_phase
+    print(f"  generate: {T2M['samples']} motions of {frames} frames from one prompt, CFG "
+          f"{T2M['guidance']} (one forward at batch {2 * T2M['samples']}), "
+          f"{counts['sampling_steps']} steps in {counts['sampling_s']:.2f} s "
+          f"({counts['ms_per_denoiser_step']:.3f} ms a denoiser step), the request "
+          f"{counts['wall_s']:.2f} s; motion [{', '.join(map(str, want['motion']))}] finite "
+          f"[{card}]")
+    print(f"  phase 11: {wall_s:.1f} s; B1 launches {counts['b1']}, B2 {b2}; no hashed text "
+          f"embeddings [{card}]")
+    report["t2m"] = dict(wall_s=wall_s, data_s=data_s, generate=counts,
+                         launches={"b1": counts["b1"], "b2": b2},
+                         training_ms_per_step=report["t2m_training"]["ms_per_step"],
+                         motion_shape=list(want["motion"]))
+    return {"b1": counts["b1"], "b2": b2}
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -2151,8 +2374,8 @@ def main() -> int:
     train_worst, train_timing = check_train_kernels(report, card)
     print("phase 2c: fused_causal_attention on its path, against its plain version")
     causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
-    print("phase 2d: B1 and B2 timed at the a2m CMDM's shape (phase 10's path)")
-    a2m_b1_timing, a2m_b2_timing = time_a2m_kernels(report, card)
+    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11)")
+    timings = time_model_kernels(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
@@ -2182,15 +2405,21 @@ def main() -> int:
         print("phase 10: the single-person a2m path (HumanAct12, UESTC) at the a2m width")
         a2m_worst = check_a2m_kernels(report)
         a2m = run_a2m(report, card, Path(tmp) / "a2m")
+        print("phase 11: the text-to-motion path (HumanML3D, CLIP, generate) at the CLIs' "
+              "default width")
+        t2m_worst = check_t2m_kernels(report)
+        t2m = run_t2m(report, card, Path(tmp) / "t2m")
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
                                      "phase 6": eval_launches,
                                      "phase 8": guard["fused_attention_btd"],
-                                     "phase 9": bf16_b1, "phase 10": a2m["b1"]},
+                                     "phase 9": bf16_b1, "phase 10": a2m["b1"],
+                                     "phase 11": t2m["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
-                                           "phase 9": bf16_b2, "phase 10": a2m["b2"]},
+                                           "phase 9": bf16_b2, "phase 10": a2m["b2"],
+                                           "phase 11": t2m["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -2205,13 +2434,16 @@ def main() -> int:
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, launches, timing, err in (
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
-         max(worst, guard_worst["forward"], a2m_worst["forward"])),
+         max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
          max(worst, guard_worst["forward"])),
         # the a2m evaluations' shape, non-causal at 61 tokens: phase 10's launches
         ("fused_attention_btd (f32 [64, 61, 512], non-causal, phase 10)", b1["phase 10"],
-         a2m_b1_timing, a2m_worst["forward"]))]
+         timings["a2m"][0], a2m_worst["forward"]),
+        # the text CMDM's 197 tokens (the three-pass route): phase 11's launches
+        ("fused_attention_btd (f32 [64, 197, 512], non-causal, phase 11)", b1["phase 11"],
+         timings["t2m"][0], t2m_worst["forward"]))]
     for dtype, which, line, source in (
             ("float32", "forward", 382, "attention_fwd.cu"),
             ("float32", "backward", 415, "attention_btd_train.cu"),
@@ -2224,8 +2456,8 @@ def main() -> int:
         if dtype == "float32":
             name = f"fused_attention_btd_train ({which})"
             launched = path_launches(paths, "fused_attention_btd_train", which)
-            err = max(err, guard_worst["train_forward" if which == "forward" else "backward"],
-                      a2m_worst["train_forward" if which == "forward" else "backward"])
+            err = max(err, *(w["train_forward" if which == "forward" else "backward"]
+                             for w in (guard_worst, a2m_worst, t2m_worst)))
         else:
             name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
             launched = paths["fused_attention_btd_train"]["phase 9"][which]
@@ -2242,22 +2474,26 @@ def main() -> int:
             "bound_by": timing[f"{which}_bound_by"],
             "library_ms": timing[f"library_{which}_ms"],
         })
-    for which, line, source in (("forward", 382, "attention_fwd.cu"),
-                                ("backward", 415, "attention_btd_train.cu")):
-        # the a2m training shape, non-causal at 61 tokens: phase 10's launches
+    for (which, line, source), (key, tokens, phase, path_worst) in itertools.product(
+            (("forward", 382, "attention_fwd.cu"), ("backward", 415, "attention_btd_train.cu")),
+            (("a2m", A2M["T"] + 1, "phase 10", a2m_worst),
+             ("t2m", T2M["T"] + 1, "phase 11", t2m_worst))):
+        # the model paths' own training shapes, non-causal: the a2m CMDM's 61
+        # tokens (phase 10's launches) and the text CMDM's 197 (phase 11's)
+        b2_timing = timings[key][1]
         kernel_rows.append({
-            "name": f"fused_attention_btd_train ({which}, f32 [64, 61, 512], non-causal, "
-                    "phase 10)",
+            "name": f"fused_attention_btd_train ({which}, f32 [64, {tokens}, 512], non-causal, "
+                    f"{phase})",
             "route": "cuda",
             "source": f"regennet_torch/csrc/{source}",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
-            "launches": paths["fused_attention_btd_train"]["phase 10"][which],
-            "max_abs_err": a2m_worst["train_forward" if which == "forward" else "backward"],
-            "ms": a2m_b2_timing[f"kernel_{which}_ms"],
-            "plain_ms": a2m_b2_timing[f"plain_{which}_ms"],
-            "bound_ms": a2m_b2_timing[f"{which}_bound_ms"],
-            "bound_by": a2m_b2_timing[f"{which}_bound_by"],
-            "library_ms": a2m_b2_timing[f"library_{which}_ms"],
+            "launches": paths["fused_attention_btd_train"][phase][which],
+            "max_abs_err": path_worst["train_forward" if which == "forward" else "backward"],
+            "ms": b2_timing[f"kernel_{which}_ms"],
+            "plain_ms": b2_timing[f"plain_{which}_ms"],
+            "bound_ms": b2_timing[f"{which}_bound_ms"],
+            "bound_by": b2_timing[f"{which}_bound_by"],
+            "library_ms": b2_timing[f"library_{which}_ms"],
         })
     kernel_rows.append({
         "name": "fused_causal_attention",

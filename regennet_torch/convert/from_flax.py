@@ -4,11 +4,12 @@ JAX train state -> the port's training state.
 The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for every
 trunk (online / trans_dec, offline / trans_enc, gru, mlp), of
 ::convert_stgcn for the ST-GCN classifiers (two-person, single-person and
-the unconstrained openpose one), and of ::convert_gru_classifier for the
-a2m GRU classifier. It takes the param tree as
-nested dicts of numpy arrays (no JAX import), so weights of a model
-trained by the JAX package load into regennet_torch.models.cmdm.CMDM with
-`load_state_dict`.
+the unconstrained openpose one), of ::convert_gru_classifier for the
+a2m GRU classifier, and of ::convert_clip_text for the CLIP text tower
+(into the OpenAI ViT-B-32.pt names that models/clip_text_tower.py
+loads). It takes the param tree as nested dicts of numpy arrays (no JAX
+import), so weights of a model trained by the JAX package load into
+regennet_torch.models.cmdm.CMDM with `load_state_dict`.
 """
 
 from __future__ import annotations
@@ -86,6 +87,8 @@ def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     _linear(sd, "embed_timestep.time_embed.2", params["embed_timestep"]["fc2"])
     if "action_embedding" in params:
         sd["embed_action.action_embedding"] = np.asarray(params["action_embedding"])
+    if "embed_text" in params:
+        _linear(sd, "embed_text", params["embed_text"])
     _linear(sd, "output_process.poseFinal", params["output_process"])
     if "GRUCell_0" in params:
         i = 0
@@ -172,6 +175,31 @@ def gru_classifier_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndar
         i += 1
     _linear(sd, "linear1", params["linear1"])
     _linear(sd, "linear2", params["linear2"])
+    return sd
+
+
+def clip_text_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Flax ClipTextTransformer params {token_embedding, positional_embedding,
+    block_i: {ln_1, q/k/v/out_proj, ln_2, fc1, fc2}, ln_final,
+    text_projection} (or {"params": ...}) -> the OpenAI ViT-B-32.pt text
+    tower state dict (`transformer.resblocks.{i}.attn.in_proj_*`,
+    `mlp.c_fc`, `mlp.c_proj`, `text_projection` as the [D, P] matrix)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, np.ndarray] = {
+        "token_embedding.weight": np.asarray(params["token_embedding"]),
+        "positional_embedding": np.asarray(params["positional_embedding"]),
+        "text_projection": np.asarray(params["text_projection"]),
+    }
+    i = 0
+    while f"block_{i}" in params:
+        block, p = params[f"block_{i}"], f"transformer.resblocks.{i}"
+        _mha(sd, f"{p}.attn", block)
+        _layernorm(sd, f"{p}.ln_1", block["ln_1"])
+        _layernorm(sd, f"{p}.ln_2", block["ln_2"])
+        _linear(sd, f"{p}.mlp.c_fc", block["fc1"])
+        _linear(sd, f"{p}.mlp.c_proj", block["fc2"])
+        i += 1
+    _layernorm(sd, "ln_final", params["ln_final"])
     return sd
 
 

@@ -1,7 +1,8 @@
 """Dataset and loader factory (the port's copy of
 regennet_tpu/data/get_data.py): the two-person feeder for NTU, Chi3D and
-GTA, the single-person HumanAct12 and UESTC datasets (data/legacy_a2m.py).
-HumanML and KIT (the text datasets) are not ported.
+GTA, the single-person HumanAct12 and UESTC datasets (data/legacy_a2m.py),
+and the HumanML3D and KIT text-to-motion datasets (data/humanml/dataset.py,
+with their t2m_collate).
 
 `BatchLoader` is the epoch iterator training uses: shuffled, drop-last
 minibatches of numpy arrays through a collate. Datasets are small and
@@ -27,14 +28,19 @@ def get_dataset_class(name: str):
 
         return legacy_a2m.HumanAct12Poses if name == "humanact12" else legacy_a2m.UESTC
     if name in ("humanml", "kit"):
-        raise NotImplementedError(f"dataset {name!r} is not ported yet")
+        from regennet_torch.data.humanml.dataset import Text2MotionDataset
+
+        return Text2MotionDataset
     raise ValueError(f"Unsupported dataset name [{name}]")
 
 
 def get_collate_fn(name: str, setting: str = "cmdm"):
-    """ccollate (actor and reactor) for the cmdm setting, else collate."""
+    """t2m_collate for humanml and kit; else ccollate (actor and reactor)
+    for the cmdm setting, collate for the others."""
     if name in ("humanml", "kit"):
-        raise NotImplementedError(f"the collate of dataset {name!r} is not ported")
+        from regennet_torch.data.humanml.dataset import t2m_collate
+
+        return t2m_collate
     return ccollate if setting == "cmdm" else collate
 
 

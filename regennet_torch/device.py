@@ -14,14 +14,15 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None, index: int = 0) -> torch.device:
-    """`device` as given ("cpu", "cuda:1", a torch.device), else cuda:{index}.
+def resolve_device(device: DeviceLike = None, index: Union[int, str] = 0) -> torch.device:
+    """`device` as given ("cpu", "cuda:1", a torch.device), else cuda:{index},
+    or the CPU when index is "cpu" (the CLIs' `--device cpu`).
 
     Raises RuntimeError when the result is a CUDA device and CUDA is not
     available."""
-    dev = torch.device(device) if device is not None else torch.device(
-        "cuda", int(index)
-    )
+    if device is None:
+        device = "cpu" if index == "cpu" else torch.device("cuda", int(index))
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but CUDA is not available; pass "

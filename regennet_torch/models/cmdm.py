@@ -18,6 +18,9 @@ keys are stripped (train/checkpoint.py).
 The model computes in the dtype of its parameters: `.to(torch.bfloat16)`
 gives the bf16 sampler, and the trainer runs it on bf16 copies of its
 float32 parameters (`torch.func.functional_call`).
+cond_mode "text" (HumanML3D, KIT) adds `embed_text`, a Linear from the
+CLIP embedding cond['text_emb'] [B, 512] to the latent, to the timestep
+embedding, through the same condition masking as the action embedding.
 `forward(..., train=True, generator=g)` is the training forward: condition
 dropout, positional, residual and attention dropout, each drawn from the
 torch.Generator `g`.
@@ -36,6 +39,7 @@ from regennet_torch.models import transformer as tfm
 DECODER_ARCHS = ("online", "trans_dec")
 TRANSFORMER_ARCHS = DECODER_ARCHS + ("offline", "trans_enc")
 PORTED_ARCHS = TRANSFORMER_ARCHS + ("gru", "mlp")
+CLIP_DIM = 512  # the CLIP ViT-B/32 text embedding cond['text_emb']
 
 
 class TimestepEmbedder(nn.Module):
@@ -136,7 +140,8 @@ class CMDM(nn.Module):
     """Conditional (actor -> reactor) motion denoiser.
 
     forward(x [B, J, F, T], t [B], cond) -> x0_hat [B, J, F, T] (float32).
-    cond keys: 'cmotion' [B, J, F, T], 'action' [B, 1] int, 'uncond' bool
+    cond keys: 'cmotion' [B, J, F, T], 'action' [B, 1] int, 'text_emb'
+    [B, CLIP_DIM] (cond_mode text), 'uncond' bool
     scalar or [B] (zero the condition embedding: CFG), and the
     loop-invariant 'cond_emb_seq' / 'fold_in_kernel' from `prepare_cond`.
     """
@@ -156,8 +161,6 @@ class CMDM(nn.Module):
             raise NotImplementedError(f"cm_mode={cm_mode!r}")
         if arch == "gru" and cm_mode != "add":
             raise NotImplementedError(f"the gru trunk takes cm_mode 'add', not {cm_mode!r}")
-        if "text" in cond_mode:
-            raise NotImplementedError("text conditioning is not ported yet")
         self.njoints, self.nfeats = njoints, nfeats
         self.num_frames = num_frames
         self.latent_dim = latent_dim
@@ -175,6 +178,8 @@ class CMDM(nn.Module):
         if cm_mode == "concat" and arch in TRANSFORMER_ARCHS:
             self.fuse_process = nn.Linear(2 * latent_dim, latent_dim)
         self.embed_timestep = TimestepEmbedder(latent_dim)
+        if "text" in cond_mode:
+            self.embed_text = nn.Linear(CLIP_DIM, latent_dim)
         if "action" in cond_mode:
             self.embed_action = EmbedAction(num_actions, latent_dim)
         trunk_args = (num_layers, latent_dim, num_heads, ff_size,
@@ -289,6 +294,9 @@ class CMDM(nn.Module):
         B, J, F, T = x.shape
         dtype = self.dtype
         emb = self.embed_timestep(timesteps)  # [B, D]
+        if "text" in self.cond_mode:
+            text_emb = self.embed_text(cond["text_emb"].to(dtype))
+            emb = emb + self._mask_cond(text_emb, cond.get("uncond"), generator)
         if "action" in self.cond_mode:
             idx = cond["action"][:, 0].long()
             action_emb = self.embed_action.action_embedding[idx]
@@ -380,7 +388,7 @@ def make_cfg_model_fn(model: CMDM, guidance_scale: float):
             cond2["fold_in_kernel"] = cond["fold_in_kernel"]
         # the per-example inputs the network reads
         actor = "cond_emb_seq" if "cond_emb_seq" in cond else "cmotion"
-        for key in ("action", actor):
+        for key in ("action", "text_emb", actor):
             if key in cond:
                 cond2[key] = torch.cat([cond[key], cond[key]])
         out = model(torch.cat([x, x]), torch.cat([t, t]), cond2)

@@ -1,6 +1,6 @@
-"""3-D rotation conversions used by the pose decode and the orient loss
-(counterpart of part of regennet_tpu/ops/rotations.py; PyTorch3D
-conventions, wxyz quaternions).
+"""3-D rotation conversions used by the pose decode, the orient loss and
+the HumanML3D decode (counterpart of part of
+regennet_tpu/ops/rotations.py; PyTorch3D conventions, wxyz quaternions).
 
 Functions act on trailing dims and broadcast over leading batch dims.
 """
@@ -122,3 +122,31 @@ def quaternion_to_axis_angle(quaternions: torch.Tensor) -> torch.Tensor:
 def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> axis-angle vectors (..., 3)."""
     return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions (..., 4), wxyz."""
+    aw, ax, ay, az = torch.unbind(a, -1)
+    bw, bx, by, bz = torch.unbind(b, -1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quaternion_invert(quaternion: torch.Tensor) -> torch.Tensor:
+    """The conjugate (the inverse of a unit quaternion)."""
+    return quaternion * quaternion.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quaternion_apply(quaternion: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate points (..., 3) by quaternions (..., 4): q p q^-1."""
+    point_q = torch.cat([torch.zeros_like(point[..., :1]), point], dim=-1)
+    out = quaternion_multiply(quaternion_multiply(quaternion, point_q),
+                              quaternion_invert(quaternion))
+    return out[..., 1:]

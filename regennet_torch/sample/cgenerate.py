@@ -132,6 +132,8 @@ def main(args=None, device=None, data=None,
             "action": torch.as_tensor(cond_np["y"]["action"], device=device),
             "mask": torch.as_tensor(cond_np["y"]["mask"], device=device),
         }
+        if "text_emb" in cond_np["y"]:  # a text-conditioned model's CLIP embeddings
+            cond["text_emb"] = torch.as_tensor(cond_np["y"]["text_emb"], device=device)
         t0 = time.perf_counter()
         sample = sampler(sched, cfg, model_fn, motion.shape, cond,
                          clip_denoised=False, generator=generator)

@@ -7,7 +7,10 @@ self-attention through the training attention kernels on the GPU), the
 mse loss terms with the joint decode, backward, AdamW with optax's linear
 learning-rate anneal and decoupled weight decay on every parameter, and
 the EMA update. Timesteps are drawn on the host by a schedule sampler
-from its own numpy Generator, as in the JAX loop.
+from its own numpy Generator, as in the JAX loop. Batches without an
+actor (the mdm setting, humanml and kit) carry a zero cmotion; a
+text-conditioned model (humanml, kit) gets each batch's captions as CLIP
+embeddings (`clip_text.encode_text_or_fallback`, on the loop's device).
 
 `--compute_dtype bfloat16` trains as the JAX package's `CMDM(dtype=bf16)`
 does: the parameters, their gradients, the AdamW moments and the EMA stay
@@ -40,6 +43,7 @@ from regennet_torch.diffusion.resample import (
     LossAwareSampler,
     create_named_schedule_sampler,
 )
+from regennet_torch.models.clip_text import encode_text_or_fallback
 from regennet_torch.ops import body_model as bm
 from regennet_torch.ops.pose_decode import make_rot2xyz
 from regennet_torch.train import checkpoint
@@ -265,6 +269,9 @@ class TrainLoop:
         }
         if "action" in y:
             cond_np["action"] = np.asarray(y["action"])
+        if "text" in self.model.cond_mode:
+            cond_np["text_emb"] = encode_text_or_fallback(
+                [str(c) for c in y.get("text", [""] * len(motion))], self.device)
         return {"motion": np.asarray(motion), "t": t, "weights": weights,
                 "cond": cond_np}
 

@@ -15,6 +15,8 @@ import torch
 from regennet_torch.diffusion import DiffusionConfig, Schedule, make_schedule
 from regennet_torch.models.cmdm import CMDM
 
+HML_FRAMES = 196  # the window HumanML3D and KIT clips are padded to
+
 
 def _pick_activation(args) -> str:
     """'gelu' (the tanh form) unless args.activation says otherwise or
@@ -49,11 +51,13 @@ def get_model_args(args, data) -> dict:
 
     # the window the data gives the model (--num_frames): it shapes the mlp
     # trunk's time mixing, as the input's T shapes the JAX package's at
-    # init; the dataset's reference length when it is unset
+    # init; the dataset's reference length when it is unset. humanml and
+    # kit clips are always padded to 196 frames, whatever --num_frames says
     num_frames = getattr(args, "num_frames", 0) or 0
-    if num_frames <= 0:
-        num_frames = {"ntu": 60, "chi3d": 150, "humanml": 196,
-                      "kit": 196}.get(args.dataset, 60)
+    if args.dataset in ("humanml", "kit"):
+        num_frames = HML_FRAMES
+    elif num_frames <= 0:
+        num_frames = {"ntu": 60, "chi3d": 150}.get(args.dataset, 60)
 
     return dict(
         njoints=njoints,

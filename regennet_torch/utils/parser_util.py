@@ -1,7 +1,8 @@
-"""CLI arguments of the trainer, the sampler and the evaluations, with the
+"""CLI arguments of the trainer, the samplers and the evaluations, with the
 args.json round-trip (the port's copy of the `train_args`,
 `cgenerate_args` and `evaluation_parser` parts of
-regennet_tpu/utils/parser_util.py).
+regennet_tpu/utils/parser_util.py, and of the `parse_args` of
+regennet_tpu/sample/generate.py as `generate_args`).
 
 Training writes its arguments to args.json beside the checkpoints; the
 sampler reloads the model and diffusion groups from there, overwriting
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import json
 import os
-from argparse import ArgumentParser
+from argparse import ArgumentParser, BooleanOptionalAction
 
 
 def parse_and_load_from_model(parser, with_data: bool = True, argv=None):
@@ -64,12 +65,18 @@ def get_args_per_group_name(parser, group_name):
     raise ValueError(f"argument group {group_name!r} was not found")
 
 
+def device_arg(value: str):
+    """--device: a CUDA device id, or the word cpu."""
+    return "cpu" if value == "cpu" else int(value)
+
+
 def add_base_options(parser):
     group = parser.add_argument_group("base")
     group.add_argument("--cuda", default=True, type=bool,
                        help="Kept for CLI compatibility; see --device.")
-    group.add_argument("--device", default=0, type=int,
-                       help="CUDA device id (the sampler runs on cuda:<id>).")
+    group.add_argument("--device", default=0, type=device_arg,
+                       help="CUDA device id (the run is on cuda:<id>), or "
+                            "'cpu' to run on the CPU.")
     group.add_argument("--seed", default=10, type=int, help="Random seed.")
     group.add_argument("--batch_size", default=64, type=int,
                        help="Batch size during training.")
@@ -279,3 +286,34 @@ def cgenerate_args(argv=None):
     add_sampling_options(parser)
     add_generate_options(parser)
     return parse_and_load_from_model_wo_data(parser, argv)
+
+
+def generate_args(argv=None):
+    """The text-to-motion generator's options (the JAX generate CLI's), with
+    --device. --render defaults off: rendering is not ported, and asking
+    for it raises."""
+    p = ArgumentParser()
+    p.add_argument("--model_path", required=True, type=str,
+                   help="the CMDM's .pt file, with args.json beside it")
+    p.add_argument("--data_path", required=True, type=str,
+                   help="dataset root (Mean/Std normalisation stats)")
+    p.add_argument("--dataset", default="humanml", choices=["humanml", "kit"])
+    p.add_argument("--text_prompt", default="", type=str)
+    p.add_argument("--input_text", default="", type=str,
+                   help="file with one prompt per line")
+    p.add_argument("--num_samples", default=3, type=int,
+                   help="with --text_prompt: repetitions of the prompt")
+    p.add_argument("--motion_length", default=6.0, type=float,
+                   help="seconds (20 fps, 12.5 for kit; capped at 196 frames)")
+    p.add_argument("--guidance_param", default=2.5, type=float)
+    p.add_argument("--output_dir", default="", type=str)
+    p.add_argument("--glove_root", default="./glove", type=str,
+                   help="GloVe archive dir for comp_v6 word inputs")
+    p.add_argument("--length_estimator", default="", type=str,
+                   help="length-estimator checkpoint (not ported)")
+    p.add_argument("--render", default=False, action=BooleanOptionalAction,
+                   help="write stick-figure videos per sample (not ported)")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--device", default=0, type=device_arg,
+                   help="CUDA device id (the run is on cuda:<id>), or 'cpu'.")
+    return p.parse_args(argv)

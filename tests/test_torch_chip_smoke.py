@@ -315,6 +315,48 @@ def test_a2m_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
         "GRU classifier": 0.0, "unconstrained ST-GCN": 0.0}
 
 
+def test_t2m_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 11 at a cut size: the seeded CLIP tower file and merge table,
+    the encoder against a CPU copy, train_mdm --dataset humanml from
+    --data_path (196 frames: the window is the dataset's), a step check,
+    sample.generate with CFG on the checkpoint and its results.npy; the
+    CLIP route, not the hashed stand-in, encodes every caption and prompt
+    (the CPU runs launch nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.models import clip_text
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, steps=5).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    monkeypatch.setitem(cs.TRAIN, "steps_per_call", 2)
+    for key, value in dict(batch=4, steps=4, clips=16, samples=2).items():
+        monkeypatch.setitem(cs.T2M, key, value)
+    for key, value in dict(vocab_size=600, dim=64, heads=1, num_layers=2).items():
+        monkeypatch.setitem(cs.CLIP_TOWER, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    monkeypatch.delenv("REGENNET_CLIP_PATH", raising=False)
+    encoded = []
+    encoder_call = clip_text.ClipTextEncoder.__call__
+    monkeypatch.setattr(clip_text.ClipTextEncoder, "__call__",
+                        lambda self, texts: encoded.append(len(texts)) or encoder_call(self,
+                                                                                        texts))
+    report = {}
+    launches = cs.run_t2m(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"b1": 0, "b2": {"forward": 0, "backward": 0}}
+    assert "REGENNET_CLIP_PATH" not in os.environ  # restored after the phase
+    training = report["t2m_training"]
+    assert (training["arch"], training["steps"], training["batch"]) == ("trans_enc", 4, 4)
+    assert report["t2m_clip_tower"]["shape"] == [3, 512]
+    assert report["t2m_train_step_check"]["loss_kernel"] == pytest.approx(
+        report["t2m_train_step_check"]["loss_plain"], rel=1e-6)
+    generated = report["t2m"]["generate"]
+    assert generated["sampling_rows"] == [2] and generated["sampling_steps"] == 5
+    assert report["t2m"]["motion_shape"] == [2, 120, 22, 3]
+    # the tower check (twice), 4 training batches, the step check's batch,
+    # the generate request
+    assert encoded == [3, 3, 4, 4, 4, 4, 4, 2]
+
+
 def _guard_results(**acc_fid):
     """A learning-guard artefact that passes every threshold, with
     (accuracy, FID) of a row replaced by acc_fid[row]."""
@@ -391,19 +433,20 @@ def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_p
 
 def test_path_launches_add_up(monkeypatch):
     """The kernel line's launches: each kernel summed over its paths, B2
-    by direction, phases 8 and 10 included."""
+    by direction, phases 8, 10 and 11 included."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
 
     paths = {"fused_attention_btd": {"phase 3": 24000, "phase 5": 8000, "phase 6": 64000,
-                                     "phase 8": 400, "phase 10": 53200},
+                                     "phase 8": 400, "phase 10": 53200, "phase 11": 8000},
              "fused_attention_btd_train": {
                  "phase 4": {"forward": 320, "backward": 320},
                  "phase 5": {"forward": 128, "backward": 128},
                  "phase 8": {"forward": 1600, "backward": 1600},
-                 "phase 10": {"forward": 256, "backward": 256}},
+                 "phase 10": {"forward": 256, "backward": 256},
+                 "phase 11": {"forward": 128, "backward": 128}},
              "fused_causal_attention": {"phase 2c": 26}}
-    assert cs.path_launches(paths, "fused_attention_btd") == 149600
-    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2304
-    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2304
+    assert cs.path_launches(paths, "fused_attention_btd") == 157600
+    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2432
+    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2432
     assert cs.path_launches(paths, "fused_causal_attention") == 26

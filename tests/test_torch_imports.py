@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 53  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 62  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -55,6 +55,34 @@ def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cgenerate.main(args)
     assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+def test_generate_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
+    from regennet_torch.sample import generate
+    from regennet_torch.utils import parser_util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = parser_util.generate_args([
+        "--model_path", str(tmp_path / "model000000001.pt"), "--data_path", str(tmp_path),
+        "--text_prompt", "a person walks", "--output_dir", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.main(args)
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+def test_device_cpu_on_the_command_line_asks_for_the_cpu(monkeypatch):
+    from regennet_torch.device import resolve_device
+    from regennet_torch.utils import parser_util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--save_dir", "x"], ["--save_dir", "x", "--device", "cpu"]):
+        index = parser_util.train_args(argv).device
+        if index == "cpu":
+            assert resolve_device(None, index) == torch.device("cpu")
+        else:
+            assert index == 0
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(None, index)
 
 
 def test_train_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
