@@ -96,15 +96,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      16 f32 steps at batch 64; a step through the kernels against the plain
      attention; sample.generate on the checkpoint (10 samples of one
      prompt, CFG 2.5, DDPM 1000) and its results.npy; no caption or prompt
-     falls back to the hashed text embeddings.
+     falls back to the hashed text embeddings;
+  12. the text evaluation on phase 11's data, CLIP tower and checkpoint,
+     with a seeded GloVe archive of every caption and prompt word in
+     ./glove: B1 at [64 and 32, 197, 512] against its plain version;
+     train_t2m_eval --stage all at T2M_OPT's widths (3 epochs at batch 32
+     per stage), each trained network on the card against a CPU copy;
+     eval_humanml debug (CFG 2.5, DDPM 1000, the matching .pt as
+     --rec_model_path); train_mdm --dataset humanml --eval_during_training
+     (8 steps, one evaluation of 32 samples); generate --length_estimator;
+     no word falls back to hashed GloVe vectors, no text to the hashed
+     CLIP stand-in.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8, 9, 10 and 11 for B1; 4, 5, 8, 9, 10 and 11 for B2; 2c for B3) and
-summed in the kernel line;
+5, 6, 8, 9, 10, 11 and 12 for B1; 4, 5, 8, 9, 10, 11 and 12 for B2; 2c for
+B3) and summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
-and a fourth at [64, 197, 512], with phase 11's; B2 has bf16 rows at [64,
-150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with phase
-10's, and f32 rows at [64, 197, 512], with phase 11's.
+and a fourth at [64, 197, 512], with phases 11 and 12's; B2 has bf16 rows
+at [64, 150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with
+phase 10's, and f32 rows at [64, 197, 512], with phases 11 and 12's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -112,6 +122,7 @@ Exits non-zero without CUDA, or without the regennet_torch package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -597,26 +608,29 @@ def backward_pass_ms(fn, iters=20):
     return found
 
 
-def kernel_times(fn, iters=20):
+def kernel_times(fn, iters=20, attempts=3):
     """Device time per call of fn() in ms, and per kernel name (the longest
     first): every CUDA kernel and memory operation of `iters` calls after a
     warm-up, summed under torch.profiler, over `iters`. The host's time
-    between launches is not in it."""
+    between launches is not in it. A profile that recorded no device time
+    (the profiler on that machine has returned one) is taken again, up to
+    `attempts` profiles in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {evt.key: evt.device_time_total / 1e3 / iters for evt in prof.key_averages()
-               if evt.device_type == torch.autograd.DeviceType.CUDA}
-    total = sum(by_name.values())
-    if not total > 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {evt.key: evt.device_time_total / 1e3 / iters for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA}
+        total = sum(by_name.values())
+        if total > 0:
+            return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    raise AssertionError(f"the profiler recorded no device time in {attempts} profiles")
 
 
 def device_ms(fn, iters=20):
@@ -2145,6 +2159,43 @@ BPE_MERGES = [("a", "</w>"), ("p", "e"), ("r", "s"), ("pe", "rs"), ("o", "n</w>"
               ("walk", "s</w>"), ("t", "u"), ("r", "n"), ("tu", "rn"), ("turn", "s</w>")]
 
 
+def t2m_paths(workdir):
+    """Phase 11's files in its workdir: the HumanML3D root, the CLIP tower
+    and merge table, and the trained text CMDM (phase 12 reads them)."""
+    return {"humanml": str(workdir / "HumanML3D"), "clip": str(workdir / "ViT-B-32.pt"),
+            "bpe": str(workdir / "bpe_simple_vocab_16e6.txt.gz"),
+            "model": str(workdir / "humanml_run" / f"model{T2M['steps']:09d}.pt")}
+
+
+@contextlib.contextmanager
+def clip_tower(paths):
+    """REGENNET_CLIP_PATH and REGENNET_CLIP_BPE name the seeded tower and
+    merge table inside the block, restored after it; yields the list of
+    calls to the hashed stand-in for CLIP made inside it (each one's text
+    count)."""
+    from regennet_torch.models import clip_text
+
+    hashed = clip_text.hashed_text_embeddings
+    fallbacks = []
+
+    def counted_hashed(texts, *a, **kw):
+        fallbacks.append(len(texts))
+        return hashed(texts, *a, **kw)
+
+    env = {k: os.environ.get(k) for k in ("REGENNET_CLIP_PATH", "REGENNET_CLIP_BPE")}
+    os.environ.update(REGENNET_CLIP_PATH=paths["clip"], REGENNET_CLIP_BPE=paths["bpe"])
+    clip_text.hashed_text_embeddings = counted_hashed
+    try:
+        yield fallbacks
+    finally:
+        clip_text.hashed_text_embeddings = hashed
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def write_t2m_assets(workdir):
     """Synthetic HumanML3D (the port's writer: T2M["clips"] clips of 40-199
     frames, every one in the train split), its Mean.npy and Std.npy from the
@@ -2168,8 +2219,7 @@ def write_t2m_assets(workdir):
     np.save(os.path.join(root, "Std.npy"), frames.std(0).astype(np.float32))
     tower = ClipTextTower(**CLIP_TOWER)
     tower.reset_parameters(torch.Generator().manual_seed(13))
-    paths = {"humanml": root, "clip": str(workdir / "ViT-B-32.pt"),
-             "bpe": str(workdir / "bpe_simple_vocab_16e6.txt.gz")}
+    paths = t2m_paths(workdir)
     torch.save(tower.state_dict(), paths["clip"])
     with gzip.open(paths["bpe"], "wt", encoding="utf-8") as f:
         f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in BPE_MERGES))
@@ -2253,7 +2303,6 @@ def run_t2m(report, card, workdir, device="cuda"):
     {"b1": launches, "b2": {forward, backward}}."""
     import numpy as np
 
-    from regennet_torch.models import clip_text
     from regennet_torch.sample import generate
     from regennet_torch.utils import parser_util
 
@@ -2263,17 +2312,7 @@ def run_t2m(report, card, workdir, device="cuda"):
           f"Mean/Std from the data, a seeded CLIP text tower and a merge table, written in "
           f"{data_s:.2f} s")
     layers = FLAGSHIP["layers"]
-    hashed = clip_text.hashed_text_embeddings
-    fallbacks = []
-
-    def counted_hashed(texts, *a, **kw):
-        fallbacks.append(len(texts))
-        return hashed(texts, *a, **kw)
-
-    env = {k: os.environ.get(k) for k in ("REGENNET_CLIP_PATH", "REGENNET_CLIP_BPE")}
-    os.environ.update(REGENNET_CLIP_PATH=paths["clip"], REGENNET_CLIP_BPE=paths["bpe"])
-    clip_text.hashed_text_embeddings = counted_hashed
-    try:
+    with clip_tower(paths) as fallbacks:
         check_clip_tower(report, card, [T2M["prompt"], "a person walks forward",
                                         "a person turns"], device)
         save_dir = workdir / "humanml_run"
@@ -2283,21 +2322,13 @@ def run_t2m(report, card, workdir, device="cuda"):
         check_train_step(report, loop, loader, key="t2m_train_step_check")
         del loop, loader
 
-        steps = T2M["steps"]
         out_dir = workdir / "generate"
         gen_args = parser_util.generate_args([
-            "--model_path", str(save_dir / f"model{steps:09d}.pt"),
+            "--model_path", paths["model"],
             "--data_path", paths["humanml"], "--text_prompt", T2M["prompt"],
             "--num_samples", str(T2M["samples"]), "--guidance_param", str(T2M["guidance"]),
             "--output_dir", str(out_dir)])
         _, counts = counted_run(lambda: generate.main(gen_args, device=device), device)
-    finally:
-        clip_text.hashed_text_embeddings = hashed
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     hold_b1_launches("the generate request", counts, layers, device)
     if counts["sampling_rows"] != [T2M["samples"]]:
         raise AssertionError(f"generate sampled {counts['sampling_rows']} rows")
@@ -2326,6 +2357,279 @@ def run_t2m(report, card, workdir, device="cuda"):
                          training_ms_per_step=report["t2m_training"]["ms_per_step"],
                          motion_shape=list(want["motion"]))
     return {"b1": counts["b1"], "b2": b2}
+
+
+# phase 12: the text evaluation on phase 11's data, CLIP tower and checkpoint
+T2M_EVAL = dict(epochs=3, batch=32, train_steps=8, eval_samples=32, lengths=4,
+                guidance=2.5, seed=14)
+
+
+def write_glove(root, words, seed=0):
+    """A seeded GloVe archive in the released layout (our_vab_data.npy,
+    our_vab_words.pkl, our_vab_idx.pkl) holding `words`."""
+    import pickle
+
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    words = sorted(words)
+    np.save(os.path.join(root, "our_vab_data.npy"), np.random.default_rng(seed).normal(
+        scale=0.3, size=(len(words), 300)).astype(np.float32))
+    with open(os.path.join(root, "our_vab_words.pkl"), "wb") as f:
+        pickle.dump(words, f)
+    with open(os.path.join(root, "our_vab_idx.pkl"), "wb") as f:
+        pickle.dump({w: i for i, w in enumerate(words)}, f)
+    return root
+
+
+def caption_words(humanml_root, prompts):
+    """Every word of the dataset's token lists and of the prompts, and the
+    sentence markers."""
+    words = {"sos", "eos", "unk"}
+    for path in Path(humanml_root, "texts").glob("*.txt"):
+        for line in path.read_text().splitlines():
+            parts = line.split("#")
+            if len(parts) > 1:
+                words.update(tok.split("/")[0] for tok in parts[1].split())
+    for prompt in prompts:
+        words.update(prompt.split())
+    return words
+
+
+@contextlib.contextmanager
+def word_vectorizers():
+    """Inside the block, yields the list of every WordVectorizer built."""
+    from regennet_torch.data.humanml import word_vectorizer
+
+    built = []
+    init = word_vectorizer.WordVectorizer.__init__
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self)
+
+    word_vectorizer.WordVectorizer.__init__ = recorded
+    try:
+        yield built
+    finally:
+        word_vectorizer.WordVectorizer.__init__ = init
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """The run's working directory inside the block: the CLIs read the
+    GloVe archive from ./glove, as the reference's do."""
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def check_t2m_evaluators(report, card, run_dir, data_path, device="cuda"):
+    """Each network train_t2m_eval wrote (the movement autoencoder, the text
+    and motion towers, the length estimator) on the card against a CPU copy
+    at f32, within 1e-5 x max(1, max|cpu|), on a batch of the train split."""
+    import copy
+
+    import torch
+
+    from regennet_torch.data.humanml.dataset import Text2MotionDataset
+    from regennet_torch.eval.eval_humanml import _stack_items
+    from regennet_torch.models import t2m_eval as t2m
+
+    ds = Text2MotionDataset(data_path, split="train")
+    word, pos, _, cap_lens, motions, m_lens, _ = _stack_items(
+        [ds[i] for i in range(T2M_EVAL["batch"])])
+    name = f"model{T2M_EVAL['epochs']:09d}.pt"
+    stages = {"movement_enc": "decomp", "movement_dec": "decomp", "text_encoder": "matching",
+              "motion_encoder": "matching"}
+    nets = dict(zip(stages, t2m.networks(motions.shape[-1], *stages)))
+    for key, stage in stages.items():
+        t2m.load_state(nets[key], t2m.load_torch_file(run_dir / stage / name)[key])
+    enc, dec, text, motion = nets.values()
+    est = t2m.load_length_estimator(str(run_dir / "length" / name))
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    x = f32(motions)[..., :-t2m.FOOT_FEATS]
+    with torch.no_grad():
+        movements = enc(x)
+    cases = {"movement encoder": (enc, (x,)), "movement decoder": (dec, (movements,)),
+             "text tower": (text, (f32(word), f32(pos), cap_lens)),
+             "motion tower": (motion, (movements, m_lens // 4)),
+             "length estimator": (est, (f32(word), f32(pos), cap_lens))}
+    worst = {}
+    with torch.no_grad():
+        for what, (net, inputs) in cases.items():
+            ref = net.eval()(*inputs)
+            card_net = copy.deepcopy(net).to(device)
+            ours = card_net(*(a.to(device) if torch.is_tensor(a) else a for a in inputs))
+            err = max_abs_err(ours.cpu(), ref)
+            tol = 1e-5 * max(1.0, float(ref.abs().max()))
+            hold(f"the trained {what} on {device} against its CPU copy", err, tol)
+            worst[what] = err / tol
+    print(f"  the trained evaluators on {device} against CPU copies, share of the tolerance "
+          f"1e-5 x max(1, max|cpu|): " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + f" [{card}]")
+    report["t2m_evaluators_card_vs_cpu_share"] = worst
+
+
+def check_t2m_eval_kernels(report):
+    """Phase 12: B1 at the evaluations' shapes, f32 [64, 197, 512] (eval_humanml's
+    CFG batch) and [32, 197, 512] (the in-training evaluation), non-causal,
+    against its plain version at phase 2's tolerance. Returns the worst
+    errors."""
+    D, H, T = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], T2M["T"] + 1
+    B = T2M_EVAL["eval_samples"]  # debug's batch of 32, and the in-training one
+    worst, report["t2m_eval_kernel_cases"] = hold_kernels_at(
+        [(2 * B, T, "float32"), (B, T, "float32")], [], False, D, H, seed=T2M_EVAL["seed"])
+    print(f"  B1 at [{2 * B} and {B}, {T}, {D}] (non-causal, f32) matches its plain version "
+          f"(worst max_abs_err {worst['forward']:.3g}; phase 2's tolerance)")
+    return worst
+
+
+def run_t2m_eval(report, card, workdir, device="cuda"):
+    """Phase 12, the text evaluation at the CLIs' default width on phase 11's
+    synthetic HumanML3D, CLIP tower and text CMDM, with a seeded GloVe
+    archive in ./glove: train_t2m_eval --stage all at T2M_OPT's widths,
+    each trained network on the card against a CPU copy; eval_humanml
+    debug (CFG 2.5, the matching .pt as --rec_model_path; B1 at [64, 197,
+    512]) after B1 is held at [64 and 32, 197, 512]; train_mdm with the
+    in-training evaluation (B1 at [32, 197, 512], B2 at [64, 197, 512]);
+    generate --length_estimator. No word takes the hashed GloVe stand-in,
+    no caption or prompt the hashed CLIP one. Returns {"b1": launches,
+    "b2": {forward, backward}}."""
+    import numpy as np
+
+    from regennet_torch.data.humanml.dataset import Text2MotionDataset
+    from regennet_torch.eval import eval_humanml
+    from regennet_torch.models import t2m_eval as t2m
+    from regennet_torch.sample import generate
+    from regennet_torch.train import train_platforms, train_t2m_eval
+    from regennet_torch.utils import parser_util
+
+    t_phase = time.perf_counter()
+    paths = t2m_paths(workdir)
+    layers, D, T = FLAGSHIP["layers"], FLAGSHIP["latent_dim"], T2M["T"]
+    write_glove(workdir / "glove", caption_words(paths["humanml"], [T2M["prompt"]]))
+    run_dir = workdir / "t2m_eval"
+    rows = report["t2m_eval"] = {}
+    scalars = []
+    report_scalar = train_platforms.NoPlatform.report_scalar
+    evaluator_ms = []
+    co_embeddings = t2m.T2MEvaluatorWrapper.get_co_embeddings
+
+    def timed_co_embeddings(self, *a):
+        t0 = time.perf_counter()
+        out = co_embeddings(self, *a)  # numpy: the device has finished
+        evaluator_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with working_dir(workdir), clip_tower(paths) as fallbacks, word_vectorizers() as vocab:
+        t0 = time.perf_counter()
+        train_t2m_eval.main(train_t2m_eval.parse_args([
+            "--data_path", paths["humanml"], "--save_dir", str(run_dir), "--stage", "all",
+            "--batch_size", str(T2M_EVAL["batch"]), "--num_epochs", str(T2M_EVAL["epochs"]),
+            "--seed", "0"]), device=device)
+        rows["train_t2m_eval_s"] = time.perf_counter() - t0
+        steps = 3 * T2M_EVAL["epochs"] * (T2M["clips"] // T2M_EVAL["batch"])
+        print(f"  train_t2m_eval --stage all: {steps} steps (3 stages x "
+              f"{T2M_EVAL['epochs']} epochs at batch {T2M_EVAL['batch']}) at T2M_OPT's widths "
+              f"in {rows['train_t2m_eval_s']:.1f} s [{card}]")
+        check_t2m_evaluators(report, card, run_dir, paths["humanml"], device)
+        name = f"model{T2M_EVAL['epochs']:09d}.pt"
+        matching, length = str(run_dir / "matching" / name), str(run_dir / "length" / name)
+
+        eval_args = parser_util.evaluation_parser([
+            "--model_path", paths["model"], "--rec_model_path", matching, "--eval_mode",
+            "debug", "--guidance_param", str(T2M_EVAL["guidance"]), "--seed", "0"])
+        t2m.T2MEvaluatorWrapper.get_co_embeddings = timed_co_embeddings
+        try:
+            metrics, counts = counted_run(lambda: eval_humanml.main(eval_args, device=device),
+                                          device)
+        finally:
+            t2m.T2MEvaluatorWrapper.get_co_embeddings = co_embeddings
+        hold_b1_launches("eval_humanml debug", counts, layers, device)
+        debug_rows = min(eval_humanml.PROTOCOLS["debug"][0], len(Text2MotionDataset(
+            paths["humanml"], split="test")))  # one batch of at most 32
+        if counts["sampling_rows"] != [debug_rows] * 2:
+            raise AssertionError(f"eval_humanml sampled {counts['sampling_rows']} rows")
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+        log = Path(paths["model"]).parent / "eval_humanml_humanml_run_debug.log"
+        if bad or not log.is_file() or len(metrics) != 8:
+            raise AssertionError(f"eval_humanml: metrics {metrics}, log {log.is_file()}")
+        rows["eval"] = dict(counts, metrics=metrics,
+                            evaluator_ms_per_batch=float(np.mean(evaluator_ms)))
+        print(f"  eval_humanml debug (CFG {T2M_EVAL['guidance']}, 2 replications of "
+              f"{debug_rows}): {counts['wall_s']:.1f} s, sampling "
+              f"{counts['sampling_s']:.1f} s ({counts['ms_per_denoiser_step']:.3f} ms a "
+              f"denoiser step at batch {2 * debug_rows}), the evaluators "
+              f"{rows['eval']['evaluator_ms_per_batch']:.2f} ms a batch of "
+              f"{debug_rows}; FID {metrics['FID_humanml_run']:.4g}, R-precision "
+              f"{np.round(metrics['R_precision_humanml_run'], 4).tolist()} [{card}]")
+
+        steps = T2M_EVAL["train_steps"]
+        save_dir = workdir / "humanml_eval_run"
+        args = parser_util.train_args([
+            "--save_dir", str(save_dir), "--dataset", "humanml", "--data_path",
+            paths["humanml"], "--batch_size", str(T2M["batch"]), "--num_steps", str(steps),
+            "--steps_per_call", str(TRAIN["steps_per_call"]), "--save_interval", str(steps),
+            "--log_interval", str(TRAIN["steps_per_call"]), "--seed", "0", "--layers",
+            str(layers), "--latent_dim", str(D), "--diffusion_steps", str(FLAGSHIP["steps"]),
+            "--eval_during_training", "--rec_model_path", matching, "--eval_num_samples",
+            str(T2M_EVAL["eval_samples"]), "--eval_rep_times", "1"])
+        train_platforms.NoPlatform.report_scalar = \
+            lambda self, **kw: scalars.append(kw)  # noqa: E731
+        try:
+            (_, _, b2), train_counts = counted_run(
+                lambda: run_training(report, card, save_dir, device, args,
+                                     key="t2m_eval_training"), device)
+        finally:
+            train_platforms.NoPlatform.report_scalar = report_scalar
+        hold_b1_launches("the in-training evaluation", train_counts, layers, device)
+        evals = {s["name"] for s in scalars if s.get("group_name") == "Eval"}
+        want = {f"top{k}_R_precision_model" for k in (1, 2, 3)} | {
+            "FID_model", "Diversity_model", "Matching Score_model"}
+        if not want <= evals or not (save_dir / f"eval_humanml_{steps:09d}.log").is_file() \
+                or train_counts["sampling_rows"] != [T2M_EVAL["eval_samples"]]:
+            raise AssertionError(f"in-training evaluation: Eval scalars {sorted(evals)}, "
+                                 f"sampled {train_counts['sampling_rows']}")
+        rows["in_training"] = train_counts
+        print(f"  train_mdm --eval_during_training: {steps} steps, one evaluation of "
+              f"{T2M_EVAL['eval_samples']} samples ({train_counts['sampling_s']:.1f} s "
+              f"sampling); B2 launches {b2}, {len(evals)} Eval scalars and "
+              f"eval_humanml_{steps:09d}.log [{card}]")
+
+        out_dir = workdir / "generate_lengths"
+        gen_args = parser_util.generate_args([
+            "--model_path", paths["model"], "--data_path", paths["humanml"],
+            "--text_prompt", T2M["prompt"], "--num_samples", str(T2M_EVAL["lengths"]),
+            "--motion_length", str(T / 20), "--length_estimator", length,
+            "--output_dir", str(out_dir)])
+        result, gen_counts = counted_run(lambda: generate.main(gen_args, device=device),
+                                         device)
+        hold_b1_launches("generate --length_estimator", gen_counts, layers, device)
+        lengths = np.asarray(result["lengths"])
+        if lengths.shape != (T2M_EVAL["lengths"],) or (lengths % 4).any() or \
+                not ((lengths >= 4) & (lengths <= T)).all():
+            raise AssertionError(f"estimated lengths {lengths}")
+        rows["generate"] = dict(gen_counts, lengths=lengths.tolist())
+        print(f"  generate --length_estimator: lengths {lengths.tolist()} (multiples of 4 in "
+              f"[4, {T}]) [{card}]")
+    if fallbacks:
+        raise AssertionError(f"the hashed text embeddings stood in for CLIP: {fallbacks}")
+    if not vocab or any(wv.using_fallback for wv in vocab):
+        raise AssertionError("a WordVectorizer fell back to the hashed word vectors")
+    runs = (rows["eval"], rows["in_training"], rows["generate"])
+    b1 = sum(r["b1"] for r in runs)
+    wall_s = time.perf_counter() - t_phase
+    sampling_s = sum(r["sampling_s"] for r in runs)
+    rows.update(wall_s=wall_s, sampling_s=sampling_s, sampling_share=sampling_s / wall_s,
+                glove_vectorizers=len(vocab), launches={"b1": b1, "b2": b2})
+    print(f"  phase 12: {wall_s:.1f} s, sampling {sampling_s:.1f} s "
+          f"({rows['sampling_share']:.3f} of it); B1 launches {b1}, B2 {b2}; "
+          f"{len(vocab)} word vectorizers, none hashed; no hashed text embeddings [{card}]")
+    return {"b1": b1, "b2": b2}
 
 
 def path_launches(paths, name, which=None):
@@ -2409,17 +2713,22 @@ def main() -> int:
               "default width")
         t2m_worst = check_t2m_kernels(report)
         t2m = run_t2m(report, card, Path(tmp) / "t2m")
+        print("phase 12: the text evaluation (train_t2m_eval, eval_humanml, the in-training "
+              "route, generate --length_estimator) on phase 11's model")
+        t2m_eval_worst = check_t2m_eval_kernels(report)
+        t2m_eval = run_t2m_eval(report, card, Path(tmp) / "t2m")
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
                                      "phase 6": eval_launches,
                                      "phase 8": guard["fused_attention_btd"],
                                      "phase 9": bf16_b1, "phase 10": a2m["b1"],
-                                     "phase 11": t2m["b1"]},
+                                     "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
                                            "phase 9": bf16_b2, "phase 10": a2m["b2"],
-                                           "phase 11": t2m["b2"]},
+                                           "phase 11": t2m["b2"],
+                                           "phase 12": t2m_eval["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -2434,16 +2743,18 @@ def main() -> int:
         **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, launches, timing, err in (
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
-         max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"])),
+         max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"],
+             t2m_eval_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
          max(worst, guard_worst["forward"])),
         # the a2m evaluations' shape, non-causal at 61 tokens: phase 10's launches
         ("fused_attention_btd (f32 [64, 61, 512], non-causal, phase 10)", b1["phase 10"],
          timings["a2m"][0], a2m_worst["forward"]),
-        # the text CMDM's 197 tokens (the three-pass route): phase 11's launches
-        ("fused_attention_btd (f32 [64, 197, 512], non-causal, phase 11)", b1["phase 11"],
-         timings["t2m"][0], t2m_worst["forward"]))]
+        # the text CMDM's 197 tokens (the three-pass route): phases 11 and 12
+        ("fused_attention_btd (f32 [64, 197, 512], non-causal, phases 11, 12)",
+         b1["phase 11"] + b1["phase 12"], timings["t2m"][0],
+         max(t2m_worst["forward"], t2m_eval_worst["forward"])))]
     for dtype, which, line, source in (
             ("float32", "forward", 382, "attention_fwd.cu"),
             ("float32", "backward", 415, "attention_btd_train.cu"),
@@ -2474,20 +2785,20 @@ def main() -> int:
             "bound_by": timing[f"{which}_bound_by"],
             "library_ms": timing[f"library_{which}_ms"],
         })
-    for (which, line, source), (key, tokens, phase, path_worst) in itertools.product(
+    for (which, line, source), (key, tokens, label, phases, path_worst) in itertools.product(
             (("forward", 382, "attention_fwd.cu"), ("backward", 415, "attention_btd_train.cu")),
-            (("a2m", A2M["T"] + 1, "phase 10", a2m_worst),
-             ("t2m", T2M["T"] + 1, "phase 11", t2m_worst))):
+            (("a2m", A2M["T"] + 1, "phase 10", ("phase 10",), a2m_worst),
+             ("t2m", T2M["T"] + 1, "phases 11, 12", ("phase 11", "phase 12"), t2m_worst))):
         # the model paths' own training shapes, non-causal: the a2m CMDM's 61
-        # tokens (phase 10's launches) and the text CMDM's 197 (phase 11's)
+        # tokens (phase 10's launches) and the text CMDM's 197 (phases 11, 12)
         b2_timing = timings[key][1]
         kernel_rows.append({
             "name": f"fused_attention_btd_train ({which}, f32 [64, {tokens}, 512], non-causal, "
-                    f"{phase})",
+                    f"{label})",
             "route": "cuda",
             "source": f"regennet_torch/csrc/{source}",
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
-            "launches": paths["fused_attention_btd_train"][phase][which],
+            "launches": sum(paths["fused_attention_btd_train"][p][which] for p in phases),
             "max_abs_err": path_worst["train_forward" if which == "forward" else "backward"],
             "ms": b2_timing[f"kernel_{which}_ms"],
             "plain_ms": b2_timing[f"plain_{which}_ms"],

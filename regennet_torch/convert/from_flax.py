@@ -5,9 +5,11 @@ The inverse of regennet_tpu/convert/torch_ckpt.convert_cmdm for every
 trunk (online / trans_dec, offline / trans_enc, gru, mlp), of
 ::convert_stgcn for the ST-GCN classifiers (two-person, single-person and
 the unconstrained openpose one), of ::convert_gru_classifier for the
-a2m GRU classifier, and of ::convert_clip_text for the CLIP text tower
+a2m GRU classifier, of ::convert_clip_text for the CLIP text tower
 (into the OpenAI ViT-B-32.pt names that models/clip_text_tower.py
-loads). It takes the param tree as nested dicts of numpy arrays (no JAX
+loads), of ::convert_t2m_evaluator and ::convert_length_estimator for the
+text-to-motion evaluators (models/t2m_eval.py), and of the movement
+autoencoder that train_t2m_eval's decomp stage trains. It takes the param tree as nested dicts of numpy arrays (no JAX
 import), so weights of a model trained by the JAX package load into
 regennet_torch.models.cmdm.CMDM with `load_state_dict`.
 """
@@ -41,9 +43,10 @@ def _mha(sd, prefix, attn):
     _linear(sd, f"{prefix}.out_proj", attn["out_proj"])
 
 
-def _gru_layer(sd, prefix, layer, cell):
+def _gru_layer(sd, prefix, layer, cell, suffix=""):
     """Flax GRUCell {ir, iz, in, hr, hz, hn} -> layer `layer` of the torch
-    GRU `prefix` (gate order r, z, n). Flax's one r/z bias goes into
+    GRU `prefix` (gate order r, z, n; `suffix` "_reverse" for the second
+    direction of a bidirectional GRU). Flax's one r/z bias goes into
     bias_ih and the r/z slices of bias_hh are zero (the CMDM's trunk holds
     them there in training); the n gate keeps its input bias in bias_ih
     and its hidden bias in bias_hh."""
@@ -53,13 +56,14 @@ def _gru_layer(sd, prefix, layer, cell):
     def bias(name):
         return np.asarray(cell[name]["bias"])
 
-    sd[f"{prefix}.weight_ih_l{layer}"] = np.ascontiguousarray(
+    key = f"l{layer}{suffix}"
+    sd[f"{prefix}.weight_ih_{key}"] = np.ascontiguousarray(
         np.concatenate([kernel(n) for n in ("ir", "iz", "in")], axis=0))
-    sd[f"{prefix}.weight_hh_l{layer}"] = np.ascontiguousarray(
+    sd[f"{prefix}.weight_hh_{key}"] = np.ascontiguousarray(
         np.concatenate([kernel(n) for n in ("hr", "hz", "hn")], axis=0))
-    sd[f"{prefix}.bias_ih_l{layer}"] = np.concatenate([bias(n) for n in ("ir", "iz", "in")])
+    sd[f"{prefix}.bias_ih_{key}"] = np.concatenate([bias(n) for n in ("ir", "iz", "in")])
     hn = bias("hn")
-    sd[f"{prefix}.bias_hh_l{layer}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
+    sd[f"{prefix}.bias_hh_{key}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
 
 
 def _mlp_block(sd, prefix, block):
@@ -201,6 +205,95 @@ def clip_text_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
         i += 1
     _layernorm(sd, "ln_final", params["ln_final"])
     return sd
+
+
+def _conv1d(sd, prefix, conv):
+    """flax Conv kernel [k, C_in, C_out] -> torch Conv1d [C_out, C_in, k]."""
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(conv["kernel"]), (2, 1, 0)))
+    sd[f"{prefix}.bias"] = np.asarray(conv["bias"])
+
+
+def _conv_transpose1d(sd, prefix, conv):
+    """flax ConvTranspose kernel [k, C_in, C_out] ("SAME" padding) -> torch
+    ConvTranspose1d(k=4, s=2, p=1) [C_in, C_out, k], the spatial axis
+    flipped back (the inverse of torch_ckpt._conv_transpose1d)."""
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(conv["kernel"])[::-1], (1, 2, 0)))
+    sd[f"{prefix}.bias"] = np.asarray(conv["bias"])
+
+
+def _bigru(sd, p, pos_emb=None):
+    """The BiGRU towers' common part: input_emb, the two directions, hidden."""
+    _linear(sd, "input_emb", p["input_emb"])
+    if pos_emb is not None:
+        _linear(sd, "pos_emb", pos_emb)
+    sd["hidden"] = np.asarray(p["hidden"])
+    _gru_layer(sd, "gru", 0, p["fwd_cell"])
+    _gru_layer(sd, "gru", 0, p["bwd_cell"], "_reverse")
+
+
+def movement_encoder_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax MovementConvEncoder {conv1, conv2, out_net} -> `main.0`, `main.3`,
+    `out_net`."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv1d(sd, "main.0", params["conv1"])
+    _conv1d(sd, "main.3", params["conv2"])
+    _linear(sd, "out_net", params["out_net"])
+    return sd
+
+
+def movement_decoder_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax MovementConvDecoder {deconv1, deconv2, out_net} -> `main.0`,
+    `main.2`, `out_net`."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv_transpose1d(sd, "main.0", params["deconv1"])
+    _conv_transpose1d(sd, "main.2", params["deconv2"])
+    _linear(sd, "out_net", params["out_net"])
+    return sd
+
+
+def _bigru_co(params: Mapping, pos_emb=None) -> Dict[str, np.ndarray]:
+    trunk = params["bigru"]
+    sd: Dict[str, np.ndarray] = {}
+    _bigru(sd, {**trunk, "input_emb": params["input_emb"]}, pos_emb)
+    _linear(sd, "output_net.0", trunk["out1"])
+    _layernorm(sd, "output_net.1", trunk["out_ln"])
+    _linear(sd, "output_net.3", trunk["out2"])
+    return sd
+
+
+def t2m_evaluator_state_from_flax(variables: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """T2MEvaluatorWrapper variables {movement, text, motion} -> the released
+    finest.tar layout {movement_encoder, text_encoder, motion_encoder} (the
+    inverse of torch_ckpt.convert_t2m_evaluator)."""
+    return {
+        "movement_encoder": movement_encoder_state_dict_from_flax(variables["movement"]),
+        "text_encoder": _bigru_co(variables["text"], variables["text"]["pos_emb"]),
+        "motion_encoder": _bigru_co(variables["motion"]),
+    }
+
+
+def length_estimator_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Flax MotionLenEstimatorBiGRU params (or {"params": ...}) -> the
+    reference estimator's state dict (`pos_emb`, `input_emb`, `gru`,
+    `hidden`, `output.0` ... `output.9`; the inverse of
+    torch_ckpt.convert_length_estimator)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, np.ndarray] = {}
+    _bigru(sd, params, params["pos_emb"])
+    for i in range(3):
+        _linear(sd, f"output.{3 * i}", params[f"head_{i}"])
+        _layernorm(sd, f"output.{3 * i + 1}", params[f"head_ln_{i}"])
+    _linear(sd, "output.9", params["head_out"])
+    return sd
+
+
+def decomp_state_from_flax(params: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """train_t2m_eval's decomp params {movement_enc, movement_dec} -> the
+    movement autoencoder's two state dicts under the same keys."""
+    return {"movement_enc": movement_encoder_state_dict_from_flax(params["movement_enc"]),
+            "movement_dec": movement_decoder_state_dict_from_flax(params["movement_dec"])}
 
 
 def _adam_state(opt_state):

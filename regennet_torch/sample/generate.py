@@ -12,9 +12,14 @@ Writes results.npy (motion [N, T, J, 3], feature [N, T, F], text,
 lengths, num_samples) and results.txt, as the JAX CLI does.
 
 Prompts come from --text_prompt (one prompt, repeated --num_samples
-times) or --input_text (a file, one prompt per line). Not ported, and
-raising: the comp_v6 generator route (a released `.tar`) and
---length_estimator (the t2m stack), and --render.
+times) or --input_text (a file, one prompt per line). With
+--length_estimator (train_t2m_eval's length .pt or a released
+latest.tar) each prompt's length is drawn from the estimator's logits
+over its GloVe word inputs (--glove_root), in bins of 4 frames clipped to
+[4, T], by a torch.Generator seeded by --seed (the JAX CLI draws with
+jax.random.categorical; the logits agree, the draws do not). Not ported,
+and raising: the comp_v6 generator route (a released `.tar`) and
+--render.
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ from regennet_torch.device import resolve_device
 from regennet_torch.diffusion import sampling
 from regennet_torch.models.clip_text import encode_text_or_fallback
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
+from regennet_torch.models.t2m_eval import load_length_estimator
 from regennet_torch.train import checkpoint
 from regennet_torch.utils import parser_util
 from regennet_torch.utils.fixseed import fixseed
 from regennet_torch.utils.model_util import (
     HML_FRAMES,
+    TextData,
     create_model_and_diffusion,
     model_dtype,
 )
@@ -60,16 +67,43 @@ def _check_ported(args):
         raise NotImplementedError(
             "the comp_v6 generator route (a .tar checkpoint) needs the t2m stack, "
             "which is not ported (ROADMAP A.8)")
-    if args.length_estimator:
-        raise NotImplementedError(
-            "--length_estimator needs the t2m stack, which is not ported (ROADMAP A.8)")
     if args.render:
         raise NotImplementedError("--render is not ported (ROADMAP A.8, render/)")
 
 
-class _TextData:
-    """What the model factory reads of a dataset: one (unused) action."""
-    num_actions = 1
+def _word_inputs(prompts, glove_root):
+    """The prompts' evaluator-style word inputs through the word vectorizer
+    (GloVe when present, the hashed stand-in otherwise): word embeddings
+    [N, 22, 300], POS one-hots [N, 22, 15], lengths [N]."""
+    from regennet_torch.data.humanml.word_vectorizer import WordVectorizer
+
+    wv = WordVectorizer(glove_root, "our_vab")
+    max_len = 20
+    word_embs, pos_ohots, lens = [], [], []
+    for text in prompts:
+        tokens = [f"{w}/OTHER" for w in text.split()][:max_len]
+        tokens = ["sos/OTHER"] + tokens + ["eos/OTHER"]
+        embs, poss = zip(*(wv[tok] for tok in tokens))
+        lens.append(len(tokens))
+        pad = (max_len + 2) - len(tokens)
+        word_embs.append(np.stack(list(embs) + [np.zeros_like(embs[0])] * pad))
+        pos_ohots.append(np.stack(list(poss) + [np.zeros_like(poss[0])] * pad))
+    return (np.stack(word_embs).astype(np.float32), np.stack(pos_ohots).astype(np.float32),
+            np.asarray(lens, np.int64))
+
+
+@torch.no_grad()
+def estimate_lengths(estimator, prompts, glove_root, T: int, seed: int, unit: int = 4):
+    """(logits [N, bins], lengths [N]): lengths are a bin drawn from each
+    prompt's logits by torch.Generator(seed), times `unit`, within [unit, T]."""
+    device = next(estimator.parameters()).device
+    word_embs, pos_ohots, cap_lens = _word_inputs(prompts, glove_root)
+    logits = estimator(torch.as_tensor(word_embs, device=device),
+                       torch.as_tensor(pos_ohots, device=device), cap_lens)
+    probs = torch.softmax(logits.double().cpu(), dim=-1)
+    bins = torch.multinomial(probs, 1, generator=torch.Generator().manual_seed(int(seed)))
+    lengths = np.clip(bins[:, 0].numpy() * unit, unit, T).astype(np.int64)
+    return logits.cpu().numpy(), lengths
 
 
 def main(args=None, device=None) -> dict:
@@ -86,6 +120,8 @@ def main(args=None, device=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     fixseed(args.seed)
     prompts = _prompts(args)
+    estimator = (load_length_estimator(args.length_estimator, device)
+                 if args.length_estimator else None)
     B = len(prompts)
 
     # only the normalisation stats are needed, not the whole dataset
@@ -98,7 +134,7 @@ def main(args=None, device=None) -> dict:
     args_path = os.path.join(os.path.dirname(args.model_path.rstrip("/")), "args.json")
     with open(args_path) as f:
         margs = Namespace(**json.load(f))
-    model, sched, cfg = create_model_and_diffusion(margs, _TextData(), device=device)
+    model, sched, cfg = create_model_and_diffusion(margs, TextData(), device=device)
     checkpoint.load_model(model, args.model_path)
     model = model.to(device=device, dtype=model_dtype(margs)).eval()
     guidance = float(args.guidance_param)
@@ -122,11 +158,17 @@ def main(args=None, device=None) -> dict:
     joints = recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32, device=device),
                               joints_num).cpu().numpy()  # [B, T, J, 3]
 
+    lengths = np.full(B, joints.shape[1])
+    if estimator is not None:
+        _, lengths = estimate_lengths(estimator, prompts, args.glove_root, joints.shape[1],
+                                      args.seed)
+        print(f"estimated lengths: {lengths.tolist()}", flush=True)
+
     out_dir = args.output_dir or os.path.join(
         os.path.dirname(args.model_path.rstrip("/")) or ".", f"samples_seed{args.seed}")
     os.makedirs(out_dir, exist_ok=True)
     result = {"motion": joints, "feature": denorm, "text": prompts,
-              "lengths": np.full(B, joints.shape[1]), "num_samples": B}
+              "lengths": lengths, "num_samples": B}
     np.save(os.path.join(out_dir, "results.npy"), result, allow_pickle=True)
     with open(os.path.join(out_dir, "results.txt"), "w") as f:
         f.write("\n".join(prompts))

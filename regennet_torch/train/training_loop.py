@@ -23,7 +23,8 @@ the loss terms and the joint decode are too.
 run back to back, their host batches drawn first; saves, logs and the
 DIFFUSION_TRAINING_TEST exit fall at the same steps, and `--nan_guard`
 rolls back whole K-step blocks. `--eval_during_training` runs the debug
-evaluation of the dataset after every save; `--profile_steps` writes a
+evaluation of the dataset after every save (humanml and kit: the T2M
+evaluation of eval/eval_humanml.py); `--profile_steps` writes a
 torch.profiler Chrome trace of a window of steps.
 """
 
@@ -223,6 +224,7 @@ class TrainLoop:
         self._block_buf = []
         self._last_save_at = None  # self.step value (pre-increment) last saved
         self._profiler = None
+        self._hml_eval = None  # the text evaluation's (wrapper, split), built once
 
     # -- state ----------------------------------------------------------
 
@@ -466,13 +468,12 @@ class TrainLoop:
         eval_humanact12_uestc.evaluate in debug mode with eval_rep_times
         seeds, else the eval_cmdm protocol in debug mode (one seed,
         accuracy only). Each metric of the first seed goes to the train
-        platform under "Eval"."""
+        platform under "Eval". humanml and kit take _evaluate_humanml."""
         if not getattr(self.args, "eval_during_training", False):
             return
         if self.args.dataset in ("humanml", "kit"):
-            raise NotImplementedError(
-                "in-training evaluation of humanml/kit needs the t2m evaluation "
-                "stack (eval/eval_humanml.py), which is not ported")
+            self._evaluate_humanml()
+            return
         rec = getattr(self.args, "rec_model_path", "") or os.environ.get(
             "REGENNET_REC_MODEL_PATH", "")
         if not rec:
@@ -506,3 +507,54 @@ class TrainLoop:
             self.train_platform.report_scalar(
                 name=k, value=float(v[0]), iteration=self.state_step, group_name="Eval")
         logger.log(f"Evaluation time: {round(time.time() - start) / 60}min")
+
+    def _evaluate_humanml(self):
+        """The text-to-motion evaluation (regennet_tpu TrainLoop._evaluate_humanml):
+        eval_humanml.evaluation of samples from the current parameters at the
+        run's compute dtype (guidance 1), against the T2M evaluators of
+        --rec_model_path (random ones from --seed without it), on the
+        --eval_split split: eval_num_samples at eval_batch_size (-1: the
+        whole split), eval_rep_times replications, diversity over
+        min(300, samples), no multimodality. The wrapper and the split are
+        built once. The log goes to eval_humanml_{step:09d}.log in save_dir;
+        each metric goes to the train platform under "Eval", R-precision as
+        top{k}_<key>."""
+        from regennet_torch.data.humanml.dataset import Text2MotionDataset
+        from regennet_torch.eval import eval_humanml
+
+        start = time.time()
+        if self._hml_eval is None:
+            wrapper = eval_humanml.load_t2m_wrapper(
+                self.args.dataset, getattr(self.args, "rec_model_path", ""), self.args.seed,
+                self.device)
+            eval_ds = Text2MotionDataset(self.args.data_path, split=self.args.eval_split,
+                                         dataset_name=self.args.dataset)
+            self._hml_eval = (wrapper, eval_ds)
+        wrapper, eval_ds = self._hml_eval
+        model = copy.deepcopy(self.model).to(self.dtype).eval()
+        num_samples = self.args.eval_num_samples
+        gt_factory = eval_humanml.make_gt_loader_factory(
+            eval_ds, self.args.eval_batch_size, num_samples)
+        gen_factory = eval_humanml.make_gen_loader_factory(
+            eval_ds, model, self.sched, self.cfg, self.args.eval_batch_size, num_samples,
+            seed=self.args.seed)
+        step = self.state_step
+        log_file = os.path.join(self.save_dir, f"eval_humanml_{step:09d}.log")
+        if num_samples is None or num_samples < 0:  # -1: the whole split
+            num_samples = len(eval_ds)
+        eval_dict = eval_humanml.evaluation(
+            wrapper, gt_factory, {"model": gen_factory}, log_file,
+            replication_times=self.args.eval_rep_times,
+            diversity_times=min(300, num_samples), run_mm=False)
+        for k, v in eval_dict.items():
+            if k.startswith("R_precision"):
+                for i, value in enumerate(v):
+                    self.train_platform.report_scalar(
+                        name=f"top{i + 1}_{k}", value=float(value), iteration=step,
+                        group_name="Eval")
+            else:
+                self.train_platform.report_scalar(
+                    name=k, value=float(np.asarray(v).mean()), iteration=step,
+                    group_name="Eval")
+        logger.log(f"Evaluation time: {round(time.time() - start) / 60}min")
+

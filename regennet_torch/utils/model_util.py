@@ -80,6 +80,12 @@ def get_model_args(args, data) -> dict:
     )
 
 
+class TextData:
+    """What the model factory reads of a text dataset (humanml, kit): one
+    action, unused."""
+    num_actions = 1
+
+
 def model_dtype(args) -> torch.dtype:
     """The dtype the denoiser computes in (`--compute_dtype`, float32 when unset)."""
     name = getattr(args, "compute_dtype", None) or "float32"

@@ -180,8 +180,10 @@ def add_training_options(parser):
     group.add_argument("--eval_split", default="test", choices=["val", "test"])
     group.add_argument("--eval_during_training", action="store_true",
                        help="Evaluate after every save, against "
-                            "--rec_model_path: eval_cmdm's debug protocol, or "
-                            "for humanact12/uestc eval_humanact12_uestc's.")
+                            "--rec_model_path: eval_cmdm's debug protocol, "
+                            "for humanact12/uestc eval_humanact12_uestc's, for "
+                            "humanml/kit eval_humanml's (the T2M evaluators; "
+                            "random ones without --rec_model_path).")
     group.add_argument("--rec_model_path", default="", type=str)
     group.add_argument("--nan_guard", action="store_true",
                        help="Drop non-finite training steps (loss or grad "
@@ -249,13 +251,20 @@ def add_evaluation_options(parser):
                        help="The CMDM's .pt file, with args.json beside it.")
     group.add_argument("--rec_model_path", required=True, type=str,
                        help="The recognition classifier (the ST-GCN; the GRU "
-                            "classifier for humanact12): the port's .pt or a "
+                            "classifier for humanact12; for humanml and kit "
+                            "the T2M evaluators, a finest.tar or the matching "
+                            ".pt of train_t2m_eval): the port's .pt or a "
                             "released file; 'random' builds it from --seed.")
-    group.add_argument("--eval_mode", default="debug", choices=["debug", "full"],
+    group.add_argument("--eval_mode", default="debug",
+                       choices=["debug", "wo_mm", "mm_short", "full"],
                        type=str, help="eval_cmdm: debug 100 samples, 1 seed, "
                                       "accuracy only; full 1000 samples, 20 "
                                       "seeds. eval_humanact12_uestc: debug 10 "
-                                      "samples, 2 seeds.")
+                                      "samples, 2 seeds. eval_humanml: debug 32 "
+                                      "samples, 2 replications; wo_mm and full "
+                                      "1000, 20; mm_short 1000, 5, with "
+                                      "multimodality. Each refuses the modes it "
+                                      "does not run.")
     group.add_argument("--guidance_param", default=2.5, type=float)
     group.add_argument("--auto_regressive", action="store_true",
                        help="Re-sample once per revealed actor frame.")
@@ -267,6 +276,11 @@ def add_evaluation_options(parser):
     group.add_argument("--unconstrained_data_path", default="", type=str,
                        help="The dataset motions of the unconstrained protocol "
                             "(humanact12_modi_struct.npy, [N, >=15, 3, T]).")
+    group.add_argument("--length_estimator", default="", type=str,
+                       help="A trained length estimator (train_t2m_eval "
+                            "--stage length, or a released latest.tar) for the "
+                            "comp_v6 route of eval_humanml, which is not "
+                            "ported; the diffusion route ignores it.")
     group.add_argument("--eval_seed_batch", default=0, type=int,
                        help="Stack this many evaluation seeds into one "
                             "sampling batch (0: 128 // batch size; 1: none).")
@@ -310,7 +324,10 @@ def generate_args(argv=None):
     p.add_argument("--glove_root", default="./glove", type=str,
                    help="GloVe archive dir for comp_v6 word inputs")
     p.add_argument("--length_estimator", default="", type=str,
-                   help="length-estimator checkpoint (not ported)")
+                   help="a trained length estimator (train_t2m_eval --stage "
+                        "length's .pt, or a released latest.tar): each "
+                        "prompt's length is drawn from its logits in bins of "
+                        "4 frames")
     p.add_argument("--render", default=False, action=BooleanOptionalAction,
                    help="write stick-figure videos per sample (not ported)")
     p.add_argument("--seed", default=0, type=int)

@@ -357,6 +357,52 @@ def test_t2m_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert encoded == [3, 3, 4, 4, 4, 4, 4, 2]
 
 
+def test_text_evaluation_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 12 at a cut size, after phase 11 on the same workdir: the GloVe
+    archive, train_t2m_eval --stage all (the evaluators at their published
+    widths), the trained networks against CPU copies, eval_humanml debug
+    with CFG, train_mdm with the in-training evaluation, generate
+    --length_estimator; every word vectorizer reads the archive and every
+    text goes through the CLIP route (the CPU runs launch nothing). The
+    evaluators' widths are cut too."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.models import t2m_eval
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, steps=5).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    monkeypatch.setitem(cs.TRAIN, "steps_per_call", 2)
+    for key, value in dict(batch=4, steps=4, clips=16, samples=2).items():
+        monkeypatch.setitem(cs.T2M, key, value)
+    for key, value in dict(vocab_size=600, dim=64, heads=1, num_layers=2).items():
+        monkeypatch.setitem(cs.CLIP_TOWER, key, value)
+    for key, value in dict(epochs=1, batch=8, train_steps=2, eval_samples=4,
+                           lengths=3).items():
+        monkeypatch.setitem(cs.T2M_EVAL, key, value)
+    for key, value in dict(dim_text_hidden=32, dim_coemb_hidden=16, dim_motion_hidden=48,
+                           dim_movement_enc_hidden=32, dim_movement_latent=24).items():
+        monkeypatch.setitem(t2m_eval.T2M_OPT, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    monkeypatch.delenv("REGENNET_CLIP_PATH", raising=False)
+    cwd = os.getcwd()
+    cs.run_t2m({}, "cpu", tmp_path, device="cpu")
+    report = {}
+    launches = cs.run_t2m_eval(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"b1": 0, "b2": {"forward": 0, "backward": 0}}
+    assert os.getcwd() == cwd and "REGENNET_CLIP_PATH" not in os.environ  # restored
+    assert (tmp_path / "glove" / "our_vab_data.npy").is_file()
+    assert set(report["t2m_evaluators_card_vs_cpu_share"]) == {
+        "movement encoder", "movement decoder", "text tower", "motion tower",
+        "length estimator"}
+    rows = report["t2m_eval"]
+    # debug: 2 replications of one batch, the test split's 8 clips (32 asked)
+    assert rows["eval"]["sampling_rows"] == [8, 8] and rows["eval"]["sampling_steps"] == 10
+    assert rows["in_training"]["sampling_rows"] == [4]
+    assert rows["generate"]["sampling_rows"] == [3] and len(rows["generate"]["lengths"]) == 3
+    assert rows["glove_vectorizers"] >= 4 and 0 < rows["sampling_share"] < 1
+    assert report["t2m_eval_training"]["steps"] == 2
+
+
 def _guard_results(**acc_fid):
     """A learning-guard artefact that passes every threshold, with
     (accuracy, FID) of a row replaced by acc_fid[row]."""
@@ -433,20 +479,22 @@ def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_p
 
 def test_path_launches_add_up(monkeypatch):
     """The kernel line's launches: each kernel summed over its paths, B2
-    by direction, phases 8, 10 and 11 included."""
+    by direction, phases 8, 10, 11 and 12 included."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
 
     paths = {"fused_attention_btd": {"phase 3": 24000, "phase 5": 8000, "phase 6": 64000,
-                                     "phase 8": 400, "phase 10": 53200, "phase 11": 8000},
+                                     "phase 8": 400, "phase 10": 53200, "phase 11": 8000,
+                                     "phase 12": 32000},
              "fused_attention_btd_train": {
                  "phase 4": {"forward": 320, "backward": 320},
                  "phase 5": {"forward": 128, "backward": 128},
                  "phase 8": {"forward": 1600, "backward": 1600},
                  "phase 10": {"forward": 256, "backward": 256},
-                 "phase 11": {"forward": 128, "backward": 128}},
+                 "phase 11": {"forward": 128, "backward": 128},
+                 "phase 12": {"forward": 64, "backward": 64}},
              "fused_causal_attention": {"phase 2c": 26}}
-    assert cs.path_launches(paths, "fused_attention_btd") == 157600
-    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2432
-    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2432
+    assert cs.path_launches(paths, "fused_attention_btd") == 189600
+    assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2496
+    assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2496
     assert cs.path_launches(paths, "fused_causal_attention") == 26

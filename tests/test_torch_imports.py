@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 62  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 66  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -134,4 +134,22 @@ def test_learning_guard_entry_points_without_device_need_cuda(monkeypatch, tmp_p
         train_stgcn.run_training(args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         study.run_study(workdir=str(tmp_path / "guard"))
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+def test_text_evaluation_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
+    """eval_humanml and train_t2m_eval run on the GPU unless asked for the
+    CPU: without CUDA they raise before writing anything."""
+    from regennet_torch.eval import eval_humanml
+    from regennet_torch.train import train_t2m_eval
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = Namespace(seed=0, device=0, model_path=str(tmp_path / "model000000001.pt"),
+                     eval_mode="debug")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_humanml.main(args)
+    args = train_t2m_eval.parse_args(["--data_path", str(tmp_path), "--save_dir",
+                                      str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_t2m_eval.main(args)
     assert not os.listdir(tmp_path)  # nothing ran on the CPU instead

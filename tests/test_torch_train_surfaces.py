@@ -8,7 +8,7 @@ the JAX package's TrainLoop.
   JAX loop's, both loops run with their evaluation entry stubbed. For
   HumanAct12 and UESTC it runs eval_humanact12_uestc's route with
   eval_rep_times seeds, as the JAX loop does. Without a classifier it
-  logs and skips; humanml/kit raise.
+  logs and skips; humanml/kit take eval_humanml's route.
 * TensorBoard: the platform and the log format write event files, and
   train_mdm on HumanAct12 logs its loss and evaluations there.
 * The profiler window opens and closes at the steps where the JAX loop's
@@ -177,11 +177,43 @@ def test_eval_takes_the_classifier_from_the_environment(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("dataset,missing", [
     ("humanml", "eval_humanml"), ("kit", "eval_humanml")])
-def test_eval_of_unported_datasets_raises(tmp_path, dataset, missing):
-    loop = _loop(tmp_path, eval_during_training=True, rec_model_path="random")
+def test_eval_of_unported_datasets_raises(tmp_path, monkeypatch, dataset, missing):
+    """humanml and kit no longer raise: they take the eval_humanml route
+    (its entry points stubbed here; tests/test_torch_eval_humanml.py runs
+    it), with the JAX loop's protocol: the evaluators of --rec_model_path,
+    the --eval_split split built once, eval_rep_times replications,
+    diversity over min(300, samples), no multimodality, the log
+    eval_humanml_{step:09d}.log, R-precision reported as top{k}_<key>."""
+    from regennet_torch.data.humanml import dataset as hml
+    from regennet_torch.eval import eval_humanml
+
+    loop = _loop(tmp_path, eval_during_training=True, rec_model_path="random",
+                 eval_num_samples=-1, eval_rep_times=2, data_path="/data/hml")
     loop.args.dataset = dataset
-    with pytest.raises(NotImplementedError, match=missing):
-        loop.evaluate()
+    calls = []
+    monkeypatch.setattr(eval_humanml, "load_t2m_wrapper",
+                        lambda *a: calls.append(("wrapper", a)) or "wrapper")
+    monkeypatch.setattr(hml, "Text2MotionDataset",
+                        lambda *a, **kw: calls.append(("split", a, kw)) or [0] * 7)
+    monkeypatch.setattr(eval_humanml, "make_gt_loader_factory", lambda *a: "gt")
+    monkeypatch.setattr(eval_humanml, "make_gen_loader_factory", lambda *a, **kw: "gen")
+
+    def evaluation(wrapper, gt, gens, log_file, **kw):
+        calls.append(("evaluation", wrapper, gt, gens, os.path.basename(log_file), kw))
+        return {"R_precision_model": [0.25, 0.5, 0.75], "FID_model": 3.0}
+
+    monkeypatch.setattr(eval_humanml, "evaluation", evaluation)
+    loop.evaluate()
+    loop.evaluate()
+    assert calls[:2] == [("wrapper", (dataset, "random", loop.args.seed, loop.device)),
+                         ("split", ("/data/hml",), {"split": "test", "dataset_name": dataset})]
+    assert calls[2:] == [("evaluation", "wrapper", "gt", {"model": "gen"},
+                          "eval_humanml_000000000.log",
+                          dict(replication_times=2, diversity_times=7, run_mm=False))] * 2
+    assert [(n, v) for n, v, _, g in loop.train_platform.evals()] == [
+        ("top1_R_precision_model", 0.25), ("top2_R_precision_model", 0.5),
+        ("top3_R_precision_model", 0.75), ("FID_model", 3.0)] * 2
+    assert missing == "eval_humanml"
 
 
 @pytest.fixture(scope="module")
