@@ -106,7 +106,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      --rec_model_path); train_mdm --dataset humanml --eval_during_training
      (8 steps, one evaluation of 32 samples); generate --length_estimator;
      no word falls back to hashed GloVe vectors, no text to the hashed
-     CLIP stand-in.
+     CLIP stand-in;
+  13. the comp_v6 generator at its published widths (text hidden 512,
+     attention 512, z 128, hidden 1024, one layer, movement latent 512: 49
+     snippets at 196 frames) on phase 11's data and phase 12's decomp,
+     evaluators, length estimator and GloVe archive: train_t2m_gen (2
+     epochs at batch 32), its training forward on the card against a CPU
+     copy, teacher forcing off and on; eval_humanml debug on its .pt with
+     --length_estimator, every metric finite; the same state as a
+     released-layout latest.tar giving the same log and the same generate
+     output; a training step's and a prior sampling's device time under
+     torch.profiler; generate's comp_v6 route for 4 prompts; motion_process
+     on 8 seeded raw joint clips, the card against --device cpu. It runs
+     no attention kernel, and fails if one launches.
 Each kernel's launches are read around each path that runs it (phases 3,
 5, 6, 8, 9, 10, 11 and 12 for B1; 4, 5, 8, 9, 10, 11 and 12 for B2; 2c for
 B3) and summed in the kernel line;
@@ -608,9 +620,9 @@ def backward_pass_ms(fn, iters=20):
     return found
 
 
-def kernel_times(fn, iters=20, attempts=3):
-    """Device time per call of fn() in ms, and per kernel name (the longest
-    first): every CUDA kernel and memory operation of `iters` calls after a
+def device_events(fn, iters=20, attempts=3):
+    """{name: (device ms, launches)} per call of fn(), the longest first:
+    every CUDA kernel and memory operation of `iters` calls after a
     warm-up, summed under torch.profiler, over `iters`. The host's time
     between launches is not in it. A profile that recorded no device time
     (the profiler on that machine has returned one) is taken again, up to
@@ -625,12 +637,19 @@ def kernel_times(fn, iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {evt.key: evt.device_time_total / 1e3 / iters for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA}
-        total = sum(by_name.values())
-        if total > 0:
-            return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+        events = {evt.key: (evt.device_time_total / 1e3 / iters, evt.count / iters)
+                  for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(ms for ms, _ in events.values()) > 0:
+            return dict(sorted(events.items(), key=lambda kv: -kv[1][0]))
     raise AssertionError(f"the profiler recorded no device time in {attempts} profiles")
+
+
+def kernel_times(fn, iters=20, attempts=3):
+    """Device time per call of fn() in ms, and per kernel name (the longest
+    first), from device_events."""
+    by_name = {k: ms for k, (ms, _) in device_events(fn, iters, attempts).items()}
+    return sum(by_name.values()), by_name
 
 
 def device_ms(fn, iters=20):
@@ -2632,6 +2651,338 @@ def run_t2m_eval(report, card, workdir, device="cuda"):
     return {"b1": b1, "b2": b2}
 
 
+# phase 13: the comp_v6 generator at its published widths (T2M_GEN_OPT: text
+# hidden 512, attention 512, z 128, prior/posterior/decoder hidden 1024, one
+# layer, movement latent 512, snippets of 4 frames: 49 at the 196-frame window)
+# on phase 11's data and phase 12's decomp, evaluators and length estimator
+COMP_V6 = dict(dim_z=128, pri_hidden=1024, dec_hidden=1024, text_hidden=512, att_vec=512,
+               n_layers=1, epochs=2, batch=32, prompts=4, raw_clips=8, seed=15)
+COMP_V6_PROMPTS = ["a person walks forward and turns left", "a person walks forward",
+                   "a person turns", "a person walks"]
+
+
+def median_block_ms(step_ms, warmup=2, block=8):
+    """The median over blocks of `block` steps of each block's mean, the
+    first `warmup` steps left out."""
+    import numpy as np
+
+    steps = np.asarray(step_ms[warmup:], dtype=np.float64)
+    n = max(1, len(steps) // block)
+    return float(np.median([b.mean() for b in np.array_split(steps[:n * block], n)]))
+
+
+@contextlib.contextmanager
+def timed_generate(device="cuda"):
+    """Inside the block, yields the list of the comp_v6 generator's prior
+    sampling calls: (rows, snippets, device-synchronised ms)."""
+    import torch
+
+    from regennet_torch.models import t2m_gen
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    calls = []
+    generate = t2m_gen.CompV6Generator.generate
+
+    def timed(self, word_embs, pos_ohot, cap_lens, m_lens, mov_in0, mov_len, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = generate(self, word_embs, pos_ohot, cap_lens, m_lens, mov_in0, mov_len, *a, **kw)
+        sync()
+        calls.append((word_embs.shape[0], mov_len, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    t2m_gen.CompV6Generator.generate = timed
+    try:
+        yield calls
+    finally:
+        t2m_gen.CompV6Generator.generate = generate
+
+
+def check_comp_v6_forward(report, card, gen, data_path, device="cuda"):
+    """The trained generator's training forward on the card against a CPU
+    copy at f32, teacher forcing off and on, on a train batch with fixed
+    eps, each output within 1e-5 x max(1, max|cpu|) (phase 12's bound for
+    the evaluators). The movements come from the CPU copy of the movement
+    encoder, one input for both."""
+    import copy
+
+    import torch
+
+    from regennet_torch.data.humanml.dataset import Text2MotionDataset
+    from regennet_torch.eval.eval_humanml import _stack_items
+    from regennet_torch.models import t2m_eval
+
+    ds = Text2MotionDataset(data_path, split="train")
+    word, pos, _, cap_lens, motions, m_lens, _ = _stack_items(
+        [ds[i] for i in range(COMP_V6["batch"])])
+    B, mov_len = len(word), motions.shape[1] // 4
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    generator = torch.Generator().manual_seed(COMP_V6["seed"])
+    movements = torch.randn(B, mov_len, t2m_eval.T2M_OPT["dim_movement_latent"],
+                            generator=generator)
+    mov_in0 = torch.randn(B, movements.shape[-1], generator=generator)
+    eps = [torch.randn(mov_len, B, gen.dim_z, generator=generator) for _ in range(2)]
+    cpu_gen = copy.deepcopy(gen).cpu()
+    worst = {}
+    with torch.no_grad():
+        for teacher_force in (False, True):
+            inputs = (f32(word), f32(pos), cap_lens, movements, m_lens, mov_in0,
+                      teacher_force, *eps)
+            ref = cpu_gen(*inputs)
+            ours = gen(*(a.to(device) if torch.is_tensor(a) else a for a in inputs))
+            for key, value in ref.items():
+                err = max_abs_err(ours[key].cpu(), value)
+                tol = 1e-5 * max(1.0, float(value.abs().max()))
+                hold(f"the trained comp_v6 generator's {key} (teacher forcing "
+                     f"{teacher_force}) on {device} against its CPU copy", err, tol)
+                worst[f"{key} tf={int(teacher_force)}"] = err / tol
+    share = max(worst.values())
+    print(f"  the trained generator's training forward on {device} against a CPU copy, "
+          f"{mov_len} snippets at batch {B}, teacher forcing off and on: worst share of the "
+          f"tolerance 1e-5 x max(1, max|cpu|) {share:.3f} [{card}]")
+    report["comp_v6_card_vs_cpu_share"] = worst
+
+
+def profile_comp_v6(report, card, gen, mov_enc, data_path, device="cuda"):
+    """The trained generator's device time under torch.profiler: a training
+    step at batch 32 (teacher forcing off; a fresh Adam, so the saved
+    checkpoint is untouched) and a prior sampling of the same batch, each
+    with its kernels per call and the idle share against the run's
+    synchronised wall (the training step's median; the eval's samplings)."""
+    import torch
+
+    from regennet_torch.data.humanml.dataset import Text2MotionDataset
+    from regennet_torch.eval.eval_humanml import _stack_items
+    from regennet_torch.train import train_t2m_gen
+
+    ds = Text2MotionDataset(data_path, split="train")
+    batch = _stack_items([ds[i] for i in range(COMP_V6["batch"])])
+    B, mov_len = len(batch[0]), batch[4].shape[1] // 4
+    generator = torch.Generator(device=device).manual_seed(COMP_V6["seed"])
+    eps = [torch.randn(mov_len, B, gen.dim_z, generator=generator, device=device)
+           for _ in range(2)]
+    args = train_t2m_gen.parse_args(["--data_path", data_path, "--save_dir", "unused"])
+    step = train_t2m_gen.make_step(gen.train(), mov_enc, torch.optim.Adam(gen.parameters()),
+                                   args, device)
+    word, pos = (torch.as_tensor(x, device=device) for x in batch[:2])
+    with torch.no_grad():
+        mov_in0 = mov_enc(torch.zeros(B, 4, batch[4].shape[-1] - 4, device=device))[:, 0]
+
+    @torch.no_grad()
+    def sample():
+        gen.generate(word, pos, batch[3], batch[5], mov_in0, mov_len, eps[0])
+
+    rows = {}
+    for what, fn, wall in (("training step", lambda: step(batch, False, *eps),
+                            report["comp_v6"]["training"]["ms_per_step"]),
+                           ("prior sampling", sample, min(
+                               ms for _, _, ms in report["comp_v6"]["eval"]["generate_calls"]))):
+        events = device_events(fn, iters=2)
+        busy = sum(ms for ms, _ in events.values())
+        launches = sum(n for _, n in events.values())
+        top = {k[:60]: round(ms, 4) for k, (ms, _) in list(events.items())[:4]}
+        rows[what] = dict(busy_ms=busy, launches=launches, wall_ms=wall,
+                          idle_share=1 - busy / wall, top=top)
+        print(f"  {what} at batch {B} over {mov_len} snippets under torch.profiler: busy "
+              f"{busy:.2f} ms of {wall:.2f} ms synchronised (idle share {1 - busy / wall:.3f}), "
+              f"{launches:.0f} kernels and copies, {busy / launches * 1e3:.1f} µs each; longest "
+              f"{top} [{card}]")
+    report["comp_v6"]["profile"] = rows
+
+
+def write_raw_joints(root, count, seed):
+    """`count` raw HumanML3D joint clips [T, 22, 3] of 60-199 frames: smooth
+    random local rotations and a walking root FK'd through the t2m template
+    at unequal bone lengths."""
+    import numpy as np
+
+    from regennet_torch.data.humanml import skeleton as sk
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    skel = sk.make_skeleton("humanml")
+    offsets = sk.T2M_RAW_OFFSETS * (0.25 * (1.0 + 0.4 * np.arange(22) / 22.0))[:, None]
+    offsets[0] = 0
+    skel.set_offset(offsets)
+    for i in range(count):
+        T = int(rng.integers(60, 200))
+        axis = rng.normal(size=(1, 22, 3))
+        axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+        ang = 0.3 * np.sin(np.linspace(0, 2 * np.pi * rng.uniform(1, 3), T))[:, None, None]
+        q = np.concatenate([np.cos(ang / 2) * np.ones((T, 22, 1)),
+                            np.sin(ang / 2) * axis * np.ones((T, 22, 1))], axis=-1)
+        root_pos = np.stack([np.linspace(0, rng.uniform(-1, 1), T), np.full(T, 0.9),
+                             np.linspace(0, rng.uniform(0.5, 2), T)], axis=-1)
+        np.save(os.path.join(root, f"{i:06d}.npy"),
+                skel.forward_kinematics(q.astype(np.float32), root_pos.astype(np.float32)))
+    return root
+
+
+def run_preprocessing(report, card, workdir, device="cuda"):
+    """motion_process._cli on seeded raw joint clips on the card and with
+    --device cpu: the features, Mean and Std equal, the recovered joints
+    within 1e-5 x max(1, max|cpu|)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.humanml import motion_process
+
+    raw = write_raw_joints(str(workdir / "raw_joints"), COMP_V6["raw_clips"], COMP_V6["seed"])
+    walls, frames = {}, {}
+    for where in (device, "cpu"):
+        out = workdir / f"built_{where}"
+        t0 = time.perf_counter()
+        frames[where] = motion_process._cli([
+            "--joints_dir", raw, "--out_dir", str(out), "--example_id", "000000",
+            "--device", "cpu" if where == "cpu" else str(torch.device(where).index or 0)])
+        walls[where] = time.perf_counter() - t0
+    card_out, cpu_out = workdir / f"built_{device}", workdir / "built_cpu"
+    names = sorted(p.name for p in (cpu_out / "new_joint_vecs").glob("*.npy"))
+    if len(names) != COMP_V6["raw_clips"] or frames[device] != frames["cpu"]:
+        raise AssertionError(f"preprocessing built {names}, frames {frames}")
+    worst = 0.0
+    for name in names:
+        for sub in ("new_joint_vecs", "new_joints"):
+            ours, ref = (np.load(d / sub / name) for d in (card_out, cpu_out))
+            tol = 1e-5 * max(1.0, float(np.abs(ref).max())) if sub == "new_joints" else 0.0
+            err = float(np.abs(ours - ref).max())
+            hold(f"{sub}/{name} built on {device} against --device cpu", err, tol)
+            if sub == "new_joints":
+                worst = max(worst, err / tol)
+    for stat in ("Mean.npy", "Std.npy"):
+        ours, ref = np.load(card_out / stat), np.load(cpu_out / stat)
+        if ours.shape != (263,) or not np.array_equal(ours, ref):
+            raise AssertionError(f"{stat} built on {device} differs from --device cpu")
+    report["comp_v6"]["preprocessing"] = dict(walls=walls, frames=frames[device],
+                                              joints_share=worst)
+    print(f"  motion_process: {len(names)} raw clips ({frames[device]} feature frames) built "
+          f"in {walls[device]:.2f} s with the recovery check on {device}, {walls['cpu']:.2f} s "
+          f"with --device cpu; features, Mean and Std equal, joints within "
+          f"{worst:.3f} of the tolerance [{card}]")
+
+
+def run_comp_v6(report, card, workdir, device="cuda"):
+    """Phase 13, the comp_v6 generator at its published widths on phase 11's
+    synthetic HumanML3D and phase 12's networks and GloVe archive (the phase
+    run with the workdir as cwd): train_t2m_gen for COMP_V6["epochs"] epochs
+    at batch 32 from phase 12's decomp, the trained generator's training
+    forward on the card against a CPU copy; eval_humanml debug on its .pt
+    with phase 12's matching evaluators and length estimator, every metric
+    finite; the same state as a released-layout latest.tar gives the same
+    log and the same generate output; generate's comp_v6 route for 4
+    prompts; motion_process on seeded raw joints, the card against --device
+    cpu. No attention kernel runs, and none may launch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.eval import eval_humanml
+    from regennet_torch.models import t2m_eval
+    from regennet_torch.sample import generate
+    from regennet_torch.train import train_t2m_gen
+    from regennet_torch.utils import parser_util
+
+    t_phase = time.perf_counter()
+    paths = t2m_paths(workdir)
+    run_dir = workdir / "t2m_eval"
+    stage = f"model{T2M_EVAL['epochs']:09d}.pt"
+    matching, length = str(run_dir / "matching" / stage), str(run_dir / "length" / stage)
+    rows = report["comp_v6"] = {}
+    sizes = [a for k in ("dim_z", "pri_hidden", "dec_hidden", "text_hidden", "att_vec",
+                         "n_layers") for a in (f"--{k}", str(COMP_V6[k]))]
+    with working_dir(workdir), word_vectorizers() as vocab:
+        args = train_t2m_gen.parse_args([
+            "--data_path", paths["humanml"], "--save_dir", str(run_dir / "comp_v6"),
+            "--batch_size", str(COMP_V6["batch"]), "--num_epochs", str(COMP_V6["epochs"]),
+            "--seed", "0", *sizes])
+        trained, counts = counted_run(lambda: train_t2m_gen.main(args, device=device), device)
+        steps = len(trained["step_ms"])
+        step_ms = median_block_ms(trained["step_ms"])
+        rows["training"] = dict(counts, steps=steps, ms_per_step=step_ms,
+                                params=sum(p.numel() for p in trained["generator"].parameters()))
+        print(f"  train_t2m_gen: {steps} steps ({COMP_V6['epochs']} epochs at batch "
+              f"{COMP_V6['batch']}, {rows['training']['params'] / 1e6:.2f}M parameters) in "
+              f"{counts['wall_s']:.1f} s; {step_ms:.2f} ms a synchronised step (median of "
+              f"8-step blocks after 2) [{card}]")
+        check_comp_v6_forward(report, card, trained["generator"], paths["humanml"], device)
+
+        released = workdir / "released" / "comp_v6"
+        released.mkdir(parents=True)
+        shutil.copy(run_dir / "comp_v6" / "args.json", released / "args.json")
+        torch.save({**t2m_eval.load_torch_file(trained["path"]), "ep": COMP_V6["epochs"],
+                    "total_it": steps}, released / "latest.tar")
+        logs, evals = {}, {}
+        for route, model_path in (("pt", trained["path"]), ("tar", str(released / "latest.tar"))):
+            eval_args = parser_util.evaluation_parser([
+                "--model_path", model_path, "--rec_model_path", matching, "--eval_mode",
+                "debug", "--length_estimator", length, "--data_path", paths["humanml"],
+                "--seed", "0"])
+            with timed_generate(device) as calls:
+                metrics, counts = counted_run(
+                    lambda: eval_humanml.main(eval_args, device=device), device)
+            bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+            if bad or len(metrics) != 8:
+                raise AssertionError(f"eval_humanml on the comp_v6 {route}: {metrics}")
+            log = Path(model_path).parent / "eval_humanml_comp_v6_debug.log"
+            logs[route] = log.read_text()
+            evals[route] = dict(counts, metrics=metrics, generate_calls=calls)
+        if logs["pt"] != logs["tar"]:
+            raise AssertionError("the released-layout .tar's eval log differs from the .pt's")
+        rows["eval"] = evals["pt"]
+        eval_ms = [ms for _, _, ms in evals["pt"]["generate_calls"]]
+        metrics = evals["pt"]["metrics"]
+        print(f"  eval_humanml debug (2 replications, --length_estimator): "
+              f"{evals['pt']['wall_s']:.1f} s, {len(eval_ms)} prior samplings of "
+              f"{evals['pt']['generate_calls'][0][0]} rows at {np.mean(eval_ms):.1f} ms each; "
+              f"FID {metrics['FID_comp_v6']:.4g}, R-precision "
+              f"{np.round(metrics['R_precision_comp_v6'], 4).tolist()}; the latest.tar route "
+              f"wrote the same log [{card}]")
+        if device != "cpu":  # torch.profiler's device time needs the card
+            profile_comp_v6(report, card, trained["generator"], trained["mov_enc"],
+                            paths["humanml"], device)
+        del trained["generator"]
+
+        results = {}
+        for route, model_path in (("pt", trained["path"]), ("tar", str(released / "latest.tar"))):
+            prompts = workdir / "comp_v6_prompts.txt"
+            prompts.write_text("\n".join(COMP_V6_PROMPTS[:COMP_V6["prompts"]]))
+            gen_args = parser_util.generate_args([
+                "--model_path", model_path, "--data_path", paths["humanml"], "--input_text",
+                str(prompts), "--motion_length", str(T2M["T"] / 20), "--seed", "0",
+                "--output_dir", str(workdir / f"comp_v6_generate_{route}")])
+            with timed_generate(device) as calls:
+                results[route], counts = counted_run(
+                    lambda: generate.main(gen_args, device=device), device)
+            if route == "pt":
+                rows["generate"] = dict(counts, generate_calls=calls)
+        ours, ref = results["pt"], results["tar"]
+        if not all(np.array_equal(ours[k], ref[k]) for k in ("motion", "feature", "lengths")):
+            raise AssertionError("generate through the latest.tar differs from the .pt")
+        saved = np.load(workdir / "comp_v6_generate_pt" / "results.npy", allow_pickle=True).item()
+        n = COMP_V6["prompts"]
+        want = {"motion": (n, T2M["T"], 22, 3), "feature": (n, T2M["T"], 263), "lengths": (n,)}
+        shapes = {k: np.shape(saved[k]) for k in want}
+        if shapes != want or not np.isfinite(saved["motion"]).all():
+            raise AssertionError(f"comp_v6 results.npy: shapes {shapes}")
+        rows_, snippets, gen_ms = rows["generate"]["generate_calls"][0]
+        print(f"  generate (comp_v6 route): {rows_} prompts, {snippets} snippets in "
+              f"{gen_ms:.2f} ms ({gen_ms / snippets:.3f} ms a snippet step), the request "
+              f"{rows['generate']['wall_s']:.2f} s; motion {list(want['motion'])} finite; the "
+              f"latest.tar gives the same motions [{card}]")
+        run_preprocessing(report, card, workdir, device)
+    if not vocab or any(wv.using_fallback for wv in vocab):
+        raise AssertionError("a WordVectorizer fell back to the hashed word vectors")
+    launched = [r for r in (rows["training"], rows["eval"], rows["generate"])
+                if r["b1"] or r["b2"]["forward"] or r["b2"]["backward"]]
+    if launched:
+        raise AssertionError(f"an attention kernel launched on the comp_v6 path: {launched}")
+    wall_s = time.perf_counter() - t_phase
+    rows.update(wall_s=wall_s, ms_per_generated_batch=gen_ms,
+                ms_per_snippet_step=gen_ms / snippets)
+    print(f"  phase 13: {wall_s:.1f} s; no attention kernel launched [{card}]")
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -2717,6 +3068,9 @@ def main() -> int:
               "route, generate --length_estimator) on phase 11's model")
         t2m_eval_worst = check_t2m_eval_kernels(report)
         t2m_eval = run_t2m_eval(report, card, Path(tmp) / "t2m")
+        print("phase 13: the comp_v6 generator (train_t2m_gen, eval_humanml and generate's "
+              "comp_v6 routes, motion_process) at its published widths")
+        run_comp_v6(report, card, Path(tmp) / "t2m")
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,

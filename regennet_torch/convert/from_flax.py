@@ -8,10 +8,12 @@ the unconstrained openpose one), of ::convert_gru_classifier for the
 a2m GRU classifier, of ::convert_clip_text for the CLIP text tower
 (into the OpenAI ViT-B-32.pt names that models/clip_text_tower.py
 loads), of ::convert_t2m_evaluator and ::convert_length_estimator for the
-text-to-motion evaluators (models/t2m_eval.py), and of the movement
-autoencoder that train_t2m_eval's decomp stage trains. It takes the param tree as nested dicts of numpy arrays (no JAX
-import), so weights of a model trained by the JAX package load into
-regennet_torch.models.cmdm.CMDM with `load_state_dict`.
+text-to-motion evaluators (models/t2m_eval.py), of the movement
+autoencoder that train_t2m_eval's decomp stage trains, and of
+::convert_comp_v6 for the comp_v6 generator (models/t2m_gen.py) and its
+trainer's state. It takes the param tree as nested dicts of numpy arrays
+(no JAX import), so weights of a model trained by the JAX package load
+into regennet_torch.models.cmdm.CMDM with `load_state_dict`.
 """
 
 from __future__ import annotations
@@ -296,6 +298,54 @@ def decomp_state_from_flax(params: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
             "movement_dec": movement_decoder_state_dict_from_flax(params["movement_dec"])}
 
 
+def _gru_cell(sd, prefix, cell):
+    """Flax GRUCell -> torch nn.GRUCell `prefix` (keys without the _l0 of
+    nn.GRU), flax's one r/z bias in bias_ih as _gru_layer puts it."""
+    layer: Dict[str, np.ndarray] = {}
+    _gru_layer(layer, prefix, 0, cell)
+    sd.update({k[:-len("_l0")]: v for k, v in layer.items()})
+
+
+def _seq_cell(p: Mapping) -> Dict[str, np.ndarray]:
+    """A comp_v6 prior/posterior (mu_net, logvar_net) or decoder (out1,
+    out_ln, out2) cell -> `z2init`, `emb.{0,1}`, `gru.{i}` and `mu_net`,
+    `logvar_net` or `output.{0,1,3}` (the inverse of torch_ckpt._comp_seq_cell)."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "z2init", p["z2init"])
+    _linear(sd, "emb.0", p["emb_dense"])
+    _layernorm(sd, "emb.1", p["emb_ln"])
+    i = 0
+    while f"gru_{i}" in p:
+        _gru_cell(sd, f"gru.{i}", p[f"gru_{i}"])
+        i += 1
+    if "mu_net" in p:
+        _linear(sd, "mu_net", p["mu_net"])
+        _linear(sd, "logvar_net", p["logvar_net"])
+    else:
+        _linear(sd, "output.0", p["out1"])
+        _layernorm(sd, "output.1", p["out_ln"])
+        _linear(sd, "output.3", p["out2"])
+    return sd
+
+
+def comp_v6_state_from_flax(params: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """Flax CompV6Generator params -> the released CompTrainerV6 layout of
+    its six networks {text_enc, seq_pri, seq_post, seq_dec, att_layer,
+    mov_dec} (the inverse of torch_ckpt.convert_comp_v6, without mov_enc:
+    movement_encoder_state_dict_from_flax gives that one)."""
+    text: Dict[str, np.ndarray] = {}
+    _bigru(text, params["text_enc"], params["text_enc"]["pos_emb"])
+    att = params["att_layer"]
+    att_sd: Dict[str, np.ndarray] = {}
+    _linear(att_sd, "W_q", att["W_q"])
+    att_sd["W_k.weight"] = np.ascontiguousarray(np.asarray(att["W_k"]["kernel"]).T)
+    _linear(att_sd, "W_v", att["W_v"])
+    return {"text_enc": text, "seq_pri": _seq_cell(params["seq_pri"]),
+            "seq_post": _seq_cell(params["seq_post"]), "seq_dec": _seq_cell(params["seq_dec"]),
+            "att_layer": att_sd, "mov_dec": movement_decoder_state_dict_from_flax(
+                params["mov_dec"])}
+
+
 def _adam_state(opt_state):
     """(count, mu, nu) of optax's scale_by_adam inside an adamw chain state
     (nested tuples of named tuples, or dicts), or None."""
@@ -337,3 +387,22 @@ def train_state_from_flax(state: Mapping) -> Dict:
         "adam_step": int(np.asarray(count)),
         "step": int(np.asarray(state["step"])),
     }
+
+
+def comp_v6_train_state_from_flax(state: Mapping) -> Dict:
+    """A train_t2m_gen state of the JAX package {params, opt_state (optax
+    clip_by_global_norm then adam), movement_enc} as numpy trees, with
+    `epoch` -> the port's train_t2m_gen checkpoint: the seven released
+    state dicts and {"opt": {"step", "exp_avg", "exp_avg_sq"}, "epoch"},
+    the moments by network and parameter name as the parameters (zeros in
+    the GRU cells' frozen bias_hh r/z slices)."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("opt_state holds no optax scale_by_adam state")
+    count, mu, nu = adam
+    return {**comp_v6_state_from_flax(state["params"]),
+            "mov_enc": movement_encoder_state_dict_from_flax(state["movement_enc"]),
+            "opt": {"step": int(np.asarray(count)),
+                    "exp_avg": comp_v6_state_from_flax(mu),
+                    "exp_avg_sq": comp_v6_state_from_flax(nu)},
+            "epoch": int(state["epoch"])}

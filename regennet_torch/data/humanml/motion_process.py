@@ -6,12 +6,21 @@ root lin-vel-xz(2), root height(1), RIC joint positions((J-1)*3), 6d
 rotations((J-1)*6), local velocities(J*3), foot contacts(4)]. These
 functions recover world joints (and forward-kinematic joints from
 rotations) from that vector: `sample.generate` decodes its humanml/kit
-samples with `recover_from_ric`. The extraction half (raw joints -> RIC
-features, which needs the skeleton) is not ported.
+samples with `recover_from_ric`.
+
+The extraction half builds a HumanML3D/KIT feature dataset from raw joint
+positions (host-side numpy over data/humanml/skeleton.py: retarget, IK,
+RIC features, foot contacts, the group-pooled Mean/Std):
+`python -m regennet_torch.data.humanml.motion_process --joints_dir raw
+--out_dir built --example_id 000000` (`--device cpu` to check each clip's
+recovery on the CPU instead of the card).
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from regennet_torch.ops import rotations as geo
@@ -119,3 +128,240 @@ def recover_from_rot(data: torch.Tensor, joints_num: int, offsets,
             joints[child] = joints[parent] + torch.einsum(
                 "...ij,j->...i", glob[child], offsets[child])
     return torch.stack(joints, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Dataset construction: raw joint positions -> RIC feature vectors.
+# Host-side numpy (offline preprocessing); the recovery check runs on a device.
+# reference: data_loaders/humanml/scripts/motion_process.py:13-359,435-528
+# ---------------------------------------------------------------------------
+
+
+def _spec(dataset_name: str):
+    from regennet_torch.data.humanml import skeleton as sk
+
+    if dataset_name in ("humanml", "t2m"):
+        return dict(joints_num=22, face=sk.T2M_FACE_JOINTS, feet=sk.T2M_FEET,
+                    make=lambda: sk.make_skeleton("humanml"))
+    if dataset_name == "kit":
+        return dict(joints_num=21, face=sk.KIT_FACE_JOINTS, feet=sk.KIT_FEET,
+                    make=lambda: sk.make_skeleton("kit"))
+    raise ValueError(f"unknown dataset {dataset_name}")
+
+
+def uniform_skeleton(positions, target_offset, dataset_name: str = "humanml"):
+    """Retarget a joint sequence onto the target skeleton's bone lengths:
+    scale the root trajectory by the leg-length ratio, then IK on the source
+    and FK with the target offsets (reference: :13-37)."""
+    spec = _spec(dataset_name)
+    l_idx1, l_idx2 = spec["feet"]["l_idx"]
+    skel = spec["make"]()
+    src_offset = skel.get_offsets_joints(positions[0])
+    tgt_offset = np.asarray(target_offset, np.float32)
+
+    src_leg_len = (np.abs(src_offset[l_idx1]).max()
+                   + np.abs(src_offset[l_idx2]).max())
+    tgt_leg_len = (np.abs(tgt_offset[l_idx1]).max()
+                   + np.abs(tgt_offset[l_idx2]).max())
+    scale_rt = tgt_leg_len / src_leg_len
+    tgt_root_pos = positions[:, 0] * scale_rt
+
+    quat_params = skel.inverse_kinematics(positions, spec["face"])
+    skel.set_offset(tgt_offset)
+    return skel.forward_kinematics(quat_params, tgt_root_pos)
+
+
+def _foot_detect(positions, thres, fid_l, fid_r):
+    """Per-frame binary foot contacts from squared foot displacement
+    (reference: :63-88)."""
+    def contacts(fid):
+        d2 = ((positions[1:, fid] - positions[:-1, fid]) ** 2).sum(-1)
+        return (d2 < thres).astype(np.float32)
+
+    return contacts(fid_l), contacts(fid_r)
+
+
+def extract_features(positions, feet_thre, dataset_name: str = "humanml"):
+    """Normalised joint positions [T, J, 3] -> RIC feature matrix
+    [T-1, 4 + (J-1)*9 + J*3 + 4] (reference extract_features :39-166; the
+    same packing process_file performs after its own normalisation)."""
+    from regennet_torch.data.humanml import skeleton as sk
+
+    spec = _spec(dataset_name)
+    positions = np.asarray(positions, np.float32).copy()
+    global_positions = positions.copy()
+
+    feet_l, feet_r = _foot_detect(
+        positions, feet_thre, spec["feet"]["fid_l"], spec["feet"]["fid_r"]
+    )
+
+    # cont6d joint params with a smoothed forward direction (reference
+    # get_cont6d_params :255-275)
+    skel = spec["make"]()
+    quat_params = skel.inverse_kinematics(
+        positions, spec["face"], smooth_forward=True
+    )
+    cont_6d_params = sk.quaternion_to_cont6d(quat_params)
+    r_rot = quat_params[:, 0].copy()
+    velocity = positions[1:, 0] - positions[:-1, 0]
+    velocity = sk.qrot(r_rot[1:], velocity)
+    r_velocity = sk.qmul(r_rot[1:], sk.qinv(r_rot[:-1]))
+
+    # rotation-invariant local pose (reference get_rifke :231-238)
+    positions[..., 0] -= positions[:, 0:1, 0]
+    positions[..., 2] -= positions[:, 0:1, 2]
+    positions = sk.qrot(
+        np.repeat(r_rot[:, None], positions.shape[1], axis=1), positions
+    )
+
+    root_y = positions[:, 0, 1:2]
+    r_velocity = np.arcsin(r_velocity[:, 2:3])  # Y-rotation half-angle rate
+    l_velocity = velocity[:, [0, 2]]
+    root_data = np.concatenate([r_velocity, l_velocity, root_y[:-1]], axis=-1)
+
+    rot_data = cont_6d_params[:, 1:].reshape(len(cont_6d_params), -1)
+    ric_data = positions[:, 1:].reshape(len(positions), -1)
+    local_vel = sk.qrot(
+        np.repeat(r_rot[:-1, None], global_positions.shape[1], axis=1),
+        global_positions[1:] - global_positions[:-1],
+    ).reshape(len(positions) - 1, -1)
+
+    data = np.concatenate(
+        [root_data, ric_data[:-1], rot_data[:-1], local_vel, feet_l, feet_r],
+        axis=-1,
+    )
+    return data, global_positions, positions, l_velocity
+
+
+def process_file(positions, feet_thre=None, dataset_name: str = "humanml",
+                 tgt_offsets=None):
+    """Raw world joints [T, J, 3] -> (features [T-1, F], ground_positions,
+    rifke_positions, l_velocity) (reference process_file :169-359):
+    retarget -> put on floor -> root XZ to origin -> initial pose faces Z+
+    -> extract_features."""
+    from regennet_torch.data.humanml import skeleton as sk
+
+    spec = _spec(dataset_name)
+    if feet_thre is None:
+        feet_thre = spec["feet"]["feet_thre"]
+    positions = np.asarray(positions, np.float32)[:, : spec["joints_num"]]
+
+    if tgt_offsets is not None:
+        positions = uniform_skeleton(positions, tgt_offsets, dataset_name)
+
+    positions = positions - positions.min(axis=0).min(axis=0)[1] * np.array(
+        [0.0, 1.0, 0.0], np.float32
+    )
+    root_pos_init = positions[0]
+    positions = positions - root_pos_init[0] * np.array([1.0, 0.0, 1.0],
+                                                        np.float32)
+
+    # initial facing: note process_file unpacks face joints in the declared
+    # order (r_hip first), unlike the IK quirk — reproduced exactly
+    r_hip, l_hip, sdr_r, sdr_l = spec["face"]
+    across = (root_pos_init[r_hip] - root_pos_init[l_hip]) + (
+        root_pos_init[sdr_r] - root_pos_init[sdr_l]
+    )
+    across = across / np.linalg.norm(across)
+    forward_init = np.cross(np.array([0.0, 1.0, 0.0]), across)
+    forward_init = forward_init / np.linalg.norm(forward_init)
+    root_quat_init = sk.qbetween(forward_init[None],
+                                 np.array([[0.0, 0.0, 1.0]]))[0]
+    positions = sk.qrot(
+        np.broadcast_to(root_quat_init, positions.shape[:-1] + (4,)),
+        positions,
+    )
+
+    return extract_features(positions, feet_thre, dataset_name)
+
+
+def compute_feature_stats(features_list, joints_num: int):
+    """Mean / group-pooled Std over all frames (the HumanML3D protocol:
+    Std is averaged within each feature block so every block is scaled
+    uniformly at normalisation time)."""
+    all_frames = np.concatenate(features_list, axis=0)
+    mean = all_frames.mean(axis=0)
+    std = all_frames.std(axis=0)
+    j = joints_num
+    bounds = [0, 1, 3, 4, 4 + (j - 1) * 3, 4 + (j - 1) * 9,
+              4 + (j - 1) * 9 + j * 3, 4 + (j - 1) * 9 + j * 3 + 4]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        std[a:b] = std[a:b].mean()
+    return mean.astype(np.float32), (std + 1e-9).astype(np.float32)
+
+
+def build_dataset(joints_dir: str, out_dir: str, example_id: str,
+                  dataset_name: str = "humanml", feet_thre=None,
+                  compute_stats: bool = True, fps: int = 20, device="cpu"):
+    """Build new_joints/ + new_joint_vecs/ (+ Mean/Std) from a directory of
+    raw [T, J(, 3)] joint .npy files (reference __main__ :435-528). Each
+    clip's features are recovered to joints by `recover_from_ric` on
+    `device` (new_joints/ holds them); a clip that fails, or recovers to
+    NaN, is skipped and named, as the reference skips it."""
+    spec = _spec(dataset_name)
+    j = spec["joints_num"]
+    skel = spec["make"]()
+    example = np.load(os.path.join(joints_dir, example_id + ".npy"))
+    example = example.reshape(len(example), -1, 3)
+    tgt_offsets = skel.get_offsets_joints(example[0])
+
+    os.makedirs(os.path.join(out_dir, "new_joints"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "new_joint_vecs"), exist_ok=True)
+    frame_num, features = 0, []
+    names = sorted(f for f in os.listdir(joints_dir) if f.endswith(".npy"))
+    for name in names:
+        raw = np.load(os.path.join(joints_dir, name))
+        raw = raw.reshape(len(raw), -1, 3)[:, :j]
+        try:
+            data, _, _, _ = process_file(
+                raw, feet_thre, dataset_name, tgt_offsets
+            )
+            rec = recover_from_ric(torch.as_tensor(data, device=device), j).cpu().numpy()
+            if np.isnan(rec).any():
+                print(f"skipping {name}: NaN in recovery", flush=True)
+                continue
+            np.save(os.path.join(out_dir, "new_joints", name), rec)
+            np.save(os.path.join(out_dir, "new_joint_vecs", name), data)
+            features.append(data)
+            frame_num += data.shape[0]
+        except Exception as e:  # noqa: BLE001  (reference skips bad clips)
+            print(f"skipping {name}: {e}", flush=True)
+    if compute_stats and features:
+        mean, std = compute_feature_stats(features, j)
+        np.save(os.path.join(out_dir, "Mean.npy"), mean)
+        np.save(os.path.join(out_dir, "Std.npy"), std)
+    print(
+        f"Total clips: {len(features)}, Frames: {frame_num}, "
+        f"Duration: {frame_num / fps / 60:.4f}m", flush=True,
+    )
+    return frame_num
+
+
+def _cli(argv=None):
+    import argparse
+
+    from regennet_torch.device import resolve_device
+    from regennet_torch.utils.parser_util import device_arg
+
+    p = argparse.ArgumentParser(
+        description="Build RIC feature datasets from raw joints "
+        "(reference: scripts/motion_process.py __main__)"
+    )
+    p.add_argument("--joints_dir", required=True, type=str)
+    p.add_argument("--out_dir", required=True, type=str)
+    p.add_argument("--example_id", required=True, type=str,
+                   help="clip id providing the target skeleton offsets")
+    p.add_argument("--dataset", default="humanml", choices=["humanml", "kit"])
+    p.add_argument("--feet_thre", default=None, type=float)
+    p.add_argument("--no_stats", action="store_true")
+    p.add_argument("--device", default=0, type=device_arg,
+                   help="CUDA device id of the recovery check, or 'cpu'")
+    args = p.parse_args(argv)
+    return build_dataset(args.joints_dir, args.out_dir, args.example_id,
+                         args.dataset, args.feet_thre,
+                         compute_stats=not args.no_stats,
+                         device=resolve_device(None, args.device))
+
+
+if __name__ == "__main__":
+    _cli()

@@ -20,8 +20,19 @@ wo_mm and full 1000 samples, 20 replications; mm_short 1000 samples, 5
 replications and multimodality over 100 prompts x 30 repeats. Outside
 debug the GloVe archive must be present (REGENNET_ALLOW_HASHED_GLOVE=1
 overrides). The log goes to eval_humanml_<run>_<mode>.log beside the
-checkpoint. The comp_v6 generator (a .tar model, or a state holding
-`movement_enc`) is not ported and raises.
+checkpoint.
+
+The comp_v6 route (a released CompTrainerV6 `.tar`, or train_t2m_gen's
+`.pt`, which holds the generator's networks) samples each caption's
+motion from the generator's prior instead (the reference's
+comp_v6_model_dataset): sizes from the args.json beside the checkpoint,
+else the release's opt.txt, else the published ones. With
+--length_estimator each prompt's length is drawn from the estimator's
+softmax as the JAX harness draws it (np.random.default_rng(seed * 7919 +
+call), up to 3 draws below the minimum length of 10 snippets, 6 for kit)
+and the motion is zeroed past it; without one the ground-truth lengths
+are used (said on stderr). The prior's noise comes from
+torch.Generator(seed) (t2m_gen.prior_noise).
 """
 
 from __future__ import annotations
@@ -36,13 +47,11 @@ import numpy as np
 import torch
 
 from regennet_torch.eval import humanml_metrics as M
-from regennet_torch.models.t2m_eval import T2MEvaluatorWrapper
+from regennet_torch.models.t2m_eval import FOOT_FEATS, T2MEvaluatorWrapper
 
 # (num_samples, replications, multimodality: (prompts, repeats, times) or None)
 PROTOCOLS = {"debug": (32, 2, None), "wo_mm": (1000, 20, None), "full": (1000, 20, None),
              "mm_short": (1000, 5, (100, 30, 10))}
-COMP_V6 = ("the comp_v6 generator route ({}) needs the t2m generator, which is not "
-           "ported (ROADMAP A.8)")
 
 
 def _log(file, line):
@@ -211,6 +220,167 @@ def make_gen_loader_factory(dataset, model, sched, cfg, batch_size: int,
     return factory
 
 
+def make_comp_gen_loader_factory(dataset, gen, mov_enc, batch_size: int,
+                                 num_samples: int = -1, seed: int = 0, unit_length: int = 4,
+                                 mm_num_samples: int = 0, mm_num_repeats: int = 0,
+                                 len_estimator=None, min_mov_length: int = 10):
+    """Sample each caption's motion from the comp_v6 generator's prior (on
+    its device) and pack them into the evaluator's 7-tuple batches; with
+    mm_num_samples > 0 the factory returns (batches, mm_list), the repeats
+    of each prompt sampled as one batch (see make_gen_loader_factory).
+
+    With a trained length estimator each prompt's length (in frames, a
+    multiple of unit_length within [unit_length, T]) is drawn from its
+    softmax, up to 3 draws while below min_mov_length snippets (the last
+    kept), by np.random.default_rng(seed * 7919 + call_idx) over the
+    float64-renormalised probabilities, and the motion is zeroed past it;
+    those lengths go into the batch. Without one the ground-truth lengths
+    are used."""
+    from regennet_torch.models import t2m_gen
+
+    device = next(gen.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+    calls = {"call": 0, "mm": 0}
+
+    @torch.no_grad()
+    def sample_m_lens(word_embs, pos_ohot, sent_lens, T, call_idx):
+        logits = len_estimator(torch.as_tensor(word_embs, device=device),
+                               torch.as_tensor(pos_ohot, device=device), sent_lens)
+        probs = torch.softmax(logits, dim=-1).cpu().numpy().astype(np.float64)
+        probs = probs / probs.sum(-1, keepdims=True)
+        est_rng = np.random.default_rng(seed * 7919 + call_idx)
+        lens = np.empty(probs.shape[0], dtype=np.int64)
+        for i in range(probs.shape[0]):
+            for _ in range(3):
+                mov_length = est_rng.choice(probs.shape[1], p=probs[i])
+                if mov_length >= min_mov_length:
+                    break
+            lens[i] = mov_length * unit_length
+        return np.clip(lens, unit_length, T)
+
+    @torch.no_grad()
+    def sample_batch(word_embs, pos_ohot, sent_lens, m_lens, motions):
+        """The prior's motions [B, T, F] for the captions, T and F motions'."""
+        B, T, nfeats = motions.shape
+        mov_len = T // unit_length
+        mov_in0 = mov_enc(torch.zeros(B, unit_length, nfeats - FOOT_FEATS, device=device))[:, 0]
+        out = gen.generate(torch.as_tensor(word_embs, device=device),
+                           torch.as_tensor(pos_ohot, device=device), sent_lens, m_lens,
+                           mov_in0, mov_len,
+                           t2m_gen.prior_noise(generator, mov_len, B, gen.dim_z, device),
+                           unit_length=unit_length)
+        fake = out["fake_motions"].cpu().numpy()
+        if len_estimator is not None:  # zeroed past each sampled length
+            fake = np.where(np.arange(fake.shape[1])[None, :, None] < m_lens[:, None, None],
+                            fake, 0.0)
+        return fake.astype(np.float32)
+
+    def factory():
+        n, bs = _sizes(dataset, batch_size, num_samples)
+        calls["call"] += 1
+        if len_estimator is None:
+            print("[eval_humanml] comp_gen: no --length_estimator given; evaluating at "
+                  "ground-truth lengths (published protocol samples lengths from the "
+                  "trained estimator)", file=sys.stderr)
+        batches = []
+        for start in _full_batches(n, bs, "comp_gen"):
+            (word_embs, pos_ohot, captions, sent_lens, motions, m_lens,
+             tokens) = _stack_items([dataset[i] for i in range(start, start + bs)])
+            if len_estimator is not None:
+                m_lens = sample_m_lens(word_embs, pos_ohot, sent_lens, motions.shape[1],
+                                       calls["call"] * 100003 + start)
+            batches.append((word_embs, pos_ohot, captions, sent_lens,
+                            sample_batch(word_embs, pos_ohot, sent_lens, m_lens, motions),
+                            m_lens, tokens))
+        if mm_num_samples <= 0:
+            return batches
+        calls["mm"] += 1
+        mm_rng = np.random.default_rng(seed + calls["mm"])
+        mm_idxs = mm_rng.choice(len(dataset), min(mm_num_samples, len(dataset)),
+                                replace=False)
+        mm_list = []
+        for idx in np.sort(mm_idxs):
+            word_embs, pos_ohot, _, sent_lens, motions, m_lens, _ = _stack_items(
+                [dataset[int(idx)]] * mm_num_repeats)
+            if len_estimator is not None:  # each repeat draws its own length
+                m_lens = sample_m_lens(word_embs, pos_ohot, sent_lens, motions.shape[1],
+                                       calls["call"] * 100003 + 50021 + int(idx))
+            mm_list.append((sample_batch(word_embs, pos_ohot, sent_lens, m_lens, motions),
+                            m_lens))
+        return batches, mm_list
+
+    return factory
+
+
+def is_comp_v6(model_path: str) -> bool:
+    """A comp_v6 checkpoint: a released .tar, or a file holding the
+    generator's networks (train_t2m_gen's .pt)."""
+    if model_path.endswith(".tar"):
+        return True
+    state = torch.load(model_path, map_location="cpu", weights_only=True)
+    return isinstance(state, dict) and "seq_pri" in state
+
+
+def rebuild_comp_v6_generator(model_path: str, dim_pose: int):
+    """(generator, movement encoder, unit_length) for a comp_v6 checkpoint,
+    untrained: sizes from the args.json beside it (train_t2m_gen's), else
+    from the release's opt.txt (data/humanml/get_opt), else the published
+    ones; the movement encoder at T2M_OPT's widths."""
+    import json
+
+    from regennet_torch.data.humanml.get_opt import (
+        comp_v6_sizes_from_opt,
+        find_opt_file,
+        parse_opt_file,
+    )
+    from regennet_torch.models import t2m_eval, t2m_gen
+
+    args_path = os.path.join(os.path.dirname(model_path.rstrip("/")), "args.json")
+    sizes = {}
+    if os.path.exists(args_path):
+        with open(args_path) as f:
+            sizes = json.load(f)
+    else:
+        opt_path = find_opt_file(model_path)
+        if opt_path:
+            sizes = comp_v6_sizes_from_opt(parse_opt_file(opt_path))
+    opt = t2m_eval.T2M_OPT
+    gen = t2m_gen.CompV6Generator(
+        dim_pose=dim_pose, dim_word=opt["dim_word"], dim_pos_ohot=opt["dim_pos_ohot"],
+        **{k: int(sizes.get(k, default)) for k, default in (
+            ("dim_z", 128), ("pri_hidden", 1024), ("dec_hidden", 1024), ("text_hidden", 512),
+            ("att_vec", 512), ("n_layers", 1), ("mov_latent", 512))})
+    (mov_enc,) = t2m_eval.networks(dim_pose, "movement_enc")
+    return gen, mov_enc, int(sizes.get("unit_length", 4))
+
+
+def load_comp_v6_checkpoint(model_path: str, dim_pose: int, device):
+    """rebuild_comp_v6_generator's networks with the checkpoint's weights
+    (a released latest.tar or train_t2m_gen's .pt), in eval mode on
+    `device`: (generator, movement encoder, unit_length)."""
+    from regennet_torch.models import t2m_eval, t2m_gen
+
+    gen, mov_enc, unit = rebuild_comp_v6_generator(model_path, dim_pose)
+    t2m_gen.load_comp_v6(gen, mov_enc, t2m_eval.load_torch_file(model_path))
+    return gen.to(device).eval(), mov_enc.to(device).eval(), unit
+
+
+def _comp_gen_factory(args, dataset, device, mm_num_samples: int = 0,
+                      mm_num_repeats: int = 0):
+    from regennet_torch.models.t2m_eval import load_length_estimator
+
+    gen, mov_enc, unit = load_comp_v6_checkpoint(args.model_path, dataset[0][4].shape[-1],
+                                                 device)
+    estimator = (load_length_estimator(args.length_estimator, device)
+                 if getattr(args, "length_estimator", "") else None)
+    return make_comp_gen_loader_factory(
+        dataset, gen, mov_enc, args.batch_size, args.num_samples, seed=args.seed,
+        unit_length=unit, mm_num_samples=mm_num_samples, mm_num_repeats=mm_num_repeats,
+        len_estimator=estimator,
+        # the reference's minimum: 10 snippets for t2m, 6 for kit
+        min_mov_length=10 if args.dataset in ("humanml", "t2m") else 6)
+
+
 def evaluation(eval_wrapper: T2MEvaluatorWrapper, gt_loader_factory: Callable[[], List],
                eval_motion_loaders: Dict[str, Callable[[], List]], log_file: str,
                replication_times: int = 3, diversity_times: int = 300,
@@ -266,16 +436,6 @@ def load_t2m_wrapper(dataset_name: str, rec_model_path: str, seed: int, device):
     return T2MEvaluatorWrapper(dataset_name, device=device, seed=seed)
 
 
-def check_not_comp_v6(model_path: str) -> None:
-    """Raise for a comp_v6 generator checkpoint: a .tar, or a state with
-    `movement_enc`."""
-    if model_path.endswith(".tar"):
-        raise NotImplementedError(COMP_V6.format("a .tar checkpoint"))
-    state = torch.load(model_path, map_location="cpu", weights_only=True)
-    if "movement_enc" in state:
-        raise NotImplementedError(COMP_V6.format("a checkpoint holding movement_enc"))
-
-
 def main(args=None, device=None) -> Dict:
     """Evaluate args.model_path under args.eval_mode's protocol, write the
     log and return the summary.
@@ -302,7 +462,6 @@ def main(args=None, device=None) -> Dict:
     fixseed(args.seed)
     if args.eval_mode not in PROTOCOLS:
         raise ValueError(f"unknown eval mode {args.eval_mode}")
-    check_not_comp_v6(args.model_path)
     args.batch_size = 32
     args.num_samples, replication_times, mm = PROTOCOLS[args.eval_mode]
     if args.eval_mode == "full":
@@ -315,13 +474,16 @@ def main(args=None, device=None) -> Dict:
         "REGENNET_ALLOW_HASHED_GLOVE", "") != "1"
     dataset = Text2MotionDataset(args.data_path, split="test", dataset_name=args.dataset,
                                  strict_glove=strict_glove)
-    model, sched, cfg = create_model_and_diffusion(args, TextData(), device=device)
-    checkpoint.load_model(model, args.model_path)
-    model = model.to(device=device, dtype=model_dtype(args)).eval()
-    gen_factory = make_gen_loader_factory(
-        dataset, model, sched, cfg, args.batch_size, args.num_samples,
-        guidance=float(getattr(args, "guidance_param", 1.0)), seed=args.seed,
-        mm_num_samples=mm_num_samples, mm_num_repeats=mm_num_repeats)
+    if is_comp_v6(args.model_path):
+        gen_factory = _comp_gen_factory(args, dataset, device, mm_num_samples, mm_num_repeats)
+    else:
+        model, sched, cfg = create_model_and_diffusion(args, TextData(), device=device)
+        checkpoint.load_model(model, args.model_path)
+        model = model.to(device=device, dtype=model_dtype(args)).eval()
+        gen_factory = make_gen_loader_factory(
+            dataset, model, sched, cfg, args.batch_size, args.num_samples,
+            guidance=float(getattr(args, "guidance_param", 1.0)), seed=args.seed,
+            mm_num_samples=mm_num_samples, mm_num_repeats=mm_num_repeats)
     eval_wrapper = load_t2m_wrapper(args.dataset, args.rec_model_path, args.seed, device)
     gt_factory = make_gt_loader_factory(dataset, args.batch_size, args.num_samples)
     name = os.path.basename(os.path.dirname(args.model_path)) or "model"

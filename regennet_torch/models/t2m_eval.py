@@ -199,16 +199,18 @@ def networks(dim_pose: int, *names: str, length_bins: int = 50):
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight from torch's default bounds with `generator`:
-    U(+-1/sqrt(fan_in)) for linear and conv layers, U(+-1/sqrt(H)) in a
-    GRU, LayerNorm at one and zero, and a tower's `hidden` from N(0, 1)."""
+    U(+-1/sqrt(fan_in)) for linear and conv layers (a bias where there is
+    one), U(+-1/sqrt(H)) in a GRU or GRUCell, LayerNorm at one and zero,
+    and a tower's `hidden` from N(0, 1)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
                 fan_in = nn.init._calculate_fan_in_and_fan_out(m.weight)[0]
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, nn.GRU):
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, (nn.GRU, nn.GRUCell)):
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters():
                     p.uniform_(-bound, bound, generator=generator)

@@ -1,5 +1,5 @@
 """3-D rotation conversions used by the pose decode, the orient loss and
-the HumanML3D decode (counterpart of part of
+the HumanML3D decode, and the Euler-angle conversions (counterpart of
 regennet_tpu/ops/rotations.py; PyTorch3D conventions, wxyz quaternions).
 
 Functions act on trailing dims and broadcast over leading batch dims.
@@ -123,6 +123,62 @@ def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> axis-angle vectors (..., 3)."""
     return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
 
+
+
+def _axis_rotation(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "X":
+        flat = (one, zero, zero, zero, cos, -sin, zero, sin, cos)
+    elif axis == "Y":
+        flat = (cos, zero, sin, zero, one, zero, -sin, zero, cos)
+    elif axis == "Z":
+        flat = (cos, -sin, zero, sin, cos, zero, zero, zero, one)
+    else:
+        raise ValueError(f"invalid axis {axis}")
+    return torch.stack(flat, dim=-1).reshape(angle.shape + (3, 3))
+
+
+def _check_convention(convention: str) -> None:
+    if len(convention) != 3 or any(c not in "XYZ" for c in convention):
+        raise ValueError(f"invalid convention {convention}")
+
+
+def euler_angles_to_matrix(euler_angles: torch.Tensor, convention: str) -> torch.Tensor:
+    """Euler angles (..., 3) in the given convention ("XYZ", "ZYX", ...;
+    the matrix of the first axis applied last) -> matrices (..., 3, 3)."""
+    _check_convention(convention)
+    m = [_axis_rotation(axis, euler_angles[..., i]) for i, axis in enumerate(convention)]
+    return m[0] @ m[1] @ m[2]
+
+
+def _angle_from_tan(axis: str, other_axis: str, data: torch.Tensor, horizontal: bool,
+                    tait_bryan: bool) -> torch.Tensor:
+    i1, i2 = {"X": (2, 1), "Y": (0, 2), "Z": (1, 0)}[axis]
+    if horizontal:
+        i2, i1 = i1, i2
+    even = (axis + other_axis) in ("XY", "YZ", "ZX")
+    if horizontal == even:
+        return torch.atan2(data[..., i1], data[..., i2])
+    if tait_bryan:
+        return torch.atan2(-data[..., i2], data[..., i1])
+    return torch.atan2(data[..., i2], -data[..., i1])
+
+
+def matrix_to_euler_angles(matrix: torch.Tensor, convention: str) -> torch.Tensor:
+    """Matrices (..., 3, 3) -> Euler angles (..., 3) in the given convention."""
+    _check_convention(convention)
+    i0 = "XYZ".index(convention[0])
+    i2 = "XYZ".index(convention[2])
+    tait_bryan = i0 != i2
+    if tait_bryan:
+        sign = -1.0 if i0 - i2 in (-1, 2) else 1.0
+        central = torch.asin(torch.clamp(matrix[..., i0, i2] * sign, -1.0, 1.0))
+    else:
+        central = torch.acos(torch.clamp(matrix[..., i0, i0], -1.0, 1.0))
+    o0 = _angle_from_tan(convention[0], convention[1], matrix[..., i2], False, tait_bryan)
+    o2 = _angle_from_tan(convention[2], convention[1], matrix[..., i0, :], True, tait_bryan)
+    return torch.stack([o0, central, o2], dim=-1)
 
 def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product of quaternions (..., 4), wxyz."""

@@ -1,15 +1,22 @@
 """Free-text text-to-motion generation: `python -m regennet_torch.sample.generate`
-(counterpart of regennet_tpu/sample/generate.py, its diffusion route).
+(counterpart of regennet_tpu/sample/generate.py).
 
-Generates motions for text prompts from an MDM-style diffusion checkpoint
-(`train_mdm --dataset humanml` or `kit`): the model is rebuilt from the
-args.json beside the .pt, the prompts become CLIP embeddings (or the
-hashed stand-in without CLIP weights, `models/clip_text`), DDPM sampling
-runs at the 196-frame window with classifier-free guidance folded into one
-2B forward (`--guidance_param`), and the RIC features are denormalised
-with the dataset's Mean/Std and decoded to joints (`recover_from_ric`).
-Writes results.npy (motion [N, T, J, 3], feature [N, T, F], text,
-lengths, num_samples) and results.txt, as the JAX CLI does.
+Generates motions for text prompts from one of two checkpoints:
+- an MDM-style diffusion model (`train_mdm --dataset humanml` or `kit`):
+  the model is rebuilt from the args.json beside the .pt, the prompts
+  become CLIP embeddings (or the hashed stand-in without CLIP weights,
+  `models/clip_text`), and DDPM sampling runs at the 196-frame window
+  with classifier-free guidance folded into one 2B forward
+  (`--guidance_param`);
+- the comp_v6 generator (train_t2m_gen's .pt or a released latest.tar,
+  told apart as eval_humanml tells them): the prompts' GloVe word inputs
+  (--glove_root), T rounded down to whole snippets, and the prior sampled
+  over them from the movement encoder's start token, its noise from a
+  torch.Generator seeded by --seed.
+The RIC features are denormalised with the dataset's Mean/Std and decoded
+to joints (`recover_from_ric`). Writes results.npy (motion [N, T, J, 3],
+feature [N, T, F], text, lengths, num_samples) and results.txt, as the
+JAX CLI does.
 
 Prompts come from --text_prompt (one prompt, repeated --num_samples
 times) or --input_text (a file, one prompt per line). With
@@ -18,8 +25,7 @@ latest.tar) each prompt's length is drawn from the estimator's logits
 over its GloVe word inputs (--glove_root), in bins of 4 frames clipped to
 [4, T], by a torch.Generator seeded by --seed (the JAX CLI draws with
 jax.random.categorical; the logits agree, the draws do not). Not ported,
-and raising: the comp_v6 generator route (a released `.tar`) and
---render.
+and raising: --render.
 """
 
 from __future__ import annotations
@@ -36,9 +42,11 @@ import torch
 from regennet_torch.data.humanml.motion_process import recover_from_ric
 from regennet_torch.device import resolve_device
 from regennet_torch.diffusion import sampling
+from regennet_torch.eval.eval_humanml import is_comp_v6, load_comp_v6_checkpoint
+from regennet_torch.models import t2m_gen
 from regennet_torch.models.clip_text import encode_text_or_fallback
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
-from regennet_torch.models.t2m_eval import load_length_estimator
+from regennet_torch.models.t2m_eval import FOOT_FEATS, load_length_estimator
 from regennet_torch.train import checkpoint
 from regennet_torch.utils import parser_util
 from regennet_torch.utils.fixseed import fixseed
@@ -63,10 +71,6 @@ def _prompts(args) -> List[str]:
 
 
 def _check_ported(args):
-    if args.model_path.endswith(".tar"):
-        raise NotImplementedError(
-            "the comp_v6 generator route (a .tar checkpoint) needs the t2m stack, "
-            "which is not ported (ROADMAP A.8)")
     if args.render:
         raise NotImplementedError("--render is not ported (ROADMAP A.8, render/)")
 
@@ -106,6 +110,53 @@ def estimate_lengths(estimator, prompts, glove_root, T: int, seed: int, unit: in
     return logits.cpu().numpy(), lengths
 
 
+def diffusion_features(args, prompts, T: int, generator, device) -> np.ndarray:
+    """The diffusion route: features [N, T, F] of the CMDM of args.model_path."""
+    args_path = os.path.join(os.path.dirname(args.model_path.rstrip("/")), "args.json")
+    with open(args_path) as f:
+        margs = Namespace(**json.load(f))
+    model, sched, cfg = create_model_and_diffusion(margs, TextData(), device=device)
+    checkpoint.load_model(model, args.model_path)
+    model = model.to(device=device, dtype=model_dtype(margs)).eval()
+    guidance = float(args.guidance_param)
+    model_fn = make_cfg_model_fn(model, guidance) if guidance != 1.0 else make_model_fn(model)
+
+    shape = (len(prompts), model.njoints, model.nfeats, HML_FRAMES)
+    cond = {
+        "cmotion": torch.zeros(shape, device=device),
+        "text_emb": torch.as_tensor(encode_text_or_fallback(prompts, device), device=device),
+    }
+    t0 = time.perf_counter()
+    sample = sampling.p_sample_loop(sched, cfg, model_fn, shape, cond, clip_denoised=False,
+                                    generator=generator)
+    features = sample[:, :, 0, :].transpose(1, 2)[:, :T].cpu().numpy()  # waits for the device
+    print(f"Generate time: {(time.perf_counter() - t0) * 1e3:.1f} ms for {len(prompts)} "
+          f"sequences ({sched.num_timesteps} steps)", flush=True)
+    return features
+
+
+@torch.no_grad()
+def comp_v6_features(args, prompts, T: int, dim_pose: int, generator,
+                     device) -> np.ndarray:
+    """The comp_v6 route: features [N, T', F] sampled from the prior of the
+    generator of args.model_path, T' = T rounded down to whole snippets."""
+    gen, mov_enc, unit = load_comp_v6_checkpoint(args.model_path, dim_pose, device)
+    T = (T // unit) * unit
+    B, mov_len = len(prompts), T // unit
+    word_embs, pos_ohots, cap_lens = _word_inputs(prompts, args.glove_root)
+    mov_in0 = mov_enc(torch.zeros(B, unit, dim_pose - FOOT_FEATS, device=device))[:, 0]
+    t0 = time.perf_counter()
+    out = gen.generate(torch.as_tensor(word_embs, device=device),
+                       torch.as_tensor(pos_ohots, device=device), cap_lens,
+                       np.full(B, T), mov_in0, mov_len,
+                       t2m_gen.prior_noise(generator, mov_len, B, gen.dim_z, device),
+                       unit_length=unit)
+    features = out["fake_motions"].cpu().numpy()  # waits for the device
+    print(f"Generate time: {(time.perf_counter() - t0) * 1e3:.1f} ms for {B} sequences "
+          f"({mov_len} snippets)", flush=True)
+    return features
+
+
 def main(args=None, device=None) -> dict:
     """Generate, write results.npy and results.txt, and return the results.
 
@@ -131,27 +182,11 @@ def main(args=None, device=None) -> dict:
     fps = 20 if args.dataset == "humanml" else 12.5  # KIT runs at 12.5 fps
     T = min(int(args.motion_length * fps), HML_FRAMES)
 
-    args_path = os.path.join(os.path.dirname(args.model_path.rstrip("/")), "args.json")
-    with open(args_path) as f:
-        margs = Namespace(**json.load(f))
-    model, sched, cfg = create_model_and_diffusion(margs, TextData(), device=device)
-    checkpoint.load_model(model, args.model_path)
-    model = model.to(device=device, dtype=model_dtype(margs)).eval()
-    guidance = float(args.guidance_param)
-    model_fn = make_cfg_model_fn(model, guidance) if guidance != 1.0 else make_model_fn(model)
-
-    shape = (B, model.njoints, model.nfeats, HML_FRAMES)
-    cond = {
-        "cmotion": torch.zeros(shape, device=device),
-        "text_emb": torch.as_tensor(encode_text_or_fallback(prompts, device), device=device),
-    }
     generator = torch.Generator(device=device).manual_seed(int(args.seed))
-    t0 = time.perf_counter()
-    sample = sampling.p_sample_loop(sched, cfg, model_fn, shape, cond, clip_denoised=False,
-                                    generator=generator)
-    features = sample[:, :, 0, :].transpose(1, 2)[:, :T].cpu().numpy()  # waits for the device
-    print(f"Generate time: {(time.perf_counter() - t0) * 1e3:.1f} ms for {B} sequences "
-          f"({sched.num_timesteps} steps)", flush=True)
+    if is_comp_v6(args.model_path):
+        features = comp_v6_features(args, prompts, T, int(mean.shape[0]), generator, device)
+    else:
+        features = diffusion_features(args, prompts, T, generator, device)
 
     # denormalise and recover the joints
     denorm = features * std + mean

@@ -16,12 +16,18 @@ import os
 from argparse import ArgumentParser, BooleanOptionalAction
 
 
-def parse_and_load_from_model(parser, with_data: bool = True, argv=None):
+def parse_and_load_from_model(parser, with_data: bool = True, argv=None,
+                              tar_ok: bool = False):
+    """Parse argv, then take the dataset, model and diffusion options from
+    the args.json beside --model_path. tar_ok: a released .tar (a comp_v6
+    generator, which eval_humanml reads) needs no args.json."""
     if with_data:
         add_data_options(parser)
     add_model_options(parser)
     add_diffusion_options(parser)
     args = parser.parse_args(argv)
+    if tar_ok and args.model_path.endswith(".tar"):
+        return args
     groups = (["dataset"] if with_data else []) + ["model", "diffusion"]
     args_to_overwrite = []
     for group_name in groups:
@@ -248,7 +254,9 @@ def check_single_device_training(args):
 def add_evaluation_options(parser):
     group = parser.add_argument_group("eval")
     group.add_argument("--model_path", required=True, type=str,
-                       help="The CMDM's .pt file, with args.json beside it.")
+                       help="The CMDM's .pt file, with args.json beside it; "
+                            "for eval_humanml also a comp_v6 generator "
+                            "(train_t2m_gen's .pt, or a released .tar).")
     group.add_argument("--rec_model_path", required=True, type=str,
                        help="The recognition classifier (the ST-GCN; the GRU "
                             "classifier for humanact12; for humanml and kit "
@@ -279,8 +287,8 @@ def add_evaluation_options(parser):
     group.add_argument("--length_estimator", default="", type=str,
                        help="A trained length estimator (train_t2m_eval "
                             "--stage length, or a released latest.tar) for the "
-                            "comp_v6 route of eval_humanml, which is not "
-                            "ported; the diffusion route ignores it.")
+                            "comp_v6 route of eval_humanml; the diffusion "
+                            "route ignores it.")
     group.add_argument("--eval_seed_batch", default=0, type=int,
                        help="Stack this many evaluation seeds into one "
                             "sampling batch (0: 128 // batch size; 1: none).")
@@ -290,7 +298,7 @@ def evaluation_parser(argv=None):
     parser = ArgumentParser()
     add_base_options(parser)
     add_evaluation_options(parser)
-    return parse_and_load_from_model(parser, argv=argv)
+    return parse_and_load_from_model(parser, argv=argv, tar_ok=True)
 
 
 def cgenerate_args(argv=None):
@@ -308,7 +316,9 @@ def generate_args(argv=None):
     for it raises."""
     p = ArgumentParser()
     p.add_argument("--model_path", required=True, type=str,
-                   help="the CMDM's .pt file, with args.json beside it")
+                   help="the CMDM's .pt file, with args.json beside it, or a "
+                        "comp_v6 generator (train_t2m_gen's .pt, or a "
+                        "released .tar)")
     p.add_argument("--data_path", required=True, type=str,
                    help="dataset root (Mean/Std normalisation stats)")
     p.add_argument("--dataset", default="humanml", choices=["humanml", "kit"])

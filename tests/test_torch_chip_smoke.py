@@ -403,6 +403,64 @@ def test_text_evaluation_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert report["t2m_eval_training"]["steps"] == 2
 
 
+def test_comp_v6_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 13 at a cut size, after phases 11 and 12 on the same workdir:
+    train_t2m_gen from phase 12's decomp, the trained generator against a
+    CPU copy, eval_humanml debug on the .pt and on the same state as a
+    latest.tar (the same log), generate's comp_v6 route through both (the
+    same motions), motion_process on seeded raw joints with the recovery
+    check on both devices (here both the CPU). The evaluators' widths are
+    cut too, the movement encoder's hidden width to its latent's, as the
+    published ones are."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.models import t2m_eval
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, steps=5).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    monkeypatch.setitem(cs.TRAIN, "steps_per_call", 2)
+    for key, value in dict(batch=4, steps=4, clips=16, samples=2).items():
+        monkeypatch.setitem(cs.T2M, key, value)
+    for key, value in dict(vocab_size=600, dim=64, heads=1, num_layers=2).items():
+        monkeypatch.setitem(cs.CLIP_TOWER, key, value)
+    for key, value in dict(epochs=1, batch=8, train_steps=2, eval_samples=4,
+                           lengths=3).items():
+        monkeypatch.setitem(cs.T2M_EVAL, key, value)
+    for key, value in dict(dim_text_hidden=32, dim_coemb_hidden=16, dim_motion_hidden=48,
+                           dim_movement_enc_hidden=24, dim_movement_latent=24).items():
+        monkeypatch.setitem(t2m_eval.T2M_OPT, key, value)
+    for key, value in dict(dim_z=4, pri_hidden=16, dec_hidden=16, text_hidden=8, att_vec=8,
+                           n_layers=2, epochs=2, batch=4, prompts=2, raw_clips=3).items():
+        monkeypatch.setitem(cs.COMP_V6, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    monkeypatch.delenv("REGENNET_CLIP_PATH", raising=False)
+    cwd = os.getcwd()
+    cs.run_t2m({}, "cpu", tmp_path, device="cpu")
+    cs.run_t2m_eval({}, "cpu", tmp_path, device="cpu")
+    report = {}
+    cs.run_comp_v6(report, "cpu", tmp_path, device="cpu")
+    assert os.getcwd() == cwd
+    rows = report["comp_v6"]
+    # 16 clips at batch 4: 4 steps an epoch
+    assert rows["training"]["steps"] == 8 and rows["training"]["ms_per_step"] > 0
+    assert set(report["comp_v6_card_vs_cpu_share"]) == {
+        f"{k} tf={tf}" for k in ("fake_motions", "fake_movements", "mus_pri", "logvars_pri",
+                                 "mus_post", "logvars_post") for tf in (0, 1)}
+    # debug: two replications of the test split's 8 clips, one prior sampling each
+    assert [c[:2] for c in rows["eval"]["generate_calls"]] == [(8, 49), (8, 49)]
+    assert [c[:2] for c in rows["generate"]["generate_calls"]] == [(2, 49)]
+    assert rows["preprocessing"]["frames"] > 0 and 0 < rows["wall_s"]
+    assert (tmp_path / "released" / "comp_v6" / "eval_humanml_comp_v6_debug.log").is_file()
+
+
+def test_median_block_ms_drops_the_warmup(monkeypatch):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    assert cs.median_block_ms([100.0, 50.0] + [1.0] * 8 + [3.0] * 8 + [2.0] * 8) == 2.0
+    assert cs.median_block_ms([9.0, 9.0, 4.0, 6.0]) == 5.0  # fewer than a block: one
+
+
 def _guard_results(**acc_fid):
     """A learning-guard artefact that passes every threshold, with
     (accuracy, FID) of a row replaced by acc_fid[row]."""

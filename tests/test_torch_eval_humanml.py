@@ -14,13 +14,24 @@ and generate --length_estimator) against the JAX package.
   summaries agree within 1e-4 x max(1, |jax|), the R-precision counts
   exactly.
 * The multimodality path, 2 prompts x 3 repeats, the same way.
-* The comp_v6 routes raise; each CLI refuses the modes it does not run.
+* The comp_v6 route: a small generator drawn by torch and saved in the
+  released layout, as train_t2m_gen's .pt and as a latest.tar beside one
+  args.json, with a length estimator; debug mode through the port's .pt
+  against the JAX CLI on the .tar, z = mu in both (JAX's normal draws
+  zeroed, the port's prior_noise None): the summaries as above and the
+  lengths each replication's estimator drew, equal; the port's .tar route
+  gives the .pt route's summary; the multimodality path (2 prompts x 4
+  repeats, each repeat's length drawn) against the JAX factory's;
+  generate's comp_v6 route against the JAX CLI's (--no-render) within
+  1e-5 x max(1, max|jax|).
+* Each CLI refuses the modes it does not run.
 * The in-training route on the CPU writes its log and reports
   top1..3_R_precision_* under "Eval".
 * generate's length estimator: its logits against JAX's on the same GloVe
   word inputs, and the lengths it writes.
 """
 
+import contextlib
 import json
 import os
 from argparse import Namespace
@@ -35,7 +46,7 @@ from regennet_torch.convert import from_flax
 from regennet_torch.data.humanml.dataset import write_synthetic_humanml
 from regennet_torch.diffusion import sampling
 from regennet_torch.eval import eval_humanml, humanml_metrics
-from regennet_torch.models import clip_text, t2m_eval
+from regennet_torch.models import clip_text, t2m_eval, t2m_gen
 from regennet_torch.sample import generate
 from regennet_torch.train import train_mdm, train_platforms
 from regennet_torch.utils import parser_util
@@ -239,15 +250,169 @@ def test_multimodality_path_matches_jax(trained, monkeypatch, tmp_path):
     assert "MultiModality_mdm" in ours and np.isfinite(ours["MultiModality_mdm"])
 
 
-def test_comp_v6_routes_raise(trained, tmp_path):
-    model_path, _, finest = trained
-    args = _eval_args(model_path, finest)
-    for path, what in ((tmp_path / "latest.tar", "a .tar checkpoint"),
-                       (tmp_path / "model000000001.pt", "holding movement_enc")):
-        torch.save({"movement_enc": {}}, path)
-        args.model_path = str(path)
-        with pytest.raises(NotImplementedError, match=f"comp_v6.*{what}.*ROADMAP A.8"):
-            eval_humanml.main(args, device="cpu")
+COMP_SIZES = dict(dim_z=4, pri_hidden=16, dec_hidden=16, text_hidden=8, att_vec=8, n_layers=2)
+
+
+@pytest.fixture(scope="module")
+def comp_v6(trained, tmp_path_factory):
+    """(the generator's .pt, the same state as latest.tar, a length
+    estimator .tar): small widths, torch-drawn, the movement latent
+    SMALL_WIDTHS'."""
+    _, root, _ = trained
+    run = tmp_path_factory.mktemp("comp") / "comp"
+    run.mkdir()
+    generator = torch.Generator().manual_seed(11)
+    latent = SMALL_WIDTHS["dim_movement_latent"]
+    gen = t2m_eval.random_init_(t2m_gen.CompV6Generator(dim_pose=263, mov_latent=latent,
+                                                        **COMP_SIZES), generator)
+    (mov_enc,) = t2m_eval.networks(263, "movement_enc")
+    t2m_eval.random_init_(mov_enc, generator)
+    state = {**t2m_gen.generator_state(gen, mov_enc), "epoch": 1}
+    torch.save(state, run / "model000000001.pt")
+    torch.save(state, run / "latest.tar")
+    with open(run / "args.json", "w") as f:
+        json.dump({**COMP_SIZES, "mov_latent": latent, "unit_length": 4,
+                   "dataset": "humanml", "data_path": root}, f)
+    est = t2m_eval.random_init_(t2m_eval.MotionLenEstimatorBiGRU(output_size=50), generator)
+    torch.save({"estimator": est.state_dict()}, run / "length.tar")
+    return str(run / "model000000001.pt"), str(run / "latest.tar"), str(run / "length.tar")
+
+
+@contextlib.contextmanager
+def _z_is_mu(monkeypatch):
+    """Both generators sample z = mu: the port's prior noise None, JAX's
+    normal draws zeros."""
+    with monkeypatch.context() as m:
+        m.setattr(t2m_gen, "prior_noise", lambda *a: None)
+        m.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.zeros(
+            shape, dtype))
+        yield
+
+
+def _recorded_lengths(monkeypatch, module):
+    """The m_lens of every batch module's comp_v6 factories return."""
+    seen = []
+    make = module.make_comp_gen_loader_factory
+
+    def recording(*a, **kw):
+        factory = make(*a, **kw)
+
+        def run():
+            batches = factory()
+            seen.append([np.asarray(b[5]).tolist() for b in batches])
+            return batches
+
+        return run
+
+    monkeypatch.setattr(module, "make_comp_gen_loader_factory", recording)
+    return seen
+
+
+def test_comp_v6_debug_route_matches_jax(trained, comp_v6, monkeypatch):
+    _, _, finest = trained
+    pt, tar, length = comp_v6
+    args = parser_util.evaluation_parser([
+        "--model_path", pt, "--rec_model_path", finest, "--eval_mode", "debug", "--seed", "3",
+        "--device", "cpu", "--length_estimator", length])
+    assert args.data_path == trained[1]  # from the args.json beside the .pt
+    jlens, lens = _recorded_lengths(monkeypatch, jeval), _recorded_lengths(
+        monkeypatch, eval_humanml)
+    with _z_is_mu(monkeypatch):
+        ref = jeval.main(Namespace(**{**vars(args), "model_path": tar}))
+        ours = eval_humanml.main(args, device="cpu")
+    _close(ours, ref)
+    assert set(ours) == {f"{m}_{n}" for m in ("Matching Score", "R_precision", "FID",
+                                               "Diversity") for n in ("ground truth", "comp")}
+    # two replications of the test split's 4 clips, the estimator's draws
+    assert lens == jlens and len(lens) == 2 and len(lens[0][0]) == 4
+    assert all(v % 4 == 0 and 4 <= v <= 196 for rep in lens for b in rep for v in b)
+    assert lens[0] != lens[1]  # each replication draws afresh
+
+
+def test_comp_v6_multimodality_path_matches_jax(trained, comp_v6, monkeypatch, tmp_path):
+    """The comp_v6 factories with the estimator, 2 prompts x 4 repeats: each
+    repeat's length drawn by the estimator, the prompts chosen by
+    np.random.default_rng(seed + call); z = mu in both."""
+    import random
+
+    from regennet_torch.data.humanml.dataset import Text2MotionDataset
+    from regennet_tpu.convert.torch_ckpt import convert_comp_v6_checkpoint
+    from regennet_tpu.data.humanml.dataset import Text2MotionDataset as JDataset
+
+    _, root, finest = trained
+    pt, tar, length = comp_v6
+    kw = dict(batch_size=4, num_samples=4, seed=1, unit_length=4, mm_num_samples=2,
+              mm_num_repeats=4, min_mov_length=10)
+    jgen, jmov_enc, _ = jeval.rebuild_comp_v6_generator(tar, 263)
+    jstate = convert_comp_v6_checkpoint(tar)
+    jest, jest_params = jeval.load_length_estimator(length)
+    jds = JDataset(root, split="test")
+    jax_factory = jeval.make_comp_gen_loader_factory(
+        jds, jgen, jstate["params"], jmov_enc, jstate["movement_enc"], len_estimator=jest,
+        len_est_params=jest_params, **kw)
+    gen, mov_enc, _ = eval_humanml.load_comp_v6_checkpoint(pt, 263, "cpu")
+    ds = Text2MotionDataset(root, split="test")
+    ours_factory = eval_humanml.make_comp_gen_loader_factory(
+        ds, gen, mov_enc, len_estimator=t2m_eval.load_length_estimator(length), **kw)
+    mm_lens = []
+
+    def evaluate(module, wrapper, dataset, factory, log):
+        def recording():
+            batches, mm = factory()
+            mm_lens.append([np.asarray(lens).tolist() for _, lens in mm])
+            return batches, mm
+
+        np.random.seed(0)
+        random.seed(0)
+        with _z_is_mu(monkeypatch):
+            return module.evaluation(
+                wrapper, module.make_gt_loader_factory(dataset, 4, 4), {"comp": recording},
+                str(tmp_path / log), replication_times=1, diversity_times=4, mm_num_times=2,
+                run_mm=True)
+
+    ref = evaluate(jeval, jt2m.T2MEvaluatorWrapper("humanml", variables=_jax_variables(finest)),
+                   jds, jax_factory, "jax.log")
+    ours = evaluate(eval_humanml, t2m_eval.T2MEvaluatorWrapper("humanml", state=finest), ds,
+                    ours_factory, "ours.log")
+    _close(ours, ref)
+    assert "MultiModality_comp" in ours and np.isfinite(ours["MultiModality_comp"])
+    assert mm_lens[0] == mm_lens[1] and len(mm_lens[0]) == 2 and len(mm_lens[0][0]) == 4
+
+
+def test_comp_v6_tar_route_gives_the_pt_summary(trained, comp_v6, monkeypatch):
+    _, root, finest = trained
+    pt, tar, length = comp_v6
+    summaries = []
+    for path in (pt, tar):
+        args = parser_util.evaluation_parser([
+            "--model_path", path, "--rec_model_path", finest, "--eval_mode", "debug",
+            "--seed", "5", "--device", "cpu", "--length_estimator", length,
+            "--data_path", root])
+        summaries.append(eval_humanml.main(args, device="cpu"))
+    assert summaries[0] == summaries[1] and np.isfinite(summaries[0]["FID_comp"])
+
+
+def test_comp_v6_generate_route_matches_jax(comp_v6, trained, tmp_path, monkeypatch):
+    pt, tar, _ = comp_v6
+    _, root, _ = trained
+    argv = ["--data_path", root, "--text_prompt", "a person walks forward", "--num_samples",
+            "2", "--motion_length", "1.7", "--glove_root", str(tmp_path / "no_glove"),
+            "--seed", "2"]
+    with _z_is_mu(monkeypatch):
+        ref = jgenerate.main(jgenerate.parse_args(
+            ["--model_path", tar, "--output_dir", str(tmp_path / "jax"), "--no-render", *argv]))
+        ours = generate.main(parser_util.generate_args(
+            ["--model_path", pt, "--output_dir", str(tmp_path / "ours"), "--device", "cpu",
+             *argv]), device="cpu")
+    assert ours["motion"].shape == (2, 32, 22, 3)  # 34 frames, whole snippets of 4
+    for k in ("feature", "motion"):
+        ref_k = np.asarray(ref[k])
+        assert ours[k].shape == ref_k.shape
+        err = float(np.abs(ours[k] - ref_k).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(ref_k).max())), (k, err)
+    saved = np.load(tmp_path / "ours" / "results.npy", allow_pickle=True).item()
+    assert set(saved) == set(ref) and saved["text"] == ref["text"]
+    np.testing.assert_array_equal(saved["lengths"], ref["lengths"])
 
 
 def test_each_cli_refuses_the_modes_it_does_not_run(trained):

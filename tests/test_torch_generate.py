@@ -10,7 +10,8 @@ embeddings (the CLIP probe is stubbed to fail at once, as it fails without
 weights, so the HF route's transformers import is not paid here). The
 port's sampler is fed the JAX loop's noise stream (the initial x and one
 z per step, replicated as tests/test_torch_sampling.py does). results.npy holds the same keys, shapes, prompts and lengths;
-`feature` and `motion` agree within 1e-5 x max(1, max|jax|).
+`feature` and `motion` agree within 1e-5 x max(1, max|jax|). The comp_v6
+route is held against the JAX CLI in tests/test_torch_eval_humanml.py.
 """
 
 import json
@@ -132,12 +133,11 @@ def test_prompts_come_from_a_file_or_the_prompt(tmp_path):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--model_path", "finest.tar"], "comp_v6"),
     (["--length_estimator", "est.tar"], "length_estimator"),
     (["--render"], "render")])
 def test_unported_routes_raise(tmp_path, extra, what):
-    """The comp_v6 route and --render raise, naming ROADMAP A.8. The
-    length estimator is ported: a missing one fails before anything runs."""
+    """--render raises, naming ROADMAP A.8. The length estimator is
+    ported: a missing one fails before anything runs."""
     args = parser_util.generate_args(["--model_path", str(tmp_path / "model.pt"),
                                       "--data_path", str(tmp_path), "--text_prompt", "hi",
                                       *extra])

@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 66  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 70  # every module was walked
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
@@ -152,4 +152,21 @@ def test_text_evaluation_entry_points_without_device_need_cuda(monkeypatch, tmp_
                                       str(tmp_path / "run")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_t2m_eval.main(args)
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+def test_comp_v6_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
+    """train_t2m_gen and the dataset-build CLI run on the GPU unless asked for
+    the CPU: without CUDA they raise before writing anything."""
+    from regennet_torch.data.humanml import motion_process
+    from regennet_torch.train import train_t2m_gen
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_t2m_gen.parse_args(["--data_path", str(tmp_path), "--save_dir",
+                                     str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_t2m_gen.main(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        motion_process._cli(["--joints_dir", str(tmp_path), "--out_dir", str(tmp_path / "out"),
+                             "--example_id", "000000"])
     assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
