@@ -24,8 +24,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      151, causal or not, f32 and bf16), each call against its plain
      version, and timed at bf16 [128, 4, 150, 128];
   2d. B1 and B2 at the model paths' own f32 shapes, non-causal: phase
-     10's [64, 61, 512] and phase 11's [64, 197, 512] (the three-pass
-     forward, the long-row backward), timed by device time under
+     10's [64, 61, 512], phase 11's [64, 197, 512] (the three-pass
+     forward, the long-row backward) and phase 14's CVAE at head dim 64,
+     [20, 62, 256] and [20, 60, 256], timed by device time under
      torch.profiler beside their plain versions, SDPA and the bounds;
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
@@ -118,15 +119,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      output; a training step's and a prior sampling's device time under
      torch.profiler; generate's comp_v6 route for 4 prompts; motion_process
      on 8 seeded raw joint clips, the card against --device cpu. It runs
-     no attention kernel, and fails if one launches.
+     no attention kernel, and fails if one launches;
+  14. B1 and B2 at the ACTOR CVAE's head dim 64 ([20, 62 and 60, 256], 4
+     heads, f32, non-causal) against their plain versions; sample.edit on
+     phase 3's online CMDM (random weights, f32 batch 16, DDPM 1000, CFG
+     off; in_between and upper_body) and on phase 11's text CMDM
+     (upper_body on hml_vec features, one prompt, CFG 2.5), the last x_0
+     prediction of every sample equal to the inpainted motion on every
+     kept entry; the Predictor on phase 4's checkpoint (DDIM 50, CFG 2.5):
+     two calls of one seed bit-identical and equal to cgenerate's output on
+     the same noise; train_cvae at the JAX CLI's defaults (transformer, 4
+     layers, latent 256, 4 heads, ff 1024, batch 20, SMPL-X 56 x 12, 60
+     frames; no dropout, as the JAX trainer) for 16 steps on in-memory
+     Chi3D clips (B2 at rate 0 8 times a step, B1 never), a step through
+     the kernels against the plain attention, the trained model's forward
+     on the card against a CPU copy; generate_sequences (2 classes x 2
+     rows, --jointstype vertices) on a synthetic SMPL-X of the real size
+     (10,475 vertices, 20,908 faces, in the official npz layout), 8 frames
+     of its first mesh sequence rasterised at 224x224 on the card and 2
+     of them held against the CPU. Launches are counted by T there.
+     matplotlib and imageio are not on the GPU machine: every generate
+     call passes --no-render, no video is written.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8, 9, 10, 11 and 12 for B1; 4, 5, 8, 9, 10, 11 and 12 for B2; 2c for
-B3) and summed in the kernel line;
+5, 6, 8, 9, 10, 11, 12 and 14 for B1; 4, 5, 8, 9, 10, 11, 12 and 14 for
+B2; 2c for B3) and summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
 and a fourth at [64, 197, 512], with phases 11 and 12's; B2 has bf16 rows
 at [64, 150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with
-phase 10's, and f32 rows at [64, 197, 512], with phases 11 and 12's.
+phase 10's, and f32 rows at [64, 197, 512], with phases 11 and 12's; B1
+and B2 have rows at the CVAE's [20, 62, 256] (the encoder) and [20, 60,
+256] (the decoder), head dim 64, with phase 14's launches there.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -657,10 +680,11 @@ def device_ms(fn, iters=20):
     return kernel_times(fn, iters)[0]
 
 
-def time_train_kernels(card, dtype="float32", T=None, causal=True):
+def time_train_kernels(card, dtype="float32", T=None, causal=True, B=None, D=None,
+                       rate=None):
     """Forward and backward times at the flagship training shape (B = 64,
-    T = 150, rate 0.1, causal; or T and causal as given) in `dtype`: the
-    kernels, autograd of the
+    T = 150, D = 512, 4 heads, rate 0.1, causal; or T, causal, B, D and
+    rate as given) in `dtype`: the kernels, autograd of the
     plain version, and F.scaled_dot_product_attention with dropout (its own
     mask: a yardstick, not a check), each by device time under
     torch.profiler (`*_ms`) and by CUDA events around back-to-back calls,
@@ -674,7 +698,8 @@ def time_train_kernels(card, dtype="float32", T=None, causal=True):
 
     from regennet_torch.ops import attention
 
-    B, D, H, rate = TRAIN["batch"], FLAGSHIP["latent_dim"], FLAGSHIP["heads"], TRAIN["rate"]
+    B, D = B or TRAIN["batch"], D or FLAGSHIP["latent_dim"]
+    H, rate = FLAGSHIP["heads"], TRAIN["rate"] if rate is None else rate
     T = T or FLAGSHIP["T"]
     hd = D // H
     td = getattr(torch, dtype)
@@ -1457,9 +1482,9 @@ def load_capability_study():
     return module
 
 
-def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed):
-    """B1 at each (B, T, dtype) of b1_shapes, and B2 (rate TRAIN["rate"],
-    forward and backward) at each of b2_shapes, on [B, T, D] inputs with H
+def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed, rate=None):
+    """B1 at each (B, T, dtype) of b1_shapes, and B2 (at `rate`, TRAIN["rate"]
+    when None, forward and backward) at each of b2_shapes, on [B, T, D] inputs with H
     heads, against their plain versions as phases 2 and 2b hold them.
     Returns (the worst errors: B1, B2's forward, B2's backward against its
     plain backward; the cases)."""
@@ -1482,9 +1507,10 @@ def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed):
                           causal=causal, max_abs_err=err))
     for B, T, dtype in b2_shapes:
         what = f"fused_attention_btd_train at {dtype} [{B}, {T}, {D}], {H} heads, causal {causal}"
-        ours, plain, vjp = _train_pair(B, T, dtype, causal, None, TRAIN["rate"], gen, D=D, H=H)
+        rate_b2 = TRAIN["rate"] if rate is None else rate
+        ours, plain, vjp = _train_pair(B, T, dtype, causal, None, rate_b2, gen, D=D, H=H)
         case = dict(kernel="fused_attention_btd_train", B=B, T=T, D=D, heads=H, dtype=dtype,
-                    causal=causal)
+                    causal=causal, rate=rate_b2)
         err = max_abs_err(ours[0], plain[0])
         hold(f"{what}: out", err, TOLERANCE[dtype] * max(1.0, float(plain[0].float().abs().max())))
         worst["train_forward"] = max(worst["train_forward"], err)
@@ -1745,10 +1771,10 @@ def check_a2m_kernels(report):
     return worst
 
 
-def time_btd_kernels(card, T):
-    """B1 and B2 at f32 [64, T, 512], non-causal, by device time under
-    torch.profiler, beside their plain versions, SDPA and the bounds (B2
-    as phase 2b times it). At 61 tokens a launch takes about as long as the
+def time_btd_kernels(card, T, B=None, D=None, rate=None):
+    """B1 and B2 at f32 [64, T, 512] (or [B, T, D]), 4 heads, non-causal,
+    by device time under torch.profiler, beside their plain versions, SDPA
+    and the bounds (B2 as phase 2b times it, at `rate` if given). At 61 tokens a launch takes about as long as the
     host needs to issue it, so the CUDA-event time of back-to-back calls
     (B1's *_wall_ms) reads the host. Returns (B1's timing, B2's timing)."""
     import torch
@@ -1756,7 +1782,7 @@ def time_btd_kernels(card, T):
 
     from regennet_torch.ops import attention
 
-    D, H, B = FLAGSHIP["latent_dim"], FLAGSHIP["heads"], TRAIN["batch"]
+    D, H, B = D or FLAGSHIP["latent_dim"], FLAGSHIP["heads"], B or TRAIN["batch"]
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).split(D, dim=-1)
     q4, k4, v4 = (x.view(B, T, H, D // H).transpose(1, 2) for x in (q, k, v))
@@ -1774,7 +1800,8 @@ def time_btd_kernels(card, T):
                       for name, label in (("", ""), ("plain_", "plain "),
                                           ("library_", "sdpa ")))
           + f", bound {b1_timing['bound_ms']:.4f} ms ({b1_timing['bound_by']}) [{card}]")
-    return b1_timing, time_train_kernels(card, "float32", T=T, causal=False)
+    return b1_timing, time_train_kernels(card, "float32", T=T, causal=False, B=B, D=D,
+                                         rate=rate)
 
 
 def time_model_kernels(report, card):
@@ -1794,10 +1821,10 @@ def time_model_kernels(report, card):
 
 
 def counted_run(fn, device="cuda"):
-    """fn() with B1's and B2's launch counts set to 0 before it and read
-    after it, each sampling loop it runs counted (its rows, its steps and
-    its device-synchronised ms), and its wall. Returns (fn's result,
-    counts)."""
+    """fn() with B1's and B2's launch counts, in all and by T, set to 0
+    before it and read after it, each sampling loop it runs, DDPM or DDIM,
+    counted (its rows, its steps and its device-synchronised ms), and its
+    wall. Returns (fn's result, counts)."""
     import torch
 
     from regennet_torch.diffusion import sampling
@@ -1806,31 +1833,43 @@ def counted_run(fn, device="cuda"):
     b1, b2 = attention.fused_attention_btd, attention.fused_attention_btd_train
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     loops = []
-    p_sample_loop = sampling.p_sample_loop
+    originals = {name: getattr(sampling, name) for name in ("p_sample_loop",
+                                                            "ddim_sample_loop")}
 
-    def counted(sched, cfg, model_fn, shape, *rest, **kw):
-        sync()
-        t0 = time.perf_counter()
-        out = p_sample_loop(sched, cfg, model_fn, shape, *rest, **kw)
-        sync()
-        loops.append(dict(rows=shape[0], steps=sched.num_timesteps,
-                          ms=(time.perf_counter() - t0) * 1e3))
-        return out
+    def counting(loop):
+        def counted(sched, cfg, model_fn, shape, *rest, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = loop(sched, cfg, model_fn, shape, *rest, **kw)
+            sync()
+            loops.append(dict(rows=shape[0], steps=sched.num_timesteps,
+                              ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        return counted
 
     b1.launches = b2.launches = b2.backward_launches = 0
-    sampling.p_sample_loop = counted
+    for by_tokens in (b1.launches_by_tokens, b2.launches_by_tokens,
+                      b2.backward_launches_by_tokens):
+        by_tokens.clear()
+    for name, loop in originals.items():
+        setattr(sampling, name, counting(loop))
     try:
         t0 = time.perf_counter()
         result = fn()
         sync()
         wall_s = time.perf_counter() - t0
     finally:
-        sampling.p_sample_loop = p_sample_loop
+        for name, loop in originals.items():
+            setattr(sampling, name, loop)
     sampling_ms = sum(lp["ms"] for lp in loops)
     steps = sum(lp["steps"] for lp in loops)
     return result, dict(
         wall_s=wall_s, b1=b1.launches, b2={"forward": b2.launches,
                                            "backward": b2.backward_launches},
+        b1_by_T=dict(b1.launches_by_tokens),
+        b2_by_T={"forward": dict(b2.launches_by_tokens),
+                 "backward": dict(b2.backward_launches_by_tokens)},
         sampling_calls=len(loops), sampling_rows=[lp["rows"] for lp in loops],
         sampling_steps=steps, sampling_s=sampling_ms / 1e3,
         ms_per_denoiser_step=sampling_ms / steps if steps else None)
@@ -2346,7 +2385,7 @@ def run_t2m(report, card, workdir, device="cuda"):
             "--model_path", paths["model"],
             "--data_path", paths["humanml"], "--text_prompt", T2M["prompt"],
             "--num_samples", str(T2M["samples"]), "--guidance_param", str(T2M["guidance"]),
-            "--output_dir", str(out_dir)])
+            "--output_dir", str(out_dir), "--no-render"])
         _, counts = counted_run(lambda: generate.main(gen_args, device=device), device)
     hold_b1_launches("the generate request", counts, layers, device)
     if counts["sampling_rows"] != [T2M["samples"]]:
@@ -2624,7 +2663,7 @@ def run_t2m_eval(report, card, workdir, device="cuda"):
             "--model_path", paths["model"], "--data_path", paths["humanml"],
             "--text_prompt", T2M["prompt"], "--num_samples", str(T2M_EVAL["lengths"]),
             "--motion_length", str(T / 20), "--length_estimator", length,
-            "--output_dir", str(out_dir)])
+            "--output_dir", str(out_dir), "--no-render"])
         result, gen_counts = counted_run(lambda: generate.main(gen_args, device=device),
                                          device)
         hold_b1_launches("generate --length_estimator", gen_counts, layers, device)
@@ -2950,7 +2989,7 @@ def run_comp_v6(report, card, workdir, device="cuda"):
             gen_args = parser_util.generate_args([
                 "--model_path", model_path, "--data_path", paths["humanml"], "--input_text",
                 str(prompts), "--motion_length", str(T2M["T"] / 20), "--seed", "0",
-                "--output_dir", str(workdir / f"comp_v6_generate_{route}")])
+                "--output_dir", str(workdir / f"comp_v6_generate_{route}"), "--no-render"])
             with timed_generate(device) as calls:
                 results[route], counts = counted_run(
                     lambda: generate.main(gen_args, device=device), device)
@@ -2981,6 +3020,522 @@ def run_comp_v6(report, card, workdir, device="cuda"):
     rows.update(wall_s=wall_s, ms_per_generated_batch=gen_ms,
                 ms_per_snippet_step=gen_ms / snippets)
     print(f"  phase 13: {wall_s:.1f} s; no attention kernel launched [{card}]")
+
+
+# phase 14: motion editing on phase 3's online CMDM and phase 11's text
+# CMDM, the Predictor on phase 4's checkpoint, the ACTOR CVAE at the JAX
+# train_cvae CLI's defaults (transformer, 4 layers, latent 256, 4 heads of
+# 64, ff 1024, batch 20, SMPL-X 56 x 12 at 60 frames; it trains as the JAX
+# trainer applies the model, with no dropout) on in-memory Chi3D clips,
+# generate_sequences to mesh vertices of an SMPL-X-sized body (10,475
+# vertices, 20,908 faces), and the rasterizer on the card against a CPU copy
+CVAE = dict(T=60, batch=20, latent_dim=256, layers=4, clips=320, classes=2, rows=2,
+            frames_drawn=8, frames_held=2, size=224, vertices=10475, faces=20908)
+EDIT = dict(batch=16, seed=14, predict_batch=4, predict_seed=5, predict_steps=50)
+RASTER_SHARE = 0.001  # pixels that may differ, each on an edge of the CPU frame
+
+
+def cvae_launches(layers, steps, encoder_calls, decoder_calls, T):
+    """B1 and B2 on phase 14's CVAE path by token count, the encoder's T + 2
+    (the mu and sigma tokens first) and the decoder's T: B2 once each way
+    in every encoder and decoder layer of a training step; B1 once in every
+    layer of each encoder and decoder call at inference. Counts of 0 are
+    left out, as the wrappers' by-T counts leave them."""
+    def by_T(encoder, decoder):
+        return {t: n for t, n in ((T + 2, layers * encoder), (T, layers * decoder)) if n}
+
+    return {"b1_by_T": by_T(encoder_calls, decoder_calls),
+            "b2_by_T": {"forward": by_T(steps, steps), "backward": by_T(steps, steps)}}
+
+
+def check_cvae_kernels(report):
+    """B1 and B2 at the CVAE's head dim 64, f32, non-causal: the encoder's
+    [B, T + 2, 256] (the mu and sigma tokens first) and the decoder's [B, T,
+    256], 4 heads, against their plain versions at phases 2 and 2b's
+    tolerances; B2 at rate 0, the rate train_cvae trains at, and at
+    TRAIN["rate"]. Returns the worst errors."""
+    B, T, D = CVAE["batch"], CVAE["T"], CVAE["latent_dim"]
+    shapes = [(B, t, "float32") for t in (T + 2, T)]
+    worst, cases = hold_kernels_at(shapes, shapes, False, D, 4, seed=14, rate=0.0)
+    worst_drop, cases_drop = hold_kernels_at([], shapes, False, D, 4, seed=15)
+    worst = {k: max(worst[k], worst_drop[k]) for k in worst}
+    report["cvae_kernel_cases"] = cases + cases_drop
+    print(f"  B1 and B2 at head dim {D // 4} ([{B}, {T + 2} and {T}, {D}], 4 heads, f32, "
+          f"non-causal, B2 at rate 0 and {TRAIN['rate']}) match their plain versions (worst "
+          f"max_abs_err B1 {worst['forward']:.3g}, B2 forward {worst['train_forward']:.3g}, "
+          f"backward {worst['backward']:.3g} against the plain backward; tolerances of "
+          "phases 2 and 2b)")
+    return worst
+
+
+def time_cvae_kernels(report, card):
+    """B1 and B2 timed at the CVAE's encoder and decoder shapes, [20, 62,
+    256] and [20, 60, 256] (head dim 64), as phase 2d times its shapes, B2
+    at rate 0 as train_cvae runs it. Returns {T: (B1's timing, B2's
+    timing)}."""
+    timings = {}
+    for T in (CVAE["T"] + 2, CVAE["T"]):
+        timings[T] = time_btd_kernels(card, T, B=CVAE["batch"], D=CVAE["latent_dim"],
+                                      rate=0.0)
+    report["cvae_attention_timing"] = {
+        str(T): {"fused_attention_btd": b1, "fused_attention_btd_train": b2}
+        for T, (b1, b2) in timings.items()}
+    return timings
+
+
+@contextlib.contextmanager
+def last_x0_prediction():
+    """Yields a list that holds, after a sampling loop inside the block,
+    the x_0 prediction of its last step (t = 0) and that step's cond."""
+    from regennet_torch.diffusion import gaussian
+
+    p_mean_variance = gaussian.p_mean_variance
+    last = []
+
+    def kept(sched, cfg, model_fn, x, t, cond, *rest, **kw):
+        out = p_mean_variance(sched, cfg, model_fn, x, t, cond, *rest, **kw)
+        last[:] = [out["pred_xstart"], cond]
+        return out
+
+    gaussian.p_mean_variance = kept
+    try:
+        yield last
+    finally:
+        gaussian.p_mean_variance = p_mean_variance
+
+
+def hold_edit(what, npy_path, last, shape):
+    """results.npy of an edit: finite, of `shape`, with the JAX CLI's keys;
+    the last step's x_0 prediction equal to inpainted_motion on every kept
+    entry of every sample. Returns the share of kept entries."""
+    import numpy as np
+
+    res = np.load(npy_path, allow_pickle=True).item()
+    if set(res) != {"motion", "output", "cmotion", "input_motion", "inpainting_mask", "text",
+                    "lengths", "edit_mode"}:
+        raise AssertionError(f"{what}: results.npy keys {sorted(res)}")
+    if res["output"].shape != shape or not np.isfinite(res["output"]).all():
+        raise AssertionError(f"{what}: output {res['output'].shape} (want {shape}) or "
+                             "non-finite values")
+    x0, cond = last
+    mask = cond["inpainting_mask"]
+    for i in range(shape[0]):
+        kept = mask[i]
+        if not (kept.any() and bool((x0[i][kept] == cond["inpainted_motion"][i][kept]).all())):
+            raise AssertionError(f"{what}: sample {i}'s last x_0 prediction differs from the "
+                                 "inpainted motion on a kept entry")
+    if not np.array_equal(mask.cpu().numpy(), res["inpainting_mask"]):
+        raise AssertionError(f"{what}: the saved mask is not the sampler's")
+    return float(mask.float().mean())
+
+
+def run_edits(report, card, data, paths, device="cuda"):
+    """Edits at full width: phase 3's online CMDM (random weights from a
+    seed, f32 batch 16, DDPM 1000, CFG off) in_between and upper_body, and
+    phase 11's text CMDM upper_body on hml_vec features (one prompt, CFG
+    2.5, 197 tokens, the seeded CLIP tower). B1's launches: layers x steps
+    x calls. Returns B1's launches."""
+    from regennet_torch.sample import edit
+
+    T, layers, rows, b1 = FLAGSHIP["T"], FLAGSHIP["layers"], [], 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("in_between", "upper_body"):
+            args = request_args(Path(tmp) / mode, EDIT["batch"], 1.0, "float32",
+                                EDIT["seed"])
+            args.edit_mode, args.text_condition = mode, ""
+            args.prefix_end, args.suffix_start = 0.25, 0.75
+            with last_x0_prediction() as last:
+                npy, counts = counted_run(lambda: edit.main(args, device=device, data=data),
+                                          device)
+            share = hold_edit(f"edit {mode}", npy, last, (EDIT["batch"], 56, 6, T))
+            hold_b1_launches(f"edit {mode}", counts, layers, device)
+            rows.append(dict(model="online", mode=mode, batch=EDIT["batch"], guidance=1.0,
+                             kept_share=share, **counts))
+            b1 += counts["b1"]
+        with clip_tower(paths) as fallbacks:
+            args = edit.edit_cli_args([
+                "--model_path", paths["model"], "--dataset", "humanml",
+                "--data_path", paths["humanml"], "--edit_mode", "upper_body",
+                "--text_condition", T2M["prompt"], "--num_samples", "1",
+                "--guidance_param", str(T2M["guidance"]), "--seed", str(EDIT["seed"]),
+                "--output_dir", str(Path(tmp) / "text")])
+            with last_x0_prediction() as last:
+                npy, counts = counted_run(lambda: edit.main(args, device=device), device)
+        if fallbacks:
+            raise AssertionError(f"the hashed text embeddings stood in for CLIP: {fallbacks}")
+        share = hold_edit("the text edit", npy, last, (1, 263, 1, T2M["T"]))
+        hold_b1_launches("the text edit", counts, layers, device)
+        rows.append(dict(model="text", mode="upper_body", batch=1, guidance=T2M["guidance"],
+                         kept_share=share, **counts))
+        b1 += counts["b1"]
+    for row in rows:
+        print(f"  edit {row['mode']} on the {row['model']} CMDM (batch {row['batch']}, "
+              f"guidance {row['guidance']}): {row['sampling_steps']} steps, "
+              f"{row['ms_per_denoiser_step']:.3f} ms a denoiser step, the request "
+              f"{row['wall_s']:.2f} s; kept entries {row['kept_share']:.3f} of the motion, "
+              f"each equal to the input in the last x_0 prediction [{card}]")
+    report["edits"] = rows
+    return b1
+
+
+def run_predict(report, card, save_dir, data, device="cuda"):
+    """Predictor.setup on phase 4's checkpoint (DDIM EDIT["predict_steps"],
+    CFG 2.5), then two
+    predict calls with one seed, bit-identical, and a cgenerate request of
+    the same seed and actor clips: its output equals the Predictor's,
+    smoothed as cgenerate smooths. Returns B1's launches (three requests)."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import gaussian_filter1d
+
+    from regennet_torch.sample import cgenerate, predict
+    from regennet_torch.utils import parser_util
+
+    n, seed = EDIT["predict_batch"], EDIT["predict_seed"]
+    respacing = f"ddim{EDIT['predict_steps']}"
+    ckpt = str(save_dir / f"model{TRAIN['steps']:09d}.pt")
+    args = parser_util.cgenerate_args([
+        "--model_path", ckpt, "--output_dir", str(save_dir / "predict_ref"), "--dataset",
+        "chi3d", "--num_person", "2", "--body_model", "smplx", "--num_samples", str(n),
+        "--num_repetitions", "1", "--seed", str(seed), "--guidance_param", "2.5",
+        "--use_ddim", "--timestep_respacing", respacing])
+
+    def requests():
+        ref = np.load(cgenerate.main(args, device=device, data=data),
+                      allow_pickle=True).item()
+        predictor = predict.Predictor()
+        predictor.setup(ckpt, guidance_param=2.5, use_ddim=True,
+                        timestep_respacing=respacing, device=device)
+        actions = np.asarray([[i % data.num_actions] for i in range(n)])
+        return ref, [predictor.predict(ref["cmotion"], actions, seed=seed) for _ in range(2)]
+
+    (ref, (a, b)), counts = counted_run(requests, device)
+    if not np.array_equal(a, b):
+        raise AssertionError("two predict calls with one seed differ")
+    smoothed = gaussian_filter1d(a, sigma=1, axis=-1)
+    err = max_abs_err(torch.tensor(smoothed), torch.tensor(ref["output"]))
+    hold("the Predictor against cgenerate on the same noise", err,
+         1e-5 * max(1.0, float(np.abs(ref["output"]).max())))
+    hold_b1_launches("the three requests", counts, FLAGSHIP["layers"], device)
+    print(f"  Predictor on {Path(ckpt).name} (DDIM {EDIT['predict_steps']}, CFG 2.5, batch "
+          f"{n}): two calls with "
+          f"seed {seed} bit-identical, cgenerate's output at max_abs_err {err:.3g} "
+          f"({'bit-identical' if err == 0 else 'within 1e-5'}); "
+          f"{counts['ms_per_denoiser_step']:.3f} ms a denoiser step [{card}]")
+    report["predict"] = dict(batch=n, max_abs_err=err, **counts)
+    return counts["b1"]
+
+
+def cvae_feeder():
+    """CVAE["clips"] in-memory Chi3D clips at the CVAE's window."""
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    T = CVAE["T"]
+    return Feeder(clips=synthetic.make_clips("chi3d", "train", num_clips=CVAE["clips"],
+                                             min_len=T + 4, max_len=2 * T, seed=14),
+                  dataname="chi3d", split="train", num_frames=T, num_person=2,
+                  pose_rep="rot6d")
+
+
+def check_cvae_train_step(report, model, data, args, device="cuda"):
+    """One train_cvae step (the trained weights, one batch, the generator's
+    draws) through the kernels against the same step through the plain
+    attention: the losses within 1e-4 relative, each gradient within 1e-4 x
+    max(1, max|g|) (phase 4's bound)."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.collate import collate
+    from regennet_torch.data.get_data import BatchLoader
+    from regennet_torch.models import transformer
+    from regennet_torch.ops import attention, body_model
+    from regennet_torch.ops.pose_decode import make_rot2xyz
+    from regennet_torch.train import train_cvae
+
+    motion, cond = next(iter(BatchLoader(data, CVAE["batch"], collate, seed=1)))
+    x = torch.as_tensor(motion, device=device)
+    action = torch.as_tensor(cond["y"]["action"][:, 0], device=device)
+    mask = torch.as_tensor(np.asarray(cond["y"]["mask"])[:, 0, 0, :], device=device)
+    lambdas = train_cvae.active_lambdas(args)
+    rot2xyz = make_rot2xyz(body_model.get_body_model(args.body_model).to(device),
+                           pose_rep=args.pose_rep, translation=True, glob=True,
+                           jointstype=args.body_model, num_person=args.num_person)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for route, attend in (("kernel", attention.fused_attention_btd_train),
+                          ("plain", attention.attention_btd_train_reference)):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        optimizer = train_cvae.make_optimizer(model.parameters(), args.lr,
+                                              train_cvae.WEIGHT_DECAY)
+        step = train_cvae.make_train_step(model, optimizer, lambdas, rot2xyz,
+                                          torch.Generator(device=device).manual_seed(12))
+        transformer.fused_attention_btd_train = attend
+        try:
+            losses = step(x, action, mask)
+        finally:
+            transformer.fused_attention_btd_train = attention.fused_attention_btd_train
+        runs[route] = ({k: float(v) for k, v in losses.items()},
+                       {n: p.grad.clone() for n, p in model.named_parameters()})
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    for name, value in loss_p.items():
+        hold(f"the CVAE step's {name} loss", abs(loss_k[name] - value),
+             1e-4 * max(1.0, abs(value)))
+    worst = (-1.0, "")
+    for n, g in grads_p.items():
+        err, tol = max_abs_err(grads_k[n], g), 1e-4 * max(1.0, float(g.abs().max()))
+        hold(f"the CVAE step's gradient of {n}", err, tol)
+        worst = max(worst, (err / tol, n))
+    print(f"  one CVAE training step through the kernels vs the plain attention: losses "
+          + ", ".join(f"{k} {loss_k[k]:.6f} vs {v:.6f}" for k, v in sorted(loss_p.items()))
+          + f"; all {len(grads_p)} gradients within 1e-4 x max(1, max|g|), the worst "
+          f"{worst[1]} at {worst[0]:.3f} of it")
+    report["cvae_train_step_check"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                                           worst_gradient=dict(name=worst[1],
+                                                               share=worst[0]))
+
+
+def hold_frames(what, ours, ref):
+    """Each frame as the CPU's except at most RASTER_SHARE of its pixels,
+    each on an edge of the CPU frame (its colour differs from a
+    4-neighbour's). Returns the largest share that differs."""
+    import numpy as np
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        if a.shape != b.shape or a.dtype != np.uint8:
+            raise AssertionError(f"{what}: frame {i} is {a.shape} {a.dtype}")
+        differ = np.any(a != b, axis=-1)
+        edge = np.zeros(differ.shape, bool)
+        for axis in (0, 1):
+            step = np.any(np.diff(b.astype(int), axis=axis) != 0, axis=-1)
+            lo, hi = [slice(None)] * 2, [slice(None)] * 2
+            lo[axis], hi[axis] = slice(0, -1), slice(1, None)
+            edge[tuple(lo)] |= step
+            edge[tuple(hi)] |= step
+        if differ.mean() > RASTER_SHARE or (differ & ~edge).any():
+            raise AssertionError(f"{what}: frame {i} differs on {differ.mean():.4%} of its "
+                                 f"pixels, {int((differ & ~edge).sum())} off the edges")
+        worst = max(worst, float(differ.mean()))
+    return worst
+
+
+def full_size_smplx(model_dir):
+    """A synthetic SMPL-X at the real one's size, CVAE["vertices"] vertices
+    and CVAE["faces"] faces, written in the official npz layout to
+    {model_dir}/smplx/SMPLX_NEUTRAL.npz, where get_body_model looks first.
+    The faces are strips over the vertices ordered by their main joint,
+    then height, so that each stays within a part of the body."""
+    import numpy as np
+
+    from regennet_torch.ops import body_model
+
+    nj = len(body_model.SMPLX_PARENTS)
+    model = body_model.synthetic("smplx", num_vertices=CVAE["vertices"] - nj)
+    n = CVAE["vertices"] - nj  # the mesh; the last nj vertices sit at the joints
+    v = model.v_template.numpy()[:n]
+    order = np.lexsort((v[:, 1], model.lbs_weights.numpy()[:n].argmax(1)))
+    strips = [np.stack([order[:n - b], order[a:n - b + a], order[b:]], 1)
+              for a, b in ((1, 2), (2, 3), (3, 4), (4, 5))]
+    faces = np.concatenate(strips)[:CVAE["faces"]]
+    if len(faces) != CVAE["faces"]:
+        raise AssertionError(f"{len(faces)} faces, want {CVAE['faces']}")
+    V = model.num_vertices
+    path = Path(model_dir) / "smplx" / "SMPLX_NEUTRAL.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, v_template=model.v_template.numpy(), shapedirs=model.shapedirs.numpy(),
+             posedirs=model.posedirs.numpy().T.reshape(V, 3, -1),
+             J_regressor=model.j_regressor.numpy(), weights=model.lbs_weights.numpy(),
+             kintree_table=np.stack([np.asarray(model.parents), np.arange(nj)]),
+             f=faces.astype(np.int32))
+    return path
+
+
+def draw_meshes(report, card, xyz, faces, device="cuda"):
+    """One generated two-person vertex sequence [V, 6, T]: CVAE["frames_drawn"]
+    of its frames rasterised on the card at CVAE["size"], the first
+    CVAE["frames_held"] of them also on the CPU: the same uint8 frames
+    within hold_frames' share."""
+    import torch
+
+    from regennet_torch.render import renderer
+
+    V, _, T = xyz.shape
+    frames = xyz[:, :, :: max(1, T // CVAE["frames_drawn"])][:, :, :CVAE["frames_drawn"]]
+    verts = torch.as_tensor(frames).reshape(V, 2, 3, -1).permute(1, 0, 2, 3)  # [P, V, 3, T]
+    size = (CVAE["size"], CVAE["size"])
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    times = {}
+    for where, v in (("card", verts.to(device)), ("cpu", verts[..., :CVAE["frames_held"]])):
+        sync()
+        t0 = time.perf_counter()
+        drawn = renderer.render_mesh_frames(v, faces, resolution=size)
+        times[where] = (drawn, (time.perf_counter() - t0) * 1e3 / len(drawn))
+    if any(not (f != f[0, 0]).any() for f in times["card"][0]):
+        raise AssertionError("a frame drew no mesh")
+    # the camera is fitted to the frames given: the held ones go through
+    # the card again on their own
+    held = renderer.render_mesh_frames(verts[..., :CVAE["frames_held"]].to(device), faces,
+                                       resolution=size)
+    share = hold_frames("the rasterizer on the card against a CPU copy", held, times["cpu"][0])
+    n = len(times["card"][0])
+    print(f"  rasterizer: {n} frames of 2 x {V} vertices, {2 * len(faces)} faces at "
+          f"{size[0]}x{size[1]}, card {times['card'][1]:.2f} ms a frame, CPU "
+          f"{times['cpu'][1]:.2f} ms; {len(held)} frames held against the CPU, equal but for "
+          f"{share:.4%} of the pixels at most, each on an edge [{card}]")
+    report["cvae_raster"] = dict(frames=n, frames_held=len(held), size=CVAE["size"],
+                                 vertices=V, faces=2 * len(faces),
+                                 card_ms_per_frame=times["card"][1],
+                                 cpu_ms_per_frame=times["cpu"][1], worst_share=share)
+
+
+def run_cvae(report, card, workdir, device="cuda"):
+    """The ACTOR CVAE at the JAX train_cvae CLI's defaults on in-memory
+    Chi3D clips, run from `workdir` with full_size_smplx's body model in
+    its ./body_models: train_cvae for one epoch (CVAE["clips"] // batch
+    steps, each synchronised and timed; B2 8 times a step, B1 never), a
+    step through the kernels against the plain attention, the trained
+    model's inference forward on the card against a CPU copy,
+    generate_sequences (CVAE["classes"] classes x CVAE["rows"] rows,
+    --jointstype vertices) and its first vertex sequence drawn on the card
+    against the CPU. Every launch count is read by T around each run.
+    Returns {"b1", "b2", "b1_by_T", "b2_by_T", "ms_per_step"}."""
+    from regennet_torch.ops import body_model
+
+    full_size_smplx(workdir / "body_models")
+    body_model.get_body_model.cache_clear()
+    try:
+        with contextlib.chdir(workdir):
+            return _run_cvae(report, card, workdir, device)
+    finally:
+        body_model.get_body_model.cache_clear()
+
+
+def _run_cvae(report, card, workdir, device):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.ops import body_model
+    from regennet_torch.sample import generate_sequences
+    from regennet_torch.train import train_cvae
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    data = cvae_feeder()
+    save_dir = workdir / "cvae"
+    T = CVAE["T"]
+    # the JAX CLI's defaults (CVAE holds them), one epoch
+    args = train_cvae.parse_args([
+        "--data_path", "", "--save_dir", str(save_dir), "--num_epochs", "1", "--snapshot",
+        "1", "--seed", "0", "--num_frames", str(T), "--batch_size",
+        str(CVAE["batch"]), "--latent_dim", str(CVAE["latent_dim"]), "--num_layers",
+        str(CVAE["layers"])])
+    step_ms = []
+    make_train_step = train_cvae.make_train_step
+
+    def timed_make(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def timed(*sa, **skw):
+            sync()
+            t0 = time.perf_counter()
+            out = step(*sa, **skw)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    train_cvae.make_train_step = timed_make
+    try:
+        (model, path), counts = counted_run(
+            lambda: train_cvae.main(args, device=device, data=data), device)
+    finally:
+        train_cvae.make_train_step = make_train_step
+    steps = len(step_ms)
+    layers = args.num_layers
+    on_card = device != "cpu"
+    want = cvae_launches(layers * on_card, steps, 0, 0, T)
+    if steps != CVAE["clips"] // CVAE["batch"] or counts["b1_by_T"] != want["b1_by_T"] or \
+            counts["b2_by_T"] != want["b2_by_T"]:
+        raise AssertionError(f"train_cvae: {steps} steps, B1 {counts['b1_by_T']}, B2 "
+                             f"{counts['b2_by_T']} by T (want {want})")
+    ms_per_step = float(np.median(step_ms[1:])) if steps > 1 else step_ms[0]
+    print(f"  train_cvae ({args.arch}, {layers} layers, latent {args.latent_dim}, batch "
+          f"{args.batch_size}, T {args.num_frames}, {model.njoints}x{model.nfeats}, no "
+          f"dropout): {steps} steps, {ms_per_step:.2f} ms a synchronised step (median after "
+          f"the first), the run {counts['wall_s']:.2f} s; B2 by T {counts['b2_by_T']}, B1 "
+          f"{counts['b1']} [{card}]")
+    check_cvae_train_step(report, model, data, args, device)
+
+    # the trained model's inference forward on the card against a CPU copy
+    model.eval()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.as_tensor(np.stack([data[i]["inp"] for i in range(CVAE["batch"])]))
+    action = torch.arange(CVAE["batch"]) % data.num_actions
+    eps = torch.randn(CVAE["batch"], args.latent_dim, generator=gen)
+    with torch.no_grad():
+        out, fwd = counted_run(lambda: model(x.to(device), action.to(device),
+                                             eps=eps.to(device)), device)
+        ref = copy.deepcopy(model).cpu()(x, action, eps=eps)
+    for name in ("output", "mu", "logvar"):
+        hold(f"the CVAE's {name} on the card against its CPU copy",
+             max_abs_err(out[name].cpu(), ref[name]),
+             1e-5 * max(1.0, float(ref[name].abs().max())))
+    gen_args = generate_sequences.parse_args([
+        "--model_path", path, "--num_classes", str(CVAE["classes"]), "--nspa",
+        str(CVAE["rows"]), "--num_frames", str(T), "--jointstype", "vertices",
+        "--seed", "0",
+        "--output_path", str(workdir / "generation.npy")])
+    result, grid = counted_run(lambda: generate_sequences.main(gen_args, device=device),
+                               device)
+    smplx = body_model.get_body_model("smplx")
+    V = smplx.num_vertices
+    if (V, len(smplx.faces)) != (CVAE["vertices"], CVAE["faces"]):
+        raise AssertionError(f"the body model has {V} vertices and {len(smplx.faces)} faces")
+    shapes = {k: result[k].shape for k in ("generation", "generation_xyz")}
+    want_shapes = {"generation": (CVAE["rows"], CVAE["classes"], 56, 12, T),
+                   "generation_xyz": (CVAE["rows"], CVAE["classes"], V, 6, T)}
+    if shapes != want_shapes or not np.isfinite(result["generation_xyz"]).all():
+        raise AssertionError(f"generate_sequences: {shapes} (want {want_shapes})")
+    for what, run, want in (("the forward", fwd, cvae_launches(layers * on_card, 0, 1, 1, T)),
+                            ("generate_sequences", grid,
+                             cvae_launches(layers * on_card, 0, 0, CVAE["rows"], T))):
+        if run["b1_by_T"] != want["b1_by_T"] or run["b2"]["forward"]:
+            raise AssertionError(f"CVAE inference, {what}: B1 by T {run['b1_by_T']} (want "
+                                 f"{want['b1_by_T']}), B2 {run['b2']}")
+    b1_by_T = {t: fwd["b1_by_T"].get(t, 0) + grid["b1_by_T"].get(t, 0)
+               for t in sorted({*fwd["b1_by_T"], *grid["b1_by_T"]})}
+    print(f"  the CVAE's forward on the card equals its CPU copy (1e-5 x max(1, max|cpu|)); "
+          f"generate_sequences: {CVAE['classes']} classes x {CVAE['rows']} rows at {T} "
+          f"frames, vertices {list(want_shapes['generation_xyz'])} finite; B1 by T "
+          f"{fwd['b1_by_T']} + {grid['b1_by_T']} [{card}]")
+    draw_meshes(report, card, result["generation_xyz"][0, 0], smplx.faces, device)
+    report["cvae"] = dict(steps=steps, ms_per_step=ms_per_step, step_ms=step_ms,
+                          train_wall_s=counts["wall_s"], launches=dict(
+                              train=counts["b2_by_T"], forward=fwd["b1_by_T"],
+                              generate=grid["b1_by_T"]))
+    return {"b1": fwd["b1"] + grid["b1"], "b2": counts["b2"], "b1_by_T": b1_by_T,
+            "b2_by_T": counts["b2_by_T"], "ms_per_step": ms_per_step}
+
+
+def run_phase14(report, card, workdir, data, device="cuda"):
+    """Phase 14: edits, the Predictor, the CVAE path and mesh rendering, in
+    the workdir of phases 4 (train/) and 11 (t2m/). Returns the launches."""
+    t_phase = time.perf_counter()
+    b1_edit = run_edits(report, card, data, t2m_paths(workdir / "t2m"), device)
+    b1_predict = run_predict(report, card, workdir / "train", data, device)
+    cvae = run_cvae(report, card, workdir, device)
+    wall_s = time.perf_counter() - t_phase
+    print(f"  phase 14: {wall_s:.1f} s; {cvae['ms_per_step']:.2f} ms a CVAE step; B1 launches "
+          f"{b1_edit} (edits) + {b1_predict} (Predictor) + {cvae['b1']} (CVAE), B2 "
+          f"{cvae['b2']} [{card}]")
+    report["phase14"] = dict(wall_s=wall_s, cvae_ms_per_step=cvae["ms_per_step"],
+                             launches=dict(b1=b1_edit + b1_predict + cvae["b1"], b2=cvae["b2"]))
+    return {**cvae, "b1": b1_edit + b1_predict + cvae["b1"]}
 
 
 def path_launches(paths, name, which=None):
@@ -3029,8 +3584,10 @@ def main() -> int:
     train_worst, train_timing = check_train_kernels(report, card)
     print("phase 2c: fused_causal_attention on its path, against its plain version")
     causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
-    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11)")
+    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11) "
+          "and the CVAE's (phase 14)")
     timings = time_model_kernels(report, card)
+    cvae_timings = time_cvae_kernels(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
@@ -3071,18 +3628,24 @@ def main() -> int:
         print("phase 13: the comp_v6 generator (train_t2m_gen, eval_humanml and generate's "
               "comp_v6 routes, motion_process) at its published widths")
         run_comp_v6(report, card, Path(tmp) / "t2m")
+        print("phase 14: edit, the Predictor, the ACTOR CVAE (train_cvae, "
+              "generate_sequences) and mesh rendering")
+        cvae_worst = check_cvae_kernels(report)
+        phase14 = run_phase14(report, card, Path(tmp), data)
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
                                      "phase 6": eval_launches,
                                      "phase 8": guard["fused_attention_btd"],
                                      "phase 9": bf16_b1, "phase 10": a2m["b1"],
-                                     "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"]},
+                                     "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"],
+                                     "phase 14": phase14["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
                                            "phase 9": bf16_b2, "phase 10": a2m["b2"],
                                            "phase 11": t2m["b2"],
-                                           "phase 12": t2m_eval["b2"]},
+                                           "phase 12": t2m_eval["b2"],
+                                           "phase 14": phase14["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -3098,7 +3661,7 @@ def main() -> int:
     } for name, launches, timing, err in (
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
          max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"],
-             t2m_eval_worst["forward"])),
+             t2m_eval_worst["forward"], cvae_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
          max(worst, guard_worst["forward"])),
@@ -3122,7 +3685,7 @@ def main() -> int:
             name = f"fused_attention_btd_train ({which})"
             launched = path_launches(paths, "fused_attention_btd_train", which)
             err = max(err, *(w["train_forward" if which == "forward" else "backward"]
-                             for w in (guard_worst, a2m_worst, t2m_worst)))
+                             for w in (guard_worst, a2m_worst, t2m_worst, cvae_worst)))
         else:
             name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
             launched = paths["fused_attention_btd_train"]["phase 9"][which]
@@ -3160,6 +3723,37 @@ def main() -> int:
             "bound_by": b2_timing[f"{which}_bound_by"],
             "library_ms": b2_timing[f"library_{which}_ms"],
         })
+    for T, part in ((CVAE["T"] + 2, "encoder"), (CVAE["T"], "decoder")):
+        # the CVAE's head dim 64: phase 14's launches at each shape
+        b1_timing, b2_timing = cvae_timings[T]
+        shape = f"f32 [{CVAE['batch']}, {T}, {CVAE['latent_dim']}], hd 64, non-causal"
+        kernel_rows.append({
+            "name": f"fused_attention_btd ({shape}, the CVAE {part}, phase 14)",
+            "route": "cuda",
+            "source": "regennet_torch/csrc/attention_fwd.cu",
+            "replaces": "regennet_tpu/ops/pallas_attention.py:222",
+            "launches": phase14["b1_by_T"].get(T, 0),
+            "max_abs_err": cvae_worst["forward"],
+            **{k: b1_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+        })
+        for which, line, source in (("forward", 382, "attention_fwd.cu"),
+                                    ("backward", 415, "attention_btd_train.cu")):
+            kernel_rows.append({
+                "name": f"fused_attention_btd_train ({which}, {shape}, the CVAE {part}, "
+                        "phase 14)",
+                "route": "cuda",
+                "source": f"regennet_torch/csrc/{source}",
+                "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
+                "launches": phase14["b2_by_T"][which].get(T, 0),
+                "max_abs_err": cvae_worst["train_forward" if which == "forward"
+                                          else "backward"],
+                "ms": b2_timing[f"kernel_{which}_ms"],
+                "plain_ms": b2_timing[f"plain_{which}_ms"],
+                "bound_ms": b2_timing[f"{which}_bound_ms"],
+                "bound_by": b2_timing[f"{which}_bound_by"],
+                "library_ms": b2_timing[f"library_{which}_ms"],
+            })
     kernel_rows.append({
         "name": "fused_causal_attention",
         "route": "cuda",

@@ -11,7 +11,8 @@ loads), of ::convert_t2m_evaluator and ::convert_length_estimator for the
 text-to-motion evaluators (models/t2m_eval.py), of the movement
 autoencoder that train_t2m_eval's decomp stage trains, and of
 ::convert_comp_v6 for the comp_v6 generator (models/t2m_gen.py) and its
-trainer's state. It takes the param tree as nested dicts of numpy arrays
+trainer's state, and of ::convert_actor_cvae for the ACTOR CVAE and CAE
+(models/actor_cvae.py). It takes the param tree as nested dicts of numpy arrays
 (no JAX import), so weights of a model trained by the JAX package load
 into regennet_torch.models.cmdm.CMDM with `load_state_dict`.
 """
@@ -82,6 +83,22 @@ def _mlp_block(sd, prefix, block):
         _linear(sd, f"{prefix}.conct", block["concat_proj"])
 
 
+def _transformer_layers(sd, trunk, layers, decoder):
+    """Flax Encoder/Decoder `layer_N` params -> `{trunk}.layers.N` of the
+    post-LN torch layers (cross-attention `multihead_attn` and norm3 in a
+    decoder)."""
+    for i in range(len(layers)):
+        layer = layers[f"layer_{i}"]
+        p = f"{trunk}.layers.{i}"
+        _mha(sd, f"{p}.self_attn", layer["self_attn"])
+        if decoder:
+            _mha(sd, f"{p}.multihead_attn", layer["cross_attn"])
+        _linear(sd, f"{p}.linear1", layer["ff"]["linear1"])
+        _linear(sd, f"{p}.linear2", layer["ff"]["linear2"])
+        for n in ("norm1", "norm2", "norm3") if decoder else ("norm1", "norm2"):
+            _layernorm(sd, f"{p}.{n}", layer[n])
+
+
 def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     """Flax CMDM params (any trunk) -> reference-layout state dict."""
     sd: Dict[str, np.ndarray] = {}
@@ -111,18 +128,68 @@ def cmdm_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     if "decoder" not in params and "encoder" not in params:
         raise ValueError("no trunk (decoder, encoder, GRUCell_0, mlp_0) in the params")
     decoder = "decoder" in params
-    layers = params["decoder" if decoder else "encoder"]
-    trunk = "seqTransDecoder" if decoder else "seqTransEncoder"
-    for i in range(len(layers)):
-        layer = layers[f"layer_{i}"]
-        p = f"{trunk}.layers.{i}"
-        _mha(sd, f"{p}.self_attn", layer["self_attn"])
-        if decoder:
-            _mha(sd, f"{p}.multihead_attn", layer["cross_attn"])
-        _linear(sd, f"{p}.linear1", layer["ff"]["linear1"])
-        _linear(sd, f"{p}.linear2", layer["ff"]["linear2"])
-        for n in ("norm1", "norm2", "norm3") if decoder else ("norm1", "norm2"):
-            _layernorm(sd, f"{p}.{n}", layer[n])
+    _transformer_layers(sd, "seqTransDecoder" if decoder else "seqTransEncoder",
+                        params["decoder" if decoder else "encoder"], decoder)
+    return sd
+
+
+def _gru_stack(sd, prefix, params, side):
+    i = 0
+    while f"{side}_gru_{i}" in params:
+        _gru_layer(sd, prefix, i, params[f"{side}_gru_{i}"]["cell"])
+        i += 1
+
+
+def actor_cvae_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax ActorCVAE params (any arch, CVAE or CAE) -> the reference ACTOR
+    state dict that regennet_torch.models.actor_cvae.ActorCVAE loads: the
+    inverse of regennet_tpu/convert/torch_ckpt.convert_actor_cvae."""
+    sd: Dict[str, np.ndarray] = {}
+    if "enc_fc1" in params:
+        _linear(sd, "encoder.fully_connected.0", params["enc_fc1"])
+        _linear(sd, "encoder.fully_connected.2", params["enc_fc2"])
+    elif "enc_embed" in params:
+        _linear(sd, "encoder.feats_embedding", params["enc_embed"])
+        _gru_stack(sd, "encoder.gru", params, "enc")
+    else:
+        _linear(sd, "encoder.skelEmbedding", params["skel_embedding"])
+        sd["encoder.muQuery"] = np.asarray(params["mu_query"])
+        sd["encoder.sigmaQuery"] = np.asarray(params["sigma_query"])
+        _transformer_layers(sd, "encoder.seqTransEncoder", params["encoder"], False)
+    if "enc_mu" in params:
+        _linear(sd, "encoder.mu", params["enc_mu"])
+        _linear(sd, "encoder.var", params["enc_var"])
+
+    if "dec_fc1" in params:
+        for i, name in enumerate(("dec_fc1", "dec_fc2", "dec_out")):
+            _linear(sd, f"decoder.fully_connected.{2 * i}", params[name])
+    elif "dec_embed" in params:
+        _linear(sd, "decoder.feats_embedding", params["dec_embed"])
+        _gru_stack(sd, "decoder.gru", params, "dec")
+        _linear(sd, "decoder.final_layer", params["dec_out"])
+    elif "at_src_embedding" in params:
+        _linear(sd, "decoder.embedding", params["at_src_embedding"])
+        _linear(sd, "decoder.embedding_x", params["at_x_embedding"])
+        _layernorm(sd, "decoder.layer_norm", params["at_norm"])
+        sd["decoder.output_layer.weight"] = np.ascontiguousarray(
+            np.asarray(params["at_out"]["kernel"]).T)
+        i = 0
+        while f"at_layer_{i}" in params:
+            layer, p = params[f"at_layer_{i}"], f"decoder.layers.{i}"
+            _layernorm(sd, f"{p}.x_layer_norm", layer["x_layer_norm"])
+            _layernorm(sd, f"{p}.dec_layer_norm", layer["dec_layer_norm"])
+            _layernorm(sd, f"{p}.feed_forward.layer_norm", layer["ff_layer_norm"])
+            for att in ("trg_trg_att", "src_trg_att"):
+                for flax_name, name in (("q_proj", "q_layer"), ("k_proj", "k_layer"),
+                                        ("v_proj", "v_layer"), ("out_proj", "output_layer")):
+                    _linear(sd, f"{p}.{att}.{name}", layer[att][flax_name])
+            _linear(sd, f"{p}.feed_forward.pwff_layer.0", layer["pwff1"])
+            _linear(sd, f"{p}.feed_forward.pwff_layer.3", layer["pwff2"])
+            i += 1
+    else:
+        sd["decoder.actionBiases"] = np.asarray(params["action_biases"])
+        _transformer_layers(sd, "decoder.seqTransDecoder", params["decoder"], True)
+        _linear(sd, "decoder.finallayer", params["final_layer"])
     return sd
 
 

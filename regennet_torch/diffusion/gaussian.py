@@ -65,7 +65,11 @@ def p_mean_variance(
     clip_denoised: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Model-predicted p(x_{t-1} | x_t) plus the x_0 prediction, for a
-    model that predicts x_0 (start_x) with a fixed variance."""
+    model that predicts x_0 (start_x) with a fixed variance.
+
+    The motion-inpainting hook: where cond holds 'inpainting_mask' and
+    'inpainted_motion', the x_0 prediction is overwritten with the
+    inpainted motion where the mask is set, before the clamp."""
     if cfg.model_var_type == "fixed_large":
         model_variance = _extract(sched.fixed_large_variance, t, x.ndim)
         model_log_variance = _extract(sched.fixed_large_log_variance, t, x.ndim)
@@ -78,6 +82,9 @@ def p_mean_variance(
         raise NotImplementedError(f"model_mean_type={cfg.model_mean_type}")
 
     pred_xstart = model_fn(x, scale_timesteps(sched, cfg, t), cond)
+    if "inpainting_mask" in cond and "inpainted_motion" in cond:
+        m = cond["inpainting_mask"].to(pred_xstart.dtype)
+        pred_xstart = pred_xstart * (1 - m) + cond["inpainted_motion"] * m
     if clip_denoised:
         pred_xstart = pred_xstart.clamp(-1.0, 1.0)
     model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)

@@ -235,7 +235,8 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
 
     On the GPU the kernel runs on the current stream, or this raises; q,
     k and v may be strided views whose last dimension is contiguous.
-    `fused_attention_btd.launches` counts kernel launches."""
+    `fused_attention_btd.launches` counts kernel launches, and
+    `.launches_by_tokens` the same by T."""
     _check(q, k, v, num_heads, kv_len)
     if q.device.type == "cpu":
         return attention_btd_reference(q, k, v, num_heads, causal,
@@ -250,10 +251,16 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
                         causal, kv_len, softmax_f32)
     _launch_attention(q, k, v, out, args, "fused_attention_btd")
     fused_attention_btd.launches += 1
+    _count_tokens(fused_attention_btd.launches_by_tokens, T)
     return out
 
 
+def _count_tokens(by_tokens: dict, T: int) -> None:
+    by_tokens[T] = by_tokens.get(T, 0) + 1
+
+
 fused_attention_btd.launches = 0
+fused_attention_btd.launches_by_tokens = {}
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +412,8 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     the backward regenerates the mask from the seed and saves nothing [B,
     H, T, T]. On the CPU the plain version runs under autograd.
     `fused_attention_btd_train.launches` and `.backward_launches` count
-    kernel launches."""
+    kernel launches, and `.launches_by_tokens` and
+    `.backward_launches_by_tokens` the same by T."""
     _check(q, k, v, num_heads, kv_len)
     _check_seed(seed, q.shape[0])
     if not 0.0 <= dropout_rate < 1.0:
@@ -423,6 +431,8 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
 
 fused_attention_btd_train.launches = 0
 fused_attention_btd_train.backward_launches = 0
+fused_attention_btd_train.launches_by_tokens = {}
+fused_attention_btd_train.backward_launches_by_tokens = {}
 
 
 class _TrainConfig(NamedTuple):
@@ -476,6 +486,7 @@ class _AttentionTrain(torch.autograd.Function):
                                   [x.data_ptr() for x in (q, k, v)], seed.shape, cfg)
         _launch_attention(q, k, v, out, args, "attention_btd_train forward", seed)
         fused_attention_btd_train.launches += 1
+        _count_tokens(fused_attention_btd_train.launches_by_tokens, q.shape[1])
         ctx.save_for_backward(q, k, v, seed)
         ctx.cfg = cfg
         return out
@@ -507,6 +518,7 @@ class _AttentionTrain(torch.autograd.Function):
         _raise_on_error(lib.attention_train_error_string, rc,
                         "attention_btd_train backward", q, cfg.num_heads)
         fused_attention_btd_train.backward_launches += 1
+        _count_tokens(fused_attention_btd_train.backward_launches_by_tokens, T)
         return dq, dk, dv, None, None
 
 

@@ -77,6 +77,8 @@ class BodyModel:
     levels: Tuple[Tuple[tuple, tuple], ...]
     landmark_vertex_ids: Optional[Tuple[int, ...]]
     name: str
+    # [NF, 3] int32 triangles for rendering; left out of == and hash()
+    faces: Optional[np.ndarray] = dataclasses.field(default=None, compare=False)
 
     @property
     def num_joints(self) -> int:
@@ -100,7 +102,8 @@ class BodyModel:
 
 
 def _make(name, v_template, shapedirs, posedirs, j_regressor, lbs_weights,
-          extra_joint_regressor, parents, landmark_vertex_ids) -> BodyModel:
+          extra_joint_regressor, parents, landmark_vertex_ids,
+          faces=None) -> BodyModel:
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
@@ -118,6 +121,7 @@ def _make(name, v_template, shapedirs, posedirs, j_regressor, lbs_weights,
                              else tuple(int(i) for i in
                                         np.asarray(landmark_vertex_ids))),
         name=name,
+        faces=None if faces is None else np.ascontiguousarray(faces, dtype=np.int32),
     )
 
 
@@ -145,6 +149,7 @@ def _smplx_from_mapping(data, num_betas: int) -> BodyModel:
         extra_joint_regressor=None,
         parents=parents[:nj],
         landmark_vertex_ids=None,
+        faces=_to_np(data["f"]) if "f" in data else None,
     )
 
 
@@ -183,6 +188,7 @@ def load_smpl_pkl(path: str, num_betas: int = NUM_BETAS,
         extra_joint_regressor=extra,
         parents=parents,
         landmark_vertex_ids=SMPL_LANDMARK_VERTEX_IDS,
+        faces=_to_np(data["f"]) if "f" in data else None,
     )
 
 
@@ -226,8 +232,11 @@ def synthetic(name: str = "smplx", num_vertices: int = 512,
     if name == "smpl":
         landmark_ids = rng.integers(0, V, size=21).astype(np.int32)
         extra = rng.dirichlet(np.ones(V) * 0.05, size=9)
+    # consecutive triples: faces to draw without licensed assets
+    faces = np.stack([np.arange(0, num_vertices - 2), np.arange(1, num_vertices - 1),
+                      np.arange(2, num_vertices)], axis=1)
     return _make(name, v_template, shapedirs, posedirs, jreg, w, extra,
-                 parents, landmark_ids)
+                 parents, landmark_ids, faces=faces)
 
 
 @functools.lru_cache(maxsize=4)

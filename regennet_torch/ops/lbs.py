@@ -1,10 +1,13 @@
-"""Kinematic chain of the body model, joints-only fast path (counterpart of
-part of regennet_tpu/ops/lbs.py).
+"""Linear blend skinning of the body model (counterpart of
+regennet_tpu/ops/lbs.py).
 
 Posed joint locations are rigid kinematics on the shaped rest skeleton:
-pose blendshapes and vertex skinning never reach them. The chain is
-composed level by level (joints grouped by tree depth), one batched
-matmul per level. `vertices` and `extended_joints` are not ported yet.
+pose blendshapes and vertex skinning never reach them, so `joints` touches
+no vertex. The chain is composed level by level (joints grouped by tree
+depth), one batched matmul per level. `vertices` is full LBS (shape blend,
+pose-corrective blend, skinning with the per-vertex transforms formed as
+one [V, J] x [B, J, 12] matmul); `extended_joints` is the SMPL wrapper's
+54-joint output, which needs the vertices.
 """
 
 from __future__ import annotations
@@ -52,3 +55,45 @@ def joints(model: BodyModel, rotmats: torch.Tensor,
     """Posed joint locations [B, J, 3]."""
     _, t_glob = global_transforms(model, rotmats, shaped_rest_joints(model, betas))
     return t_glob
+
+
+def _pose_feature(rotmats: torch.Tensor) -> torch.Tensor:
+    """(R_j - I) of every non-root joint, flattened: [B, 9 * (J - 1)]."""
+    eye = torch.eye(3, dtype=rotmats.dtype, device=rotmats.device)
+    return (rotmats[:, 1:] - eye).reshape(rotmats.shape[0], -1)
+
+
+def vertices(model: BodyModel, rotmats: torch.Tensor,
+             betas: Optional[torch.Tensor] = None,
+             pose_blend: bool = True) -> torch.Tensor:
+    """Posed mesh vertices [B, V, 3]."""
+    v = model.v_template[None]
+    if betas is not None:
+        v = v + torch.einsum("vcn,bn->bvc", model.shapedirs, betas)
+    rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v)
+    R_glob, t_glob = global_transforms(model, rotmats, rest)
+    B, J = rotmats.shape[:2]
+    v_posed = v.expand(B, *v.shape[1:])
+    if pose_blend:
+        v_posed = v_posed + (_pose_feature(rotmats) @ model.posedirs).reshape(B, -1, 3)
+    # relative transforms: x -> R_glob (x - rest joint) + t_glob
+    t_rel = t_glob - (R_glob @ rest.expand_as(t_glob)[..., None])[..., 0]
+    A = torch.cat([R_glob, t_rel[..., None]], dim=-1)  # [B, J, 3, 4]
+    T = (model.lbs_weights @ A.reshape(B, J, 12)).reshape(B, -1, 3, 4)  # [B, V, 3, 4]
+    return (T[..., :3] @ v_posed[..., None])[..., 0] + T[..., 3]
+
+
+def landmark_joints(model: BodyModel, verts: torch.Tensor) -> torch.Tensor:
+    """The landmark vertices appended to the joint set (SMPL's extended output)."""
+    return verts[:, list(model.landmark_vertex_ids)]
+
+
+def extended_joints(model: BodyModel, rotmats: torch.Tensor,
+                    betas: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The SMPL wrapper's 54-joint output: 24 kinematic joints, 21
+    landmark vertices and the 9 joints of the extra regressor."""
+    verts = vertices(model, rotmats, betas)
+    parts = [joints(model, rotmats, betas), landmark_joints(model, verts)]
+    if model.extra_joint_regressor is not None:
+        parts.append(torch.einsum("kv,bvc->bkc", model.extra_joint_regressor, verts))
+    return torch.cat(parts, dim=1)

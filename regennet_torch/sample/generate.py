@@ -24,8 +24,10 @@ times) or --input_text (a file, one prompt per line). With
 latest.tar) each prompt's length is drawn from the estimator's logits
 over its GloVe word inputs (--glove_root), in bins of 4 frames clipped to
 [4, T], by a torch.Generator seeded by --seed (the JAX CLI draws with
-jax.random.categorical; the logits agree, the draws do not). Not ported,
-and raising: --render.
+jax.random.categorical; the logits agree, the draws do not). --render (on
+by default, as in the JAX CLI) draws each motion as a stick figure along
+the T2M or KIT chain (render/plot_script.py: matplotlib and imageio) into
+sample{i:02d}.mp4, or a gif without an FFmpeg writer, beside results.npy.
 """
 
 from __future__ import annotations
@@ -68,11 +70,6 @@ def _prompts(args) -> List[str]:
     if not args.text_prompt:
         raise ValueError("pass --text_prompt or --input_text")
     return [args.text_prompt] * args.num_samples
-
-
-def _check_ported(args):
-    if args.render:
-        raise NotImplementedError("--render is not ported (ROADMAP A.8, render/)")
 
 
 def _word_inputs(prompts, glove_root):
@@ -165,7 +162,6 @@ def main(args=None, device=None) -> dict:
     if args is None:
         args = parser_util.generate_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    _check_ported(args)
     # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -208,6 +204,20 @@ def main(args=None, device=None) -> dict:
     with open(os.path.join(out_dir, "results.txt"), "w") as f:
         f.write("\n".join(prompts))
     print(f"wrote {os.path.join(out_dir, 'results.npy')}", flush=True)
+
+    if args.render:
+        from regennet_torch.data.humanml.motion_process import (
+            KIT_KINEMATIC_CHAIN,
+            T2M_KINEMATIC_CHAIN,
+        )
+        from regennet_torch.render.plot_script import plot_3d_motion
+
+        chain = T2M_KINEMATIC_CHAIN if args.dataset == "humanml" else KIT_KINEMATIC_CHAIN
+        for i, text in enumerate(prompts):
+            path = plot_3d_motion(os.path.join(out_dir, f"sample{i:02d}.mp4"), chain,
+                                  joints[i, : int(lengths[i])], title=text,
+                                  dataset=args.dataset, fps=int(fps))
+            print(f"rendered {path}", flush=True)
     return result
 
 

@@ -161,6 +161,20 @@ def add_generate_options(parser):
     group.add_argument("--action_name", default="", type=str)
 
 
+def add_edit_options(parser):
+    group = parser.add_argument_group("edit")
+    group.add_argument("--edit_mode", default="in_between",
+                       choices=["in_between", "upper_body"], type=str,
+                       help="in_between: keep the frames before --prefix_end "
+                            "and after --suffix_start (fractions of each "
+                            "length); upper_body: keep the lower body.")
+    group.add_argument("--text_condition", default="", type=str,
+                       help="For a text model: the text that replaces the "
+                            "captions; empty generates unconditioned.")
+    group.add_argument("--prefix_end", default=0.25, type=float)
+    group.add_argument("--suffix_start", default=0.75, type=float)
+
+
 def save_args(args, save_dir: str):
     """Write args to {save_dir}/args.json (the training side of the contract)."""
     os.makedirs(save_dir, exist_ok=True)
@@ -310,10 +324,19 @@ def cgenerate_args(argv=None):
     return parse_and_load_from_model_wo_data(parser, argv)
 
 
+def edit_args(argv=None):
+    """The editor's options: the sampler's and edit's, the dataset, model
+    and diffusion groups from the args.json beside --model_path."""
+    parser = ArgumentParser()
+    add_base_options(parser)
+    add_sampling_options(parser)
+    add_edit_options(parser)
+    return parse_and_load_from_model(parser, argv=argv)
+
+
 def generate_args(argv=None):
     """The text-to-motion generator's options (the JAX generate CLI's), with
-    --device. --render defaults off: rendering is not ported, and asking
-    for it raises."""
+    --device."""
     p = ArgumentParser()
     p.add_argument("--model_path", required=True, type=str,
                    help="the CMDM's .pt file, with args.json beside it, or a "
@@ -338,8 +361,9 @@ def generate_args(argv=None):
                         "length's .pt, or a released latest.tar): each "
                         "prompt's length is drawn from its logits in bins of "
                         "4 frames")
-    p.add_argument("--render", default=False, action=BooleanOptionalAction,
-                   help="write stick-figure videos per sample (not ported)")
+    p.add_argument("--render", default=True, action=BooleanOptionalAction,
+                   help="write a stick-figure video of each sample beside "
+                        "results.npy (needs matplotlib and imageio)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default=0, type=device_arg,
                    help="CUDA device id (the run is on cuda:<id>), or 'cpu'.")

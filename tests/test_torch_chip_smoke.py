@@ -556,3 +556,77 @@ def test_path_launches_add_up(monkeypatch):
     assert cs.path_launches(paths, "fused_attention_btd_train", "forward") == 2496
     assert cs.path_launches(paths, "fused_attention_btd_train", "backward") == 2496
     assert cs.path_launches(paths, "fused_causal_attention") == 26
+
+
+def test_cvae_launch_arithmetic(monkeypatch):
+    """Phase 14's CVAE path by token count: B2 once each way in each of the
+    4 encoder layers (62 tokens) and 4 decoder layers (60 tokens) a step, B1
+    never in training; at inference B1 once a layer of each encoder and
+    decoder call, so 4 x the decoder calls of generate_sequences at 60."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    assert cs.cvae_launches(4, 16, 0, 0, 60) == {
+        "b1_by_T": {}, "b2_by_T": {"forward": {62: 64, 60: 64},
+                                   "backward": {62: 64, 60: 64}}}
+    assert cs.cvae_launches(4, 0, 0, 2, 60)["b1_by_T"] == {60: 8}  # 2 rows x 4 layers
+    assert cs.cvae_launches(4, 0, 1, 1, 60) == {
+        "b1_by_T": {62: 4, 60: 4}, "b2_by_T": {"forward": {}, "backward": {}}}
+    assert cs.cvae_launches(0, 16, 1, 1, 60) == {  # the CPU launches nothing
+        "b1_by_T": {}, "b2_by_T": {"forward": {}, "backward": {}}}
+    assert (cs.CVAE["T"], cs.CVAE["batch"], cs.CVAE["latent_dim"], cs.CVAE["layers"]) == \
+        (60, 20, 256, 4)  # the JAX train_cvae CLI's defaults: head dim 64 at 4 heads
+    assert (cs.CVAE["vertices"], cs.CVAE["faces"]) == (10475, 20908)  # SMPL-X's mesh
+
+
+def test_phase14_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 14 at a cut size after phases 4 and 11 (also cut): the edits on
+    the online CMDM (both modes) and the text CMDM (the seeded CLIP tower),
+    each keeping the inpainted entries; the Predictor against cgenerate;
+    train_cvae, its step check, its forward against a CPU copy,
+    generate_sequences to vertices and the rasterizer on the CPU twice. The
+    CPU runs launch nothing."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, T=24, steps=5).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    for key, value in dict(batch=4, steps=4, steps_per_call=2).items():
+        monkeypatch.setitem(cs.TRAIN, key, value)
+    for key, value in dict(batch=4, steps=2, clips=16, samples=2).items():
+        monkeypatch.setitem(cs.T2M, key, value)
+    for key, value in dict(vocab_size=600, dim=64, heads=1, num_layers=2).items():
+        monkeypatch.setitem(cs.CLIP_TOWER, key, value)
+    for key, value in dict(T=8, batch=4, latent_dim=16, layers=1, clips=8, frames_drawn=3,
+                           frames_held=2, size=32, vertices=255, faces=300).items():
+        monkeypatch.setitem(cs.CVAE, key, value)
+    monkeypatch.setitem(cs.EDIT, "batch", 3)
+    monkeypatch.setitem(cs.EDIT, "predict_batch", 2)
+    monkeypatch.setitem(cs.EDIT, "predict_steps", 5)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    monkeypatch.delenv("REGENNET_CLIP_PATH", raising=False)
+    data = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=8, min_len=34,
+                                             max_len=48),
+                  dataname="chi3d", split="test", num_frames=24, num_person=2,
+                  pose_rep="rot6d")
+    report = {}
+    cs.run_training(report, "cpu", tmp_path / "train", device="cpu")
+    cs.run_t2m(report, "cpu", tmp_path / "t2m", device="cpu")
+    launches = cs.run_phase14(report, "cpu", tmp_path, data, device="cpu")
+    assert launches["b1"] == 0 and launches["b2"] == {"forward": 0, "backward": 0}
+    edits = report["edits"]
+    assert [(e["model"], e["mode"]) for e in edits] == [
+        ("online", "in_between"), ("online", "upper_body"), ("text", "upper_body")]
+    assert [e["sampling_steps"] for e in edits] == [5, 5, 5]
+    assert all(0 < e["kept_share"] < 1 for e in edits)
+    assert report["predict"]["max_abs_err"] <= 1e-5
+    assert report["cvae"]["steps"] == 2
+    assert report["cvae_train_step_check"]["loss_kernel"]["mixed"] == pytest.approx(
+        report["cvae_train_step_check"]["loss_plain"]["mixed"], rel=1e-6)
+    raster = report["cvae_raster"]
+    assert (raster["frames"], raster["frames_held"], raster["worst_share"]) == (3, 2, 0)
+    assert (raster["vertices"], raster["faces"]) == (255, 600)  # two persons' faces
+    from regennet_torch.ops import body_model
+    assert body_model.get_body_model("smplx").num_vertices == 567  # the fallback again

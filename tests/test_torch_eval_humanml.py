@@ -403,7 +403,7 @@ def test_comp_v6_generate_route_matches_jax(comp_v6, trained, tmp_path, monkeypa
             ["--model_path", tar, "--output_dir", str(tmp_path / "jax"), "--no-render", *argv]))
         ours = generate.main(parser_util.generate_args(
             ["--model_path", pt, "--output_dir", str(tmp_path / "ours"), "--device", "cpu",
-             *argv]), device="cpu")
+             "--no-render", *argv]), device="cpu")
     assert ours["motion"].shape == (2, 32, 22, 3)  # 34 frames, whole snippets of 4
     for k in ("feature", "motion"):
         ref_k = np.asarray(ref[k])
@@ -511,7 +511,8 @@ def test_length_estimator_logits_match_jax(trained, tmp_path):
     result = generate.main(parser_util.generate_args([
         "--model_path", model_path, "--data_path", root, "--text_prompt", prompts[0],
         "--num_samples", "3", "--motion_length", "6", "--length_estimator", str(path),
-        "--glove_root", glove, "--seed", "0", "--output_dir", str(out)]), device="cpu")
+        "--glove_root", glove, "--seed", "0", "--output_dir", str(out), "--no-render"]),
+        device="cpu")
     again = generate.estimate_lengths(t2m_eval.load_length_estimator(str(path)),
                                       [prompts[0]] * 3, glove, T=120, seed=0)[1]
     np.testing.assert_array_equal(result["lengths"], again)

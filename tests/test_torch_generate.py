@@ -102,8 +102,8 @@ def test_diffusion_route_matches_jax(trained, tmp_path, monkeypatch):
     monkeypatch.setattr(sampling, "p_sample_loop",
                         partial(sampling.p_sample_loop, noise=x0, step_noise=zs))
     out = str(tmp_path / "torch")
-    ours = generate.main(parser_util.generate_args(argv + ["--output_dir", out]),
-                         device="cpu")
+    ours = generate.main(parser_util.generate_args(argv + ["--output_dir", out,
+                                                           "--no-render"]), device="cpu")
     saved = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
     assert set(saved) == set(ours) == set(ref) == {"motion", "feature", "text", "lengths",
                                                     "num_samples"}
@@ -135,14 +135,46 @@ def test_prompts_come_from_a_file_or_the_prompt(tmp_path):
 @pytest.mark.parametrize("extra,what", [
     (["--length_estimator", "est.tar"], "length_estimator"),
     (["--render"], "render")])
-def test_unported_routes_raise(tmp_path, extra, what):
-    """--render raises, naming ROADMAP A.8. The length estimator is
-    ported: a missing one fails before anything runs."""
-    args = parser_util.generate_args(["--model_path", str(tmp_path / "model.pt"),
-                                      "--data_path", str(tmp_path), "--text_prompt", "hi",
-                                      *extra])
-    error, match = ((FileNotFoundError, "est.tar") if what == "length_estimator"
-                    else (NotImplementedError, f"{what}.*ROADMAP A.8"))
-    with pytest.raises(error, match=match):
-        generate.main(args, device="cpu")
-    assert not os.listdir(tmp_path)  # nothing written
+def test_unported_routes_raise(trained, tmp_path, monkeypatch, extra, what):
+    """Both routes, once unported, are ported. A missing length estimator
+    fails before anything runs. --render (the default, as in the JAX CLI)
+    draws each motion as a stick figure: its frames equal the JAX
+    plot_3d_motion's of the same joints along the T2M chain."""
+    if what == "length_estimator":
+        args = parser_util.generate_args(["--model_path", str(tmp_path / "model.pt"),
+                                          "--data_path", str(tmp_path), "--text_prompt",
+                                          "hi", *extra])
+        with pytest.raises(FileNotFoundError, match="est.tar"):
+            generate.main(args, device="cpu")
+        assert not os.listdir(tmp_path)  # nothing written
+        return
+    from regennet_tpu.data.humanml.motion_process import T2M_KINEMATIC_CHAIN
+    from regennet_tpu.render import plot_script as jplot
+    from regennet_torch.render import plot_script
+
+    model_path, root = trained
+    written = {}
+
+    def keep(frames, path, fps=20):
+        written[path] = (list(frames), fps)
+        return path
+
+    monkeypatch.setattr(plot_script, "write_video", keep)
+    out = str(tmp_path / "out")
+    args = parser_util.generate_args([
+        "--model_path", model_path, "--data_path", root, "--text_prompt", "a person waves",
+        "--num_samples", "2", "--motion_length", "0.2", "--output_dir", out, *extra])
+    assert args.render and parser_util.generate_args(
+        ["--model_path", "m", "--data_path", "d", "--no-render"]).render is False
+    result = generate.main(args, device="cpu")
+    assert sorted(written) == [os.path.join(out, f"sample{i:02d}.mp4") for i in range(2)]
+    monkeypatch.setattr(jplot, "write_video", keep)
+    for i in range(2):
+        frames, fps = written.pop(os.path.join(out, f"sample{i:02d}.mp4"))
+        jplot.plot_3d_motion(str(tmp_path / "jax.mp4"), T2M_KINEMATIC_CHAIN,
+                             result["motion"][i], title="a person waves", dataset="humanml",
+                             fps=20)
+        ref, ref_fps = written.pop(str(tmp_path / "jax.mp4"))
+        assert fps == ref_fps == 20 and len(frames) == len(ref) == 4
+        for a, b in zip(frames, ref):
+            np.testing.assert_array_equal(a, b)

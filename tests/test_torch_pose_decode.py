@@ -81,6 +81,12 @@ def test_joints_of_identity_pose_are_rest_joints():
 
 
 def test_unported_joint_sets_raise():
+    """A joint set neither package knows raises; 'vertices', once
+    unported, now decodes the posed mesh."""
     x = torch.zeros(1, 56, 6, 4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pd.rot2xyz(x, None, bm.synthetic("smplx"), jointstype="vertices")
+    with pytest.raises(NotImplementedError, match="jointstype is not implemented"):
+        pd.rot2xyz(x, None, bm.synthetic("smplx"), jointstype="openpose")
+    model = bm.synthetic("smplx")
+    verts = pd.rot2xyz(torch.zeros(1, 55, 3, 4), None, model, pose_rep="rotvec",
+                       translation=False, jointstype="vertices")
+    assert verts.shape == (1, model.num_vertices, 3, 4)
