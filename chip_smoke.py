@@ -25,9 +25,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      version, and timed at bf16 [128, 4, 150, 128];
   2d. B1 and B2 at the model paths' own f32 shapes, non-causal: phase
      10's [64, 61, 512], phase 11's [64, 197, 512] (the three-pass
-     forward, the long-row backward) and phase 14's CVAE at head dim 64,
-     [20, 62, 256] and [20, 60, 256], timed by device time under
-     torch.profiler beside their plain versions, SDPA and the bounds;
+     forward, the long-row backward), phase 14's CVAE at head dim 64,
+     [20, 62, 256] and [20, 60, 256], and phase 15's GAN, D's [32, 60,
+     256] and G's [32, 16, 256] (B2 at rate 0), timed by device time under
+     torch.profiler beside their plain versions, SDPA and the bounds; and
+     B2's second-order term (PyTorch ops) at the GAN's shapes;
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
@@ -140,16 +142,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      of them held against the CPU. Launches are counted by T there.
      matplotlib and imageio are not on the GPU machine: every generate
      call passes --no-render, no video is written.
+  15. B1 and B2 (rate 0) at the GAN's head dim 64 ([32, 60 and 16, 256],
+     [4, 16, 256]) against their plain versions, and B2's second-order
+     term (`_AttentionTrainBackward`, what a gradient penalty
+     differentiates) against autograd's double backward of the plain
+     version; train_gan at the JAX CLI's defaults (batch 32, 60 frames,
+     SMPL-X 56 x 12, latent 256, 2 layers, 4 heads of 64, ff 512, 16 gp
+     noise tokens of 32 channels) for 8 iterations in each loss mode,
+     hinge and wgan-gp (--repeat_D 1), each D and G step timed and the
+     launches by T and the second-order calls held to gan_launches; one
+     d_step of each mode through the kernels against the plain attention
+     (losses, gradients, updated parameters); gen_samples_per_class (2
+     classes x 4, arrays only); evaluate_cvae debug on phase 14's CVAE
+     (random ST-GCN, --other_metrics), every YAML value finite; the
+     SMPLify fit (fit_sequence, 60 frames, 300 steps) on phase 14's SMPL-X
+     of the real size, its first 5 losses against a CPU copy. Videos, h5
+     dumps, joblib and the NTU split stay off the card (CPU tests).
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8, 9, 10, 11, 12 and 14 for B1; 4, 5, 8, 9, 10, 11, 12 and 14 for
-B2; 2c for B3) and summed in the kernel line;
+5, 6, 8, 9, 10, 11, 12, 14 and 15 for B1; 4, 5, 8, 9, 10, 11, 12, 14 and
+15 for B2; 2c for B3) and summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
 and a fourth at [64, 197, 512], with phases 11 and 12's; B2 has bf16 rows
 at [64, 150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with
 phase 10's, and f32 rows at [64, 197, 512], with phases 11 and 12's; B1
 and B2 have rows at the CVAE's [20, 62, 256] (the encoder) and [20, 60,
-256] (the decoder), head dim 64, with phase 14's launches there.
+256] (the decoder), head dim 64, with phase 14's launches there, and at
+the GAN's [32, 60, 256] (D; B1 there: evaluate_cvae's decode) and [32,
+16, 256] (G), with phase 15's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
@@ -1821,10 +1841,11 @@ def time_model_kernels(report, card):
 
 
 def counted_run(fn, device="cuda"):
-    """fn() with B1's and B2's launch counts, in all and by T, set to 0
-    before it and read after it, each sampling loop it runs, DDPM or DDIM,
-    counted (its rows, its steps and its device-synchronised ms), and its
-    wall. Returns (fn's result, counts)."""
+    """fn() with B1's and B2's launch counts, in all and by T, and the calls
+    of B2's second-order term, set to 0 before it and read after it, each
+    sampling loop it runs, DDPM or DDIM, counted (its rows, its steps and
+    its device-synchronised ms), and its wall. Returns (fn's result,
+    counts)."""
     import torch
 
     from regennet_torch.diffusion import sampling
@@ -1848,7 +1869,7 @@ def counted_run(fn, device="cuda"):
 
         return counted
 
-    b1.launches = b2.launches = b2.backward_launches = 0
+    b1.launches = b2.launches = b2.backward_launches = b2.double_backward_launches = 0
     for by_tokens in (b1.launches_by_tokens, b2.launches_by_tokens,
                       b2.backward_launches_by_tokens):
         by_tokens.clear()
@@ -1867,6 +1888,7 @@ def counted_run(fn, device="cuda"):
     return result, dict(
         wall_s=wall_s, b1=b1.launches, b2={"forward": b2.launches,
                                            "backward": b2.backward_launches},
+        b2_double=b2.double_backward_launches,
         b1_by_T=dict(b1.launches_by_tokens),
         b2_by_T={"forward": dict(b2.launches_by_tokens),
                  "backward": dict(b2.backward_launches_by_tokens)},
@@ -3538,6 +3560,426 @@ def run_phase14(report, card, workdir, data, device="cuda"):
     return {**cvae, "b1": b1_edit + b1_predict + cvae["b1"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the ACTOR GAN (train_gan at the JAX CLI's defaults, hinge and
+# wgan-gp), its per-class generation, evaluate_cvae on phase 14's CVAE and
+# the SMPLify fit on phase 14's SMPL-X of the real size
+# ---------------------------------------------------------------------------
+
+GAN = dict(batch=32, T=60, latent_dim=256, layers=2, nnoise=16, Z=32, iters=8, classes=2,
+           per_class=4, fit_T=60, fit_steps=300, fit_held=5)
+
+
+def gan_launches(layers, iters, loss_mode, T, NN):
+    """B1 and B2 on a train_gan run of `iters` iterations, G stepping every
+    iteration (--repeat_D 1), by token count: D at T, G at its NN noise
+    tokens. A D step runs G without a graph (B1 at NN) and D on the real and
+    the fake batch (B2 at T, each once each way), under wgan-gp also on the
+    interpolates, whose penalty adds a backward and the second-order term
+    once per layer (its gradient, and the second pass back through D's
+    forward); a G step runs G and D (B2 at NN and at T, once each way)."""
+    wgan = loss_mode == "wgan-gp"
+
+    def by_T(at_T, at_NN):
+        return {t: n for t, n in ((T, layers * iters * at_T), (NN, layers * iters * at_NN)) if n}
+
+    return {"b1_by_T": by_T(0, 1),
+            "b2_by_T": {"forward": by_T(3 + wgan, 1), "backward": by_T(3 + 2 * wgan, 1)},
+            "b2_double": layers * iters * wgan}
+
+
+def gan_feeder(num_clips, seed=15):
+    """`num_clips` in-memory Chi3D clips at the GAN's window."""
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+
+    T = GAN["T"]
+    return Feeder(clips=synthetic.make_clips("chi3d", "train", num_clips=num_clips,
+                                             min_len=T + 4, max_len=2 * T, seed=seed),
+                  dataname="chi3d", split="train", num_frames=T, num_person=2,
+                  pose_rep="rot6d")
+
+
+def gan_args(save_dir, loss_mode):
+    """train_gan's arguments: the JAX CLI's defaults (batch 32, 60 frames,
+    latent 256, 16 noise tokens of 32 gp channels), one epoch, the widths
+    GAN holds."""
+    from regennet_torch.train import train_gan
+
+    return train_gan.parse_args([
+        "--data_path", "", "--save_dir", str(save_dir), "--num_epochs", "1", "--snapshot",
+        "1", "--loss_mode", loss_mode, "--batch_size", str(GAN["batch"]), "--num_frames",
+        str(GAN["T"]), "--latent_dim", str(GAN["latent_dim"]), "--nnoise",
+        str(GAN["nnoise"]), "--noise_channel", str(GAN["Z"])])
+
+
+def check_gan_kernels(report):
+    """B1 and B2 (rate 0) at the GAN's shapes, head dim 64, f32, non-causal:
+    D's [B, T, 256], G's [B, NN, 256] and the generation's [per_class, NN,
+    256], against their plain versions at phases 2 and 2b's tolerances; and
+    B2's second-order term (`_AttentionTrainBackward`, the backward kernel
+    in its forward) under autograd against autograd's double backward of
+    the plain version, within 1e-4 x max(1, max|plain|) (phase 4's bound).
+    Returns the worst errors."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, T, NN, D = GAN["batch"], GAN["T"], GAN["nnoise"], GAN["latent_dim"]
+    b1 = [(B, NN, "float32"), (B, T, "float32"), (GAN["per_class"], NN, "float32")]
+    b2 = [(B, T, "float32"), (B, NN, "float32")]
+    worst, cases = hold_kernels_at(b1, b2, False, D, 4, seed=16, rate=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    second = 0.0
+    for t in (T, NN):
+        q, k, v, dout = (torch.randn(B, t, D, device="cuda", generator=gen).requires_grad_()
+                         for _ in range(4))
+        cot = [torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3)]
+        seed = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                             dtype=torch.int32)
+        cfg = attention._TrainConfig(4, 0.0, False, False, 0)
+        out = attention._AttentionTrainBackward.apply(q, k, v, dout, seed, cfg)
+        ours = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)),
+                                   (q, k, v, dout))
+        first = torch.autograd.grad(attention.attention_btd_train_reference(
+            q, k, v, 4, 0.0, seed, causal=False), (q, k, v), dout, create_graph=True)
+        ref = torch.autograd.grad(sum((o * c).sum() for o, c in zip(first, cot)),
+                                  (q, k, v, dout))
+        for name, a, b in zip(("q", "k", "v", "dout"), ours, ref):
+            err = max_abs_err(a, b)
+            hold(f"B2's second-order term at [{B}, {t}, {D}]: d/d{name}", err,
+                 1e-4 * max(1.0, float(b.abs().max())))
+            second = max(second, err)
+    worst["second_order"] = second
+    report["gan_kernel_cases"] = cases
+    print(f"  B1 and B2 (rate 0) at the GAN's head dim 64 ([{B}, {T} and {NN}, {D}], "
+          f"[{GAN['per_class']}, {NN}, {D}], f32, non-causal) match their plain versions "
+          f"(worst max_abs_err B1 {worst['forward']:.3g}, B2 forward "
+          f"{worst['train_forward']:.3g}, backward {worst['backward']:.3g}); B2's "
+          f"second-order term against autograd's double backward of the plain version: "
+          f"worst {second:.3g} (1e-4 x max(1, max|plain|))")
+    return worst
+
+
+def time_gan_kernels(report, card):
+    """B1 and B2 (rate 0) timed at D's [B, T, 256] and G's [B, NN, 256] as
+    phase 2d times its shapes, and B2's second-order term (PyTorch ops) by
+    device time beside its bound. Returns {T: (B1's timing, B2's timing)}
+    and the second-order timings."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, D, H = GAN["batch"], GAN["latent_dim"], 4
+    timings, second = {}, {}
+    for T in (GAN["T"], GAN["nnoise"]):
+        timings[T] = time_btd_kernels(card, T, B=B, D=D, rate=0.0)
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        x = [torch.randn(B, T, D, device="cuda", generator=gen) for _ in range(7)]
+        seed = torch.zeros((B, 2), dtype=torch.int32, device="cuda")
+        ms = device_ms(lambda: attention.attention_btd_train_double_backward(
+            *x, H, 0.0, seed, False), iters=20)
+        # q, k, v, dO and three cotangents in, four gradients out; the
+        # softmax recomputed (QK^T) and ten more [T, T] x hd products
+        bound, by = attention_bound_ms(B, T, D, H, "float32", False, None, tensors=11,
+                                       products=11)
+        second[T] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        print(f"  B2's second-order term f32 [{B}, {T}, {D}] (PyTorch ops): {ms:.4f} ms by "
+              f"device time, bound {bound:.4f} ms ({by}) [{card}]")
+    report["gan_attention_timing"] = {
+        str(T): {"fused_attention_btd": b1, "fused_attention_btd_train": b2,
+                 "second_order": second[T]} for T, (b1, b2) in timings.items()}
+    return timings, second
+
+
+def run_gan_training(report, card, workdir, loss_mode, data, device="cuda"):
+    """train_gan at the JAX CLI's defaults for one epoch of GAN["iters"]
+    batches, each D and G step synchronised and timed; the launches by T and
+    the second-order calls against gan_launches. Returns (G, D, args,
+    counts, {"d_ms", "g_ms"})."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.train import train_gan
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    args = gan_args(workdir / f"gan_{loss_mode}", loss_mode)
+    times = {"d": [], "g": []}
+    make = train_gan.make_gan_steps
+
+    def timed(step, into):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            sync()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def timed_make(*a, **kw):
+        d_step, g_step = make(*a, **kw)
+        return timed(d_step, times["d"]), timed(g_step, times["g"])
+
+    train_gan.make_gan_steps = timed_make
+    try:
+        (G, D), counts = counted_run(lambda: train_gan.main(args, device=device, data=data),
+                                     device)
+    finally:
+        train_gan.make_gan_steps = make
+    iters = len(times["d"])
+    layers = len(D.encoder.layers)
+    want = gan_launches(layers * (device != "cpu"), iters, loss_mode, GAN["T"], GAN["nnoise"])
+    got = {k: counts[k] for k in want}
+    if iters != GAN["iters"] or len(times["g"]) != iters or got != want:
+        raise AssertionError(f"train_gan {loss_mode}: {iters} D steps, {len(times['g'])} G "
+                             f"steps; launches {got} (want {want})")
+    for p in list(G.parameters()) + list(D.parameters()):
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"train_gan {loss_mode}: a parameter is not finite")
+    ms = {k: float(np.median(v[1:])) if len(v) > 1 else v[0] for k, v in times.items()}
+    print(f"  train_gan {loss_mode} (G and D {layers} layers, latent {args.latent_dim}, batch "
+          f"{args.batch_size}, D at T {args.num_frames}, G at {args.nnoise} tokens): {iters} "
+          f"iterations, D step {ms['d']:.2f} ms, G step {ms['g']:.2f} ms (synchronised, median "
+          f"after the first), the run {counts['wall_s']:.2f} s; B1 by T {counts['b1_by_T']}, "
+          f"B2 by T {counts['b2_by_T']}, second-order calls {counts['b2_double']} [{card}]")
+    report[f"gan_{loss_mode}"] = dict(iters=iters, d_ms=ms["d"], g_ms=ms["g"],
+                                      d_step_ms=times["d"], g_step_ms=times["g"],
+                                      wall_s=counts["wall_s"],
+                                      launches={k: counts[k] for k in want})
+    return G, D, args, counts, ms
+
+
+def check_gan_d_step(report, G, D, data, args, loss_mode, device="cuda"):
+    """One d_step (the trained G and D, one batch, one alpha) through the
+    kernels against the same step through the plain attention, which
+    autograd differentiates twice: the losses within 1e-4 relative; each
+    gradient within 1e-4 x max(1, max|g|) (phase 4's bound); each updated
+    parameter within 1e-4 x max(1, max|p|), or 2 lr more where |g| <= 1e-4
+    x max|g| (AdamW's first step takes the gradient's sign there). Under
+    wgan-gp this is what catches a second-order term dropped on the card;
+    the kernel route's second-order calls must be one per D layer."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.data.collate import collate
+    from regennet_torch.data.get_data import BatchLoader
+    from regennet_torch.models import actor_gan, transformer
+    from regennet_torch.ops import attention
+
+    motion, cond = next(iter(BatchLoader(data, args.batch_size, collate, seed=1)))
+    x = torch.as_tensor(motion, device=device)
+    y = torch.as_tensor(cond["y"]["action"][:, 0], device=device)
+    rng = np.random.default_rng(5)
+    noise = torch.as_tensor(actor_gan.gen_noise(rng, args.batch_size, args.nnoise,
+                                                args.noise_channel, mode=args.noise_mode),
+                            device=device)
+    y_fake = y if loss_mode == "wgan-gp" else torch.as_tensor(
+        rng.integers(0, data.num_actions, args.batch_size), device=device)
+    alpha = torch.rand((x.shape[0], 1, 1, 1), generator=torch.Generator(device=device)
+                       .manual_seed(7), device=device)
+    start = {n: p.detach().clone() for n, p in D.named_parameters()}
+    b2 = attention.fused_attention_btd_train
+    runs = {}
+    for route, attend in (("kernel", b2), ("plain", attention.attention_btd_train_reference)):
+        with torch.no_grad():
+            for n, p in D.named_parameters():
+                p.copy_(start[n])
+        opt_d, opt_g = actor_gan.make_optimizers(D, G, args.base_lr, args.D_lr_mult,
+                                                 args.beta1, args.weight_decay)
+        d_step, _ = actor_gan.make_gan_steps(
+            G, D, opt_d, opt_g, loss_mode=loss_mode, lambda_gp=args.lambda_gp,
+            generator=torch.Generator(device=device).manual_seed(12))
+        transformer.fused_attention_btd_train = attend
+        b2.double_backward_launches = 0
+        try:
+            metrics = d_step(x, y, noise, y_fake, alpha=alpha)
+        finally:
+            transformer.fused_attention_btd_train = b2
+        runs[route] = ({k: float(v) for k, v in metrics.items()},
+                       {n: p.grad.clone() for n, p in D.named_parameters()},
+                       {n: p.detach().clone() for n, p in D.named_parameters()},
+                       b2.double_backward_launches)
+    with torch.no_grad():
+        for n, p in D.named_parameters():
+            p.copy_(start[n])
+    (loss_k, grads_k, params_k, double_k), (loss_p, grads_p, params_p, _) = (
+        runs["kernel"], runs["plain"])
+    for name, value in loss_p.items():
+        hold(f"the {loss_mode} d_step's {name}", abs(loss_k[name] - value),
+             1e-4 * max(1.0, abs(value)))
+    lr = args.base_lr * args.D_lr_mult
+    worst = (-1.0, "")
+    for n, g in grads_p.items():
+        g_scale = float(g.abs().max())
+        err, tol = max_abs_err(grads_k[n], g), 1e-4 * max(1.0, g_scale)
+        hold(f"the {loss_mode} d_step's gradient of {n}", err, tol)
+        worst = max(worst, (err / tol, n))
+        tol_p = 1e-4 * max(1.0, float(params_p[n].abs().max()))
+        diff = (params_k[n] - params_p[n]).abs()
+        signed = g.abs() <= 1e-4 * g_scale
+        hold(f"the {loss_mode} d_step's update of {n}", float(diff[~signed].max())
+             if (~signed).any() else 0.0, tol_p)
+        hold(f"the {loss_mode} d_step's update of {n} where |g| is tiny",
+             float(diff[signed].max()) if signed.any() else 0.0, 2 * lr + tol_p)
+    layers = len(D.encoder.layers)
+    want_double = layers * (loss_mode == "wgan-gp") * (device != "cpu")
+    if double_k != want_double:
+        raise AssertionError(f"the {loss_mode} d_step ran B2's second-order term {double_k} "
+                             f"times (want {want_double})")
+    print(f"  one {loss_mode} d_step through the kernels vs the plain attention: lossD "
+          f"{loss_k['lossD']:.6f} vs {loss_p['lossD']:.6f}; all {len(grads_p)} gradients "
+          f"within 1e-4 x max(1, max|g|), the worst {worst[1]} at {worst[0]:.3f} of it; the "
+          f"updated parameters within the bound; second-order calls {double_k}")
+    report[f"gan_{loss_mode}_d_step_check"] = dict(
+        loss_kernel=loss_k, loss_plain=loss_p, second_order_calls=double_k,
+        worst_gradient=dict(name=worst[1], share=worst[0]))
+
+
+def run_gan_eval(report, card, workdir, device="cuda"):
+    """evaluate_cvae debug (1 seed, a random full-width ST-GCN drawn from
+    --seed, --other_metrics) on phase 14's CVAE checkpoint over its
+    in-memory Chi3D clips: every YAML value finite, B1 once per decoder
+    layer and generated batch at the CVAE's T. Returns the counts."""
+    import copy
+
+    from regennet_torch.eval import evaluate_cvae
+    from regennet_torch.eval.tools import load_metrics
+
+    model_path = workdir / "cvae" / "model000000001.pt"
+    data = cvae_feeder()
+    args = evaluate_cvae.parse_args([
+        "--model_path", str(model_path), "--data_path", "", "--dataset", "chi3d",
+        "--eval_mode", "debug", "--other_metrics", "--batch_size", str(GAN["batch"])])
+    metrics, counts = counted_run(lambda: evaluate_cvae.main(args, device=device, data=data),
+                                  device)
+    log = model_path.parent / "evaluation_results_cvae_debug_1.yaml"
+    saved = load_metrics(str(log))
+    values = [float(v) for group in saved.values() for vs in group.values() for v in vs]
+    if set(saved) != {"feats", "other"} or set(saved["feats"]) != set(metrics["feats"]) or \
+            not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"evaluate_cvae: {log.name} holds {saved}")
+    layers = CVAE["layers"] * (device != "cpu")
+    splits = []
+    for split in ("train", "test"):
+        splits.append(copy.deepcopy(data))
+        splits[-1].split = split
+    batch = min(GAN["batch"], *(len(d) for d in splits))
+    gen_batches = sum(-(-len(d) // batch) for d in splits)
+    want = {CVAE["T"]: layers * gen_batches} if layers else {}
+    if counts["b1_by_T"] != want or counts["b2"]["forward"]:
+        raise AssertionError(f"evaluate_cvae: B1 by T {counts['b1_by_T']} (want {want}), B2 "
+                             f"{counts['b2']}")
+    feats = saved["feats"]
+    print(f"  evaluate_cvae debug on phase 14's CVAE ({len(data)} clips a split, batch "
+          f"{batch}, random ST-GCN, --other_metrics): {len(values)} values finite, "
+          f"accuracy_gen_test {feats['accuracy_gen_test'][0]}, fid_gen_test "
+          f"{feats['fid_gen_test'][0]}, acceleration {saved['other']['acceleration'][0]}; "
+          f"{counts['wall_s']:.2f} s; B1 by T {counts['b1_by_T']} [{card}]")
+    report["gan_eval"] = dict(wall_s=counts["wall_s"], metrics=saved,
+                              launches=counts["b1_by_T"])
+    return counts
+
+
+def run_fit(report, card, workdir, device="cuda"):
+    """fit_sequence on phase 14's SMPL-X of the real size: 60 frames of
+    joints posed from seeded axis-angles, GAN["fit_steps"] Adam steps on the
+    card from a seeded init_pose6d, timed; its first GAN["fit_held"] losses
+    against a CPU copy from the same init, within 1e-4 x max(1, |cpu|); its
+    last loss below its first. Returns the ms per step."""
+    import numpy as np
+    import torch
+
+    from regennet_torch.ops import body_model, lbs
+    from regennet_torch.ops import rotations as geo
+    from regennet_torch.visualize.joints2smpl import fit_sequence
+
+    smplx = body_model.load_smplx_npz(str(workdir / "body_models" / "smplx" /
+                                          "SMPLX_NEUTRAL.npz"))
+    T, J = GAN["fit_T"], smplx.num_joints
+    rng = np.random.default_rng(19)
+    with torch.no_grad():
+        gt_aa = torch.as_tensor(0.2 * rng.normal(size=(T, J, 3)), dtype=torch.float32)
+        target = lbs.joints(smplx, geo.axis_angle_to_matrix(gt_aa))
+        target = (target - target[:, :1]).numpy()
+    init = np.tile(np.asarray([1.0, 0, 0, 0, 1.0, 0], np.float32), (T, J, 1))
+    init += 0.01 * rng.normal(size=init.shape).astype(np.float32)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    on_device = smplx.to(device)
+    sync()
+    t0 = time.perf_counter()
+    fit = fit_sequence(on_device, target, num_steps=GAN["fit_steps"], init_pose6d=init)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / GAN["fit_steps"]
+    held = GAN["fit_held"]
+    ref = fit_sequence(smplx, target, num_steps=held, init_pose6d=init)
+    for i, (a, b) in enumerate(zip(fit["losses"][:held], ref["losses"])):
+        hold(f"the fit's loss {i} on the card against a CPU copy", abs(float(a) - float(b)),
+             1e-4 * max(1.0, abs(float(b))))
+    losses = fit["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"fit_sequence: losses {losses[0]} -> {losses[-1]}")
+    print(f"  fit_sequence on SMPL-X ({smplx.num_vertices} vertices, {J} joints), {T} frames, "
+          f"{GAN['fit_steps']} steps: {ms:.3f} ms a step (the whole fit, synchronised), loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; the first {held} losses equal a CPU copy's "
+          f"within 1e-4 x max(1, |cpu|) [{card}]")
+    report["gan_fit"] = dict(frames=T, steps=GAN["fit_steps"], ms_per_step=ms,
+                             first_loss=float(losses[0]), last_loss=float(losses[-1]))
+    return ms
+
+
+def run_phase15(report, card, workdir, device="cuda"):
+    """Phase 15 in the workdir of phase 14 (cvae/ and body_models/): train_gan
+    in both loss modes with a d_step of each held against the plain
+    attention, gen_samples_per_class, evaluate_cvae and the fit. Returns
+    the launches ({"b1", "b2", "b1_by_T", "b2_by_T", "b2_double"})."""
+    import numpy as np
+
+    from regennet_torch.models import actor_gan
+
+    t_phase = time.perf_counter()
+    data = gan_feeder(GAN["iters"] * GAN["batch"])
+    runs, ms = [], {}
+    for loss_mode in ("hinge", "wgan-gp"):
+        G, D, args, counts, ms[loss_mode] = run_gan_training(report, card, workdir, loss_mode,
+                                                             data, device)
+        check_gan_d_step(report, G, D, data, args, loss_mode, device)
+        runs.append(counts)
+    noise_cfg = dict(NN=args.nnoise, Z=args.noise_channel, lambda_noise=args.lambda_noise,
+                     mode=args.noise_mode, length_scale=args.length_scale)
+    samples, gen = counted_run(lambda: actor_gan.gen_samples_per_class(
+        G, GAN["classes"], noise_cfg, per_class=GAN["per_class"], seed=0), device)
+    want_shape = (GAN["classes"], GAN["per_class"], 56, 12, GAN["T"])
+    layers = len(G.encoder.layers) * (device != "cpu")
+    want_b1 = {GAN["nnoise"]: layers * GAN["classes"]} if layers else {}
+    if samples.shape != want_shape or not np.isfinite(samples).all() or \
+            gen["b1_by_T"] != want_b1:
+        raise AssertionError(f"gen_samples_per_class: {samples.shape} (want {want_shape}), "
+                             f"B1 by T {gen['b1_by_T']} (want {want_b1})")
+    print(f"  gen_samples_per_class: {GAN['classes']} classes x {GAN['per_class']} samples "
+          f"{list(samples.shape[2:])} finite; B1 by T {gen['b1_by_T']} [{card}]")
+    evaluation = run_gan_eval(report, card, workdir, device)
+    fit_ms = run_fit(report, card, workdir, device)
+    runs += [gen, evaluation]
+
+    def add(dicts):
+        return {t: sum(d.get(t, 0) for d in dicts) for t in sorted({t for d in dicts for t in d})}
+
+    out = {"b1": sum(r["b1"] for r in runs),
+           "b2": {w: sum(r["b2"][w] for r in runs) for w in ("forward", "backward")},
+           "b1_by_T": add([r["b1_by_T"] for r in runs]),
+           "b2_by_T": {w: add([r["b2_by_T"][w] for r in runs]) for w in ("forward", "backward")},
+           "b2_double": sum(r["b2_double"] for r in runs)}
+    wall_s = time.perf_counter() - t_phase
+    print(f"  phase 15: {wall_s:.1f} s; D step hinge {ms['hinge']['d']:.2f} ms, wgan-gp "
+          f"{ms['wgan-gp']['d']:.2f} ms; G step {ms['hinge']['g']:.2f} ms; the fit "
+          f"{fit_ms:.3f} ms a step; B1 launches {out['b1']}, B2 {out['b2']}, second-order "
+          f"calls {out['b2_double']} [{card}]")
+    report["phase15"] = dict(wall_s=wall_s, step_ms=ms, fit_ms_per_step=fit_ms,
+                             launches={k: out[k] for k in ("b1", "b2", "b2_double")})
+    return out
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -3584,10 +4026,11 @@ def main() -> int:
     train_worst, train_timing = check_train_kernels(report, card)
     print("phase 2c: fused_causal_attention on its path, against its plain version")
     causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
-    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11) "
-          "and the CVAE's (phase 14)")
+    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11), "
+          "the CVAE's (phase 14) and the GAN's (phase 15)")
     timings = time_model_kernels(report, card)
     cvae_timings = time_cvae_kernels(report, card)
+    gan_timings, second_timings = time_gan_kernels(report, card)
     print("phase 3: cgenerate at the flagship width")
     data, launches = run_requests(report, card)
     check_forward(report, data)
@@ -3632,6 +4075,10 @@ def main() -> int:
               "generate_sequences) and mesh rendering")
         cvae_worst = check_cvae_kernels(report)
         phase14 = run_phase14(report, card, Path(tmp), data)
+        print("phase 15: the ACTOR GAN (train_gan hinge and wgan-gp, gen_samples_per_class), "
+              "evaluate_cvae on phase 14's CVAE and the SMPLify fit")
+        gan_worst = check_gan_kernels(report)
+        phase15 = run_phase15(report, card, Path(tmp))
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
@@ -3639,13 +4086,14 @@ def main() -> int:
                                      "phase 8": guard["fused_attention_btd"],
                                      "phase 9": bf16_b1, "phase 10": a2m["b1"],
                                      "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"],
-                                     "phase 14": phase14["b1"]},
+                                     "phase 14": phase14["b1"], "phase 15": phase15["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
                                            "phase 9": bf16_b2, "phase 10": a2m["b2"],
                                            "phase 11": t2m["b2"],
                                            "phase 12": t2m_eval["b2"],
-                                           "phase 14": phase14["b2"]},
+                                           "phase 14": phase14["b2"],
+                                           "phase 15": phase15["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -3661,7 +4109,7 @@ def main() -> int:
     } for name, launches, timing, err in (
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
          max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"],
-             t2m_eval_worst["forward"], cvae_worst["forward"])),
+             t2m_eval_worst["forward"], cvae_worst["forward"], gan_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
          max(worst, guard_worst["forward"])),
@@ -3685,7 +4133,8 @@ def main() -> int:
             name = f"fused_attention_btd_train ({which})"
             launched = path_launches(paths, "fused_attention_btd_train", which)
             err = max(err, *(w["train_forward" if which == "forward" else "backward"]
-                             for w in (guard_worst, a2m_worst, t2m_worst, cvae_worst)))
+                             for w in (guard_worst, a2m_worst, t2m_worst, cvae_worst,
+                                       gan_worst)))
         else:
             name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
             launched = paths["fused_attention_btd_train"]["phase 9"][which]
@@ -3754,6 +4203,40 @@ def main() -> int:
                 "bound_by": b2_timing[f"{which}_bound_by"],
                 "library_ms": b2_timing[f"library_{which}_ms"],
             })
+    for T, part in ((GAN["T"], "D, and evaluate_cvae's decode (B1)"),
+                    (GAN["nnoise"], "G at its noise tokens")):
+        # the GAN's head dim 64: phase 15's launches at each shape
+        b1_timing, b2_timing = gan_timings[T]
+        shape = f"f32 [{GAN['batch']}, {T}, {GAN['latent_dim']}], hd 64, non-causal"
+        kernel_rows.append({
+            "name": f"fused_attention_btd ({shape}, {part}, phase 15)",
+            "route": "cuda",
+            "source": "regennet_torch/csrc/attention_fwd.cu",
+            "replaces": "regennet_tpu/ops/pallas_attention.py:222",
+            "launches": phase15["b1_by_T"].get(T, 0),
+            "max_abs_err": gan_worst["forward"],
+            **{k: b1_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+        })
+        for which, line, source in (("forward", 382, "attention_fwd.cu"),
+                                    ("backward", 415, "attention_btd_train.cu")):
+            kernel_rows.append({
+                "name": f"fused_attention_btd_train ({which}, rate 0, {shape}, "
+                        f"{part.split(',')[0]}, phase 15)",
+                "route": "cuda",
+                "source": f"regennet_torch/csrc/{source}",
+                "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
+                "launches": phase15["b2_by_T"][which].get(T, 0),
+                "max_abs_err": gan_worst["train_forward" if which == "forward"
+                                         else "backward"],
+                "ms": b2_timing[f"kernel_{which}_ms"],
+                "plain_ms": b2_timing[f"plain_{which}_ms"],
+                "bound_ms": b2_timing[f"{which}_bound_ms"],
+                "bound_by": b2_timing[f"{which}_bound_by"],
+                "library_ms": b2_timing[f"library_{which}_ms"],
+            })
+    report["second_order"] = dict(calls=phase15["b2_double"], worst=gan_worst["second_order"],
+                                  timing={str(t): v for t, v in second_timings.items()})
     kernel_rows.append({
         "name": "fused_causal_attention",
         "route": "cuda",

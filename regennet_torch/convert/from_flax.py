@@ -12,7 +12,9 @@ text-to-motion evaluators (models/t2m_eval.py), of the movement
 autoencoder that train_t2m_eval's decomp stage trains, and of
 ::convert_comp_v6 for the comp_v6 generator (models/t2m_gen.py) and its
 trainer's state, and of ::convert_actor_cvae for the ACTOR CVAE and CAE
-(models/actor_cvae.py). It takes the param tree as nested dicts of numpy arrays
+(models/actor_cvae.py); and the GAN's generator and discriminator
+(models/actor_gan.py), which have no reference torch layout, into the
+port's module names. It takes the param tree as nested dicts of numpy arrays
 (no JAX import), so weights of a model trained by the JAX package load
 into regennet_torch.models.cmdm.CMDM with `load_state_dict`.
 """
@@ -190,6 +192,23 @@ def actor_cvae_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
         sd["decoder.actionBiases"] = np.asarray(params["action_biases"])
         _transformer_layers(sd, "decoder.seqTransDecoder", params["decoder"], True)
         _linear(sd, "decoder.finallayer", params["final_layer"])
+    return sd
+
+
+def actor_gan_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax actor_gan Generator or Discriminator params -> the state dict of
+    regennet_torch.models.actor_gan.Generator or .Discriminator. No torch
+    reference layout exists for these classes, so the names are the port's
+    modules: the Flax Dense layers under their own names, the `encoder`
+    layers as `_transformer_layers` maps them."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("noise_embed", "output_head", "frame_embed", "psi"):
+        if name in params:
+            _linear(sd, name, params[name])
+    for name in ("label_embedding", "label_projection"):
+        if name in params:
+            sd[name] = np.asarray(params[name])
+    _transformer_layers(sd, "encoder", params["encoder"], False)
     return sd
 
 

@@ -2,10 +2,14 @@
 regennet_tpu/models/stgcn_graph.py, the layouts the evaluations use).
 
 Layouts: 'smpl' (24 joints and a root-translation node) and 'smplx' (55
-and 1), from the body-model kinematic trees; 'openpose' (15 joints, no
-translation node, centre joint 1), the skeleton of the unconstrained
-HumanAct12 evaluator. The 'spatial' partition strategy (root / closer /
-further), the one the classifier uses.
+and 1), from the body-model kinematic trees; 'smpl_noglobal' (the 23
+SMPL joints below the root); 'ntu-rgb+d' (the 25-joint Kinect v2 bone
+list, remapped by (i - 2) mod 25 so the root-translation row is the last
+node, centre 19), the graph of ACTOR's xyz recognition route, and
+'ntu_edge' (its 24-node no-glob variant, centre 2); 'openpose' (15
+joints, no translation node, centre joint 1), the skeleton of the
+unconstrained HumanAct12 evaluator. The 'spatial' partition strategy
+(root / closer / further), the one the classifier uses.
 """
 
 from __future__ import annotations
@@ -30,6 +34,27 @@ class Graph:
             neighbor_link = [(j, int(parents[j])) for j in range(1, joints)]
             neighbor_link.append((0, joints))  # root rotation <-> translation node
             self.center = 0
+        elif layout == "smpl_noglobal":
+            self.num_node = 23
+            neighbor_link = [(j - 1, int(SMPL_PARENTS[j]) - 1) for j in range(1, 24)
+                             if int(SMPL_PARENTS[j]) != 0]
+            self.center = 0
+        elif layout == "ntu-rgb+d":
+            self.num_node = 25
+            neighbor_1base = [(1, 2), (2, 21), (3, 21), (4, 3), (5, 21), (6, 5), (7, 6),
+                              (8, 7), (9, 21), (10, 9), (11, 10), (12, 11), (13, 1),
+                              (14, 13), (15, 14), (16, 15), (17, 1), (18, 17), (19, 18),
+                              (20, 19), (22, 23), (23, 8), (24, 25), (25, 12)]
+            neighbor_link = [((i - 2) % 25, (j - 2) % 25) for i, j in neighbor_1base]
+            self.center = 21 - 2
+        elif layout == "ntu_edge":
+            self.num_node = 24
+            neighbor_1base = [(1, 2), (3, 2), (4, 3), (5, 2), (6, 5), (7, 6), (8, 7),
+                              (9, 2), (10, 9), (11, 10), (12, 11), (13, 1), (14, 13),
+                              (15, 14), (16, 15), (17, 1), (18, 17), (19, 18), (20, 19),
+                              (21, 22), (22, 8), (23, 24), (24, 12)]
+            neighbor_link = [(i - 1, j - 1) for i, j in neighbor_1base]
+            self.center = 2
         elif layout == "openpose":
             # joint order of eval/unconstrained.SMPL_TO_OPENPOSE15
             self.num_node = 15

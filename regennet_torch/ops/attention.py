@@ -20,7 +20,11 @@ weights are cast to v's dtype before AV (f32 accumulation).
 on the GPU an autograd Function whose forward and backward are kernels;
 on the CPU its plain version `attention_btd_train_reference`,
 differentiated by autograd. `attention_btd_train_backward_reference` is
-the backward kernel's plain version, with its rounding points. The
+the backward kernel's plain version, with its rounding points. The GPU
+backward is itself an autograd Function (`_AttentionTrainBackward`), so
+a gradient taken with create_graph=True (a gradient penalty) can be
+differentiated again: its VJP, `attention_btd_train_double_backward`, is
+the closed-form second-order term in PyTorch ops. The
 dropout bits are Philox4x32-10 keyed by each batch row's two int32 seed
 words, with counter (key, query, head, 0): `dropout_bits` computes them
 in plain torch, bit for bit as the kernels do.
@@ -413,7 +417,9 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     H, T, T]. On the CPU the plain version runs under autograd.
     `fused_attention_btd_train.launches` and `.backward_launches` count
     kernel launches, and `.launches_by_tokens` and
-    `.backward_launches_by_tokens` the same by T."""
+    `.backward_launches_by_tokens` the same by T. The GPU backward is itself
+    differentiable (a gradient penalty's `create_graph=True`): its VJP runs
+    in PyTorch ops, counted by `.double_backward_launches`."""
     _check(q, k, v, num_heads, kv_len)
     _check_seed(seed, q.shape[0])
     if not 0.0 <= dropout_rate < 1.0:
@@ -433,6 +439,7 @@ fused_attention_btd_train.launches = 0
 fused_attention_btd_train.backward_launches = 0
 fused_attention_btd_train.launches_by_tokens = {}
 fused_attention_btd_train.backward_launches_by_tokens = {}
+fused_attention_btd_train.double_backward_launches = 0
 
 
 class _TrainConfig(NamedTuple):
@@ -494,32 +501,124 @@ class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, seed = ctx.saved_tensors
-        cfg = ctx.cfg
-        B, T, D = q.shape
-        hd = D // cfg.num_heads
-        threshold, keep_w, keep_f32, scale_q, scale_f32 = _train_scalars(
-            cfg, q.dtype, hd)
-        dout = dout.to(q.dtype).contiguous()
-        dq, dk, dv = (torch.empty((B, T, D), dtype=q.dtype, device=q.device)
-                      for _ in range(3))
-        stats = torch.empty((3, B, cfg.num_heads, T), dtype=torch.float32,
-                            device=q.device)
-        lib = _train_library()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.attention_train_backward(
-                _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                stats.data_ptr(), seed.data_ptr(), int(seed.dim() == 2),
-                threshold, keep_w, keep_f32, B, T, cfg.num_heads, hd,
-                *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
-                cfg.kv_len, int(cfg.softmax_f32), stream,
-            )
-        _raise_on_error(lib.attention_train_error_string, rc,
-                        "attention_btd_train backward", q, cfg.num_heads)
-        fused_attention_btd_train.backward_launches += 1
-        _count_tokens(fused_attention_btd_train.backward_launches_by_tokens, T)
+        dq, dk, dv = _AttentionTrainBackward.apply(q, k, v, dout.to(q.dtype).contiguous(),
+                                                   seed, ctx.cfg)
         return dq, dk, dv, None, None
+
+
+class _AttentionTrainBackward(torch.autograd.Function):
+    """The training attention's backward as a function of (q, k, v, dout):
+    its forward is the backward kernel on the GPU (the plain backward
+    `attention_btd_train_backward_reference` on the CPU), its backward the
+    second-order term `attention_btd_train_double_backward` in PyTorch ops.
+    Autograd records it only when the backward itself is differentiated
+    (`create_graph=True`, as a gradient penalty does); a first-order
+    backward runs the kernel alone, as before."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dout, seed, cfg):
+        if q.device.type == "cpu":
+            grads = attention_btd_train_backward_reference(
+                q, k, v, dout, cfg.num_heads, cfg.rate, seed, cfg.causal, cfg.softmax_f32,
+                cfg.kv_len or None)
+        else:
+            grads = _launch_train_backward(q, k, v, dout, seed, cfg)
+        ctx.save_for_backward(q, k, v, dout, seed)
+        ctx.cfg = cfg
+        return grads
+
+    @staticmethod
+    def backward(ctx, gdq, gdk, gdv):
+        q, k, v, dout, seed = ctx.saved_tensors
+        cfg = ctx.cfg
+        grads = attention_btd_train_double_backward(
+            q, k, v, dout, gdq, gdk, gdv, cfg.num_heads, cfg.rate, seed, cfg.causal,
+            cfg.softmax_f32, cfg.kv_len or None)
+        fused_attention_btd_train.double_backward_launches += 1
+        return (*grads, None, None)
+
+
+def _launch_train_backward(q, k, v, dout, seed, cfg: _TrainConfig):
+    """(dq, dk, dv) from the backward kernel of attention_btd_train.cu."""
+    B, T, D = q.shape
+    hd = D // cfg.num_heads
+    threshold, keep_w, keep_f32, scale_q, scale_f32 = _train_scalars(cfg, q.dtype, hd)
+    dq, dk, dv = (torch.empty((B, T, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty((3, B, cfg.num_heads, T), dtype=torch.float32, device=q.device)
+    lib = _train_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_train_backward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), seed.data_ptr(), int(seed.dim() == 2),
+            threshold, keep_w, keep_f32, B, T, cfg.num_heads, hd,
+            *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
+            cfg.kv_len, int(cfg.softmax_f32), stream,
+        )
+    _raise_on_error(lib.attention_train_error_string, rc,
+                    "attention_btd_train backward", q, cfg.num_heads)
+    fused_attention_btd_train.backward_launches += 1
+    _count_tokens(fused_attention_btd_train.backward_launches_by_tokens, T)
+    return dq, dk, dv
+
+
+def attention_btd_train_double_backward(q, k, v, dout, gdq, gdk, gdv, num_heads: int,
+                                        dropout_rate: float, seed: torch.Tensor,
+                                        causal: bool = True, softmax_f32: bool = False,
+                                        kv_len: Optional[int] = None):
+    """The vector-Jacobian product of the training attention's backward
+    (dq, dk, dv) = f(q, k, v, dout) at cotangents (gdq, gdk, gdv): returns
+    (gq, gk, gv, gdout), the second-order term, in closed form and f32.
+
+    Per head, with S = s Q K^T (s = 1/sqrt(hd)), P = softmax(S), the keep
+    factor M (the mask times 1/(1-rate)), W = P.M, dP = (dO V^T).M,
+    r = rowsum(dP.P) and dS = P.(dP - r), the backward is dV = W^T dO,
+    dQ = s dS K, dK = s dS^T Q. Its VJP:
+      gdS = s (gdQ K^T + Q gdK^T),  t = rowsum(gdS.P)
+      gdP = P.(gdS - t),            gdW = gdP.M
+      gP  = gdS.(dP - r) - t dP + (dO gdV^T).M
+      gS  = P.(gP - rowsum(gP.P))
+      gQ  = s (gS K + dS gdK),      gK = s (gS^T Q + dS^T gdQ)
+      gV  = gdW^T dO,               gdO = W gdV + gdW V
+    P and M are recomputed from q, k and the seed."""
+    H = num_heads
+    hd = q.shape[2] // H
+    with torch.no_grad():
+        p = _softmax_weights(q, k, H, causal, softmax_f32, kv_len).float()
+        m = None
+        if dropout_rate > 0.0:
+            m = _drop(torch.ones_like(p), _keep_mask(q, H, dropout_rate, seed, None),
+                      dropout_rate)
+
+        def heads(x):
+            return _heads(x, H).float()
+
+        qh, kh, vh, do = heads(q), heads(k), heads(v), heads(dout)
+        gq_in, gk_in, gv_in = heads(gdq), heads(gdk), heads(gdv)
+        s = 1.0 / math.sqrt(hd)
+        dp = torch.matmul(do, vh.transpose(-1, -2))
+        w = p if m is None else p * m
+        if m is not None:
+            dp = dp * m
+        r = (dp * p).sum(dim=-1, keepdim=True)
+        ds = p * (dp - r)
+        gds = s * (torch.matmul(gq_in, kh.transpose(-1, -2))
+                   + torch.matmul(qh, gk_in.transpose(-1, -2)))
+        t = (gds * p).sum(dim=-1, keepdim=True)
+        gdw = p * (gds - t)
+        gw = torch.matmul(do, gv_in.transpose(-1, -2))
+        if m is not None:
+            gdw, gw = gdw * m, gw * m
+        gp = gds * (dp - r) - t * dp + gw
+        gs = p * (gp - (gp * p).sum(dim=-1, keepdim=True))
+        gq = s * (torch.matmul(gs, kh) + torch.matmul(ds, gk_in))
+        gk = s * (torch.matmul(gs.transpose(-1, -2), qh)
+                  + torch.matmul(ds.transpose(-1, -2), gq_in))
+        gv = torch.matmul(gdw.transpose(-1, -2), do)
+        gdo = torch.matmul(w, gv_in) + torch.matmul(gdw, vh)
+    return (*(_merge_heads(x).to(q.dtype) for x in (gq, gk, gv)),
+            _merge_heads(gdo).to(dout.dtype))
 
 
 def _raise_on_error(error_string, rc, what, q, num_heads):

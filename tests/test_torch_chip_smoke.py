@@ -630,3 +630,123 @@ def test_phase14_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert (raster["vertices"], raster["faces"]) == (255, 600)  # two persons' faces
     from regennet_torch.ops import body_model
     assert body_model.get_body_model("smplx").num_vertices == 567  # the fallback again
+
+
+def test_gan_launch_arithmetic(monkeypatch):
+    """Phase 15's GAN path by token count, 2 layers, 8 iterations: hinge, B2
+    at D's 60 frames 3 times a layer each way (D on the real and the fake
+    batch, D in the G step), at G's 16 tokens once; B1 at 16 once (the D
+    step's fake). wgan-gp adds D on the interpolates: a forward, and two
+    backward passes (the penalty's gradient, then back through D's forward
+    under the loss's gradient) with one second-order call a layer."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    assert cs.gan_launches(2, 8, "hinge", 60, 16) == {
+        "b1_by_T": {16: 16}, "b2_by_T": {"forward": {60: 48, 16: 16},
+                                         "backward": {60: 48, 16: 16}}, "b2_double": 0}
+    assert cs.gan_launches(2, 8, "wgan-gp", 60, 16) == {
+        "b1_by_T": {16: 16}, "b2_by_T": {"forward": {60: 64, 16: 16},
+                                         "backward": {60: 80, 16: 16}}, "b2_double": 16}
+    assert cs.gan_launches(0, 8, "wgan-gp", 60, 16) == {  # the CPU launches nothing
+        "b1_by_T": {}, "b2_by_T": {"forward": {}, "backward": {}}, "b2_double": 0}
+    assert (cs.GAN["batch"], cs.GAN["T"], cs.GAN["latent_dim"], cs.GAN["nnoise"],
+            cs.GAN["Z"]) == (32, 60, 256, 16, 32)  # the JAX train_gan CLI's defaults
+    assert "  15. " in cs.__doc__ and "phases 3,\n5, 6, 8, 9, 10, 11, 12, 14 and 15" in cs.__doc__
+
+
+class _CardLikeB2(torch.autograd.Function):
+    """B2 as the card runs it under autograd, on the CPU: the plain forward
+    and, for the backward, `_AttentionTrainBackward` (so a second
+    derivative takes the second-order term), each counted by T in the
+    wrapper's counters as the kernels count their launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, cfg):
+        from regennet_torch.ops import attention
+
+        b2 = attention.fused_attention_btd_train
+        b2.launches += 1
+        b2.launches_by_tokens[q.shape[1]] = b2.launches_by_tokens.get(q.shape[1], 0) + 1
+        ctx.save_for_backward(q, k, v, seed)
+        ctx.cfg = cfg
+        with torch.no_grad():
+            return attention.attention_btd_train_reference(q, k, v, cfg.num_heads, cfg.rate,
+                                                           seed, cfg.causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from regennet_torch.ops import attention
+
+        q, k, v, seed = ctx.saved_tensors
+        b2 = attention.fused_attention_btd_train
+        b2.backward_launches += 1
+        by_T = b2.backward_launches_by_tokens
+        by_T[q.shape[1]] = by_T.get(q.shape[1], 0) + 1
+        return (*attention._AttentionTrainBackward.apply(q, k, v, dout.contiguous(), seed,
+                                                         ctx.cfg), None, None)
+
+
+@pytest.mark.parametrize("loss_mode", ["hinge", "wgan-gp"])
+def test_gan_launches_match_a_card_like_run(monkeypatch, tmp_path, loss_mode):
+    """gan_launches against train_gan run on the CPU with B1 and B2 counting
+    as the card's wrappers count (B2 differentiated through its
+    second-order Function), at a cut size."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from regennet_torch.models import transformer
+    from regennet_torch.ops import attention
+    from regennet_torch.train import train_gan
+
+    for key, value in dict(batch=4, T=8, latent_dim=16, nnoise=4, Z=3, iters=2).items():
+        monkeypatch.setitem(cs.GAN, key, value)
+    b1 = attention.fused_attention_btd
+
+    def counted_b1(q, k, v, num_heads, causal=True, softmax_f32=False, kv_len=None):
+        b1.launches += 1
+        b1.launches_by_tokens[q.shape[1]] = b1.launches_by_tokens.get(q.shape[1], 0) + 1
+        return attention.attention_btd_reference(q, k, v, num_heads, causal, softmax_f32,
+                                                 kv_len)
+
+    def card_like_b2(q, k, v, num_heads, rate, seed, causal=True, softmax_f32=False,
+                     kv_len=None):
+        return _CardLikeB2.apply(q, k, v, seed, attention._TrainConfig(
+            num_heads, float(rate), causal, softmax_f32, 0))
+
+    monkeypatch.setattr(transformer, "fused_attention_btd", counted_b1)
+    monkeypatch.setattr(transformer, "fused_attention_btd_train", card_like_b2)
+    data = cs.gan_feeder(cs.GAN["iters"] * cs.GAN["batch"])
+    _, counts = cs.counted_run(lambda: train_gan.main(
+        cs.gan_args(tmp_path / "gan", loss_mode), device="cpu", data=data), "cpu")
+    want = cs.gan_launches(2, 2, loss_mode, 8, 4)
+    assert {k: counts[k] for k in want} == want
+
+
+def test_phase15_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 15 at a cut size after phase 14's CVAE (also cut): train_gan in
+    both modes with the d_step checks, the generation, evaluate_cvae on the
+    CVAE's checkpoint and the fit against its CPU copy. The CPU runs launch
+    nothing."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    for key, value in dict(T=8, batch=4, latent_dim=16, layers=1, clips=8, frames_drawn=2,
+                           frames_held=1, size=16, vertices=255, faces=300).items():
+        monkeypatch.setitem(cs.CVAE, key, value)
+    for key, value in dict(batch=4, T=8, latent_dim=16, nnoise=4, Z=3, iters=2, classes=2,
+                           per_class=2, fit_T=4, fit_steps=6, fit_held=3).items():
+        monkeypatch.setitem(cs.GAN, key, value)
+    report = {}
+    cs.run_cvae(report, "cpu", tmp_path, device="cpu")
+    launches = cs.run_phase15(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"b1": 0, "b2": {"forward": 0, "backward": 0}, "b1_by_T": {},
+                        "b2_by_T": {"forward": {}, "backward": {}}, "b2_double": 0}
+    for mode in ("hinge", "wgan-gp"):
+        assert report[f"gan_{mode}"]["iters"] == 2
+        check = report[f"gan_{mode}_d_step_check"]
+        assert check["loss_kernel"]["lossD"] == pytest.approx(check["loss_plain"]["lossD"],
+                                                              rel=1e-6)
+    assert set(report["gan_eval"]["metrics"]) == {"feats", "other"}
+    fit = report["gan_fit"]
+    assert fit["steps"] == 6 and fit["last_loss"] < fit["first_loss"]
+    assert report["phase15"]["fit_ms_per_step"] > 0

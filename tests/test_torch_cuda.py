@@ -283,3 +283,39 @@ def test_cuda_forward_kernel_on_unaligned_views(offset, dtype, width, mask):
                                    [x.data_ptr() for x in (q, k, v)]) == (width, hd)
     _check_forward(q, k, v, heads, mask == "causal", T - 7 if mask == "kv_len" else None,
                    dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 60, 161])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_train_backward_keeps_its_graph_under_create_graph(T, rate):
+    """A gradient penalty's second derivative through the kernels: the
+    backward under create_graph=True returns gradients with a graph (it
+    fails if the kernel's dq, dk, dv come back graph-less), and the
+    gradient of a penalty on them equals the plain version's under
+    autograd, f32 within 1e-4 x max(1, max|plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    B, heads, hd = 4, 4, 64
+    dmodel = heads * hd
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(B, T, 3 * dmodel, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(B, T, dmodel, device="cuda", generator=gen)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    b2 = attention.fused_attention_btd_train
+    grads = {}
+    for route, fn in (("kernel", b2), ("plain", attention.attention_btd_train_reference)):
+        q, k, v = x.split(dmodel, dim=-1)
+        out = fn(q, k, v, heads, rate, seed, causal=False)
+        g, = torch.autograd.grad((out * w).sum(), x, create_graph=True)
+        assert g.requires_grad and g.grad_fn is not None, route
+        before = b2.double_backward_launches
+        gg, = torch.autograd.grad((g ** 2).sum(), x)
+        if route == "kernel":
+            assert b2.double_backward_launches == before + 1
+        grads[route] = (g.detach(), gg)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        ref = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(np.abs(ref).max())))

@@ -1,8 +1,9 @@
 """regennet_torch stands alone: no module of it, and neither chip_smoke.py
 nor scripts/capability_study_torch.py, imports JAX or the JAX package, and
 every module imports without matplotlib and imageio (the GPU machine has
-neither: rendering imports them where it draws); and its entry points run
-on the GPU unless the caller asks for the CPU."""
+neither: rendering imports them where it draws), and without joblib (the
+PyMAF-X reader imports it where it reads); and its entry points run on
+the GPU unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -16,7 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "regennet_tpu", "matplotlib", "imageio"):
+for name in ("jax", "jaxlib", "flax", "orbax", "regennet_tpu", "matplotlib", "imageio",
+             "joblib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import regennet_torch
 names = [m.name for m in pkgutil.walk_packages(regennet_torch.__path__, "regennet_torch.")]
@@ -26,7 +28,14 @@ new = {"regennet_torch.sample.edit", "regennet_torch.sample.predict",
        "regennet_torch.sample.generate_sequences", "regennet_torch.render.plot_script",
        "regennet_torch.render.renderer", "regennet_torch.render.rasterizer",
        "regennet_torch.models.actor_cvae", "regennet_torch.models.actor_losses",
-       "regennet_torch.train.train_cvae"}
+       "regennet_torch.train.train_cvae", "regennet_torch.models.actor_gan",
+       "regennet_torch.train.train_gan", "regennet_torch.eval.evaluate_cvae",
+       "regennet_torch.eval.othermetrics", "regennet_torch.eval.tables",
+       "regennet_torch.visualize.pose_prior", "regennet_torch.visualize.joints2smpl",
+       "regennet_torch.visualize.fit_seq", "regennet_torch.visualize.vis_utils",
+       "regennet_torch.visualize.render_mesh", "regennet_torch.render.rendermotion",
+       "regennet_torch.render.crendermotion", "regennet_torch.preprocess.actor_reactor",
+       "regennet_torch.preprocess.split_2p", "regennet_torch.preprocess.prepare_data"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 chip_smoke.load_capability_study()
@@ -177,4 +186,27 @@ def test_comp_v6_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         motion_process._cli(["--joints_dir", str(tmp_path), "--out_dir", str(tmp_path / "out"),
                              "--example_id", "000000"])
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU instead
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("regennet_torch.train.train_gan", ["--data_path", "", "--save_dir", "{tmp}/gan"]),
+    ("regennet_torch.eval.evaluate_cvae", ["--model_path", "{tmp}/model000000001.pt",
+                                           "--data_path", ""]),
+    ("regennet_torch.eval.tables", ["{tmp}"]),
+    ("regennet_torch.visualize.fit_seq", ["--data_folder", "{tmp}", "--save_folder",
+                                          "{tmp}/fits"]),
+    ("regennet_torch.visualize.render_mesh", ["--input_path", "{tmp}/sample00_rep00.mp4"]),
+    ("regennet_torch.render.rendermotion", ["--data_path", "{tmp}/generation.npy"]),
+    ("regennet_torch.render.crendermotion", ["--data_path", "{tmp}/results.npy"]),
+])
+def test_gan_and_tooling_entry_points_without_device_need_cuda(monkeypatch, tmp_path, module,
+                                                               argv):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(module)
+    args = mod.parse_args([a.format(tmp=tmp_path) for a in argv])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(args)
     assert not os.listdir(tmp_path)  # nothing ran on the CPU instead

@@ -23,7 +23,7 @@ from regennet_torch.train import checkpoint
 REDUCED = dict(channels=(16, 16, 32), strides=(1, 2, 1))
 
 
-@pytest.mark.parametrize("layout", ["smpl", "smplx"])
+@pytest.mark.parametrize("layout", ["smpl", "smplx", "smpl_noglobal", "ntu-rgb+d", "ntu_edge"])
 def test_graph_matches_jax(layout):
     ours, ref = Graph(layout), JGraph(layout, "spatial")
     assert ours.num_node == ref.num_node
