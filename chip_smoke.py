@@ -158,9 +158,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      SMPLify fit (fit_sequence, 60 frames, 300 steps) on phase 14's SMPL-X
      of the real size, its first 5 losses against a CPU copy. Videos, h5
      dumps, joblib and the NTU split stay off the card (CPU tests).
+  16. train_mdm on the flagship configuration (global batch 64) at
+     --data_parallel 2 for 4 steps and at --tensor_parallel 2 for one (B1
+     and B2 at 2 heads a rank, and a DDPM sample through the
+     tensor-parallel model against one process on its weights), two
+     ranks over gloo sharing the card (torch.multiprocessing), each held
+     against train_mdm in this process on the same global batches
+     (parameters and EMA within 1e-5 x max(1, max|p|) over the model,
+     AdamW first moments within 1e-5 x max(1, max|m|), and within lr a
+     step where the gradient is at most 1e-4 of its tensor's largest;
+     losses printed); --data_parallel 1 and --param_sharding fsdp in a real
+     NCCL group of one rank (the launcher's variables), FSDP against the
+     replicated run and its checkpoint sampled by cgenerate; on the trained
+     model at respaced 50, batch 16: plms_sample_loop at order 2 (51 model
+     calls, held on a row against a CPU copy), ddim_reverse_sample_loop
+     then ddim_sample_loop (the round trip's error printed), calc_bpd_loop
+     (finite); torch_ckpt --check on every model file of phases 4-16. One
+     card shows the collectives' correctness, not their cost.
 Each kernel's launches are read around each path that runs it (phases 3,
 5, 6, 8, 9, 10, 11, 12, 14 and 15 for B1; 4, 5, 8, 9, 10, 11, 12, 14 and
-15 for B2; 2c for B3) and summed in the kernel line;
+15 for B2; phase 16 for both; 2c for B3) and summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
 and a fourth at [64, 197, 512], with phases 11 and 12's; B2 has bf16 rows
@@ -392,13 +409,15 @@ def check_causal_attention(report, card):
 TRAIN = dict(batch=64, steps=40, steps_per_call=8, rate=0.1)
 
 
-def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False, D=None, H=None):
+def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False, D=None, H=None,
+                head0=None):
     """The training kernels and autograd of their plain version on one
     packed [B, T, 3D] input (q, k, v as strided column views), with the
     same seeds and dO: (out, dq, dk, dv) of the kernels, the same of the
     plain version, and (dq, dk, dv) of the backward kernel's plain version
     (the TPU kernel's rounding points); the softmax in f32 if softmax_f32.
-    D and H default to the flagship's."""
+    D and H default to the flagship's. head0: the seeds are [B, 3], their
+    third word head0 (a tensor-parallel rank's first head)."""
     import torch
 
     from regennet_torch.ops import attention
@@ -409,6 +428,9 @@ def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False, D=Non
     dout = torch.randn(B, T, D, device="cuda", generator=gen).to(td)
     seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
                           dtype=torch.int32)
+    if head0 is not None:
+        seeds = torch.cat([seeds, torch.full((B, 1), head0, dtype=torch.int32,
+                                             device="cuda")], dim=1)
     results = []
     for fn in (attention.fused_attention_btd_train,
                attention.attention_btd_train_reference):
@@ -539,17 +561,17 @@ def check_train_kernels(report, card):
     return by_dtype, timing
 
 
-def train_mask(B, T, rate, seeds, causal):
+def train_mask(B, T, rate, seeds, causal, D=None, H=None):
     """The training forward's dropout mask [B, H, query, key], read from its
     output: with q = k = 0 every weight a query sees is 1 / (the keys it
     sees), and v one-hot in each head's columns (v[j, c] = 1 iff j = off +
     c) makes out[b, i, h, c] the weight of key off + c after dropout, or 0:
-    one call for each hd keys."""
+    one call for each hd keys. D and H default to the flagship's."""
     import torch
 
     from regennet_torch.ops import attention
 
-    D, H = FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    D, H = D or FLAGSHIP["latent_dim"], H or FLAGSHIP["heads"]
     hd = D // H
     zeros = torch.zeros(B, T, D, device="cuda")
     keys, cols = torch.arange(T, device="cuda"), torch.arange(hd, device="cuda")
@@ -1502,10 +1524,11 @@ def load_capability_study():
     return module
 
 
-def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed, rate=None):
+def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed, rate=None, head0=None):
     """B1 at each (B, T, dtype) of b1_shapes, and B2 (at `rate`, TRAIN["rate"]
     when None, forward and backward) at each of b2_shapes, on [B, T, D] inputs with H
-    heads, against their plain versions as phases 2 and 2b hold them.
+    heads, against their plain versions as phases 2 and 2b hold them; B2's
+    seeds [B, 3] with third word head0 when given, else [B, 2].
     Returns (the worst errors: B1, B2's forward, B2's backward against its
     plain backward; the cases)."""
     import torch
@@ -1528,9 +1551,10 @@ def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed, rate=None):
     for B, T, dtype in b2_shapes:
         what = f"fused_attention_btd_train at {dtype} [{B}, {T}, {D}], {H} heads, causal {causal}"
         rate_b2 = TRAIN["rate"] if rate is None else rate
-        ours, plain, vjp = _train_pair(B, T, dtype, causal, None, rate_b2, gen, D=D, H=H)
+        ours, plain, vjp = _train_pair(B, T, dtype, causal, None, rate_b2, gen, D=D, H=H,
+                                       head0=head0)
         case = dict(kernel="fused_attention_btd_train", B=B, T=T, D=D, heads=H, dtype=dtype,
-                    causal=causal, rate=rate_b2)
+                    causal=causal, rate=rate_b2, head0=head0)
         err = max_abs_err(ours[0], plain[0])
         hold(f"{what}: out", err, TOLERANCE[dtype] * max(1.0, float(plain[0].float().abs().max())))
         worst["train_forward"] = max(worst["train_forward"], err)
@@ -3683,9 +3707,18 @@ def time_gan_kernels(report, card):
         # softmax recomputed (QK^T) and ten more [T, T] x hd products
         bound, by = attention_bound_ms(B, T, D, H, "float32", False, None, tensors=11,
                                        products=11)
-        second[T] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        # the plain version: autograd's double backward through the first-order
+        # graph of attention_btd_train_reference (built once, outside the timing)
+        q, k, v, dout = (t.clone().requires_grad_() for t in x[:4])
+        first = torch.autograd.grad(attention.attention_btd_train_reference(
+            q, k, v, H, 0.0, seed, causal=False), (q, k, v), dout, create_graph=True)
+        inner = sum((o * c).sum() for o, c in zip(first, x[4:]))
+        plain_ms = device_ms(lambda: torch.autograd.grad(inner, (q, k, v, dout),
+                                                         retain_graph=True), iters=20)
+        second[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         print(f"  B2's second-order term f32 [{B}, {T}, {D}] (PyTorch ops): {ms:.4f} ms by "
-              f"device time, bound {bound:.4f} ms ({by}) [{card}]")
+              f"device time, autograd's double backward of the plain version "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
     report["gan_attention_timing"] = {
         str(T): {"fused_attention_btd": b1, "fused_attention_btd_train": b2,
                  "second_order": second[T]} for T, (b1, b2) in timings.items()}
@@ -3980,6 +4013,597 @@ def run_phase15(report, card, workdir, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the distributed trainer (two ranks over gloo sharing the one card,
+# and a real NCCL group at world 1 with FSDP), the sampler extras and the VLB
+# terms on the flagship model, and torch_ckpt --check on the earlier phases'
+# checkpoints. One card shows the collectives' correctness, not their cost.
+# ---------------------------------------------------------------------------
+
+DIST = dict(batch=64, steps=4, sample_respacing="10", sample_rows=8)
+DIST_TOL = 1e-5  # x max(1, max|one process|), as the CPU tests hold the sharded steps
+NOISE_M = 1e-6  # x max|m|: below it a first moment is rounding noise (the CPU tests' rule)
+EXTRAS = dict(respacing="50", batch=16, order=2, cpu_rows=1)
+# the kinds of the earlier phases' checkpoints (4: online, 5: offline, 7: gru
+# and mlp, 10: the ST-GCNs, 11: the CLIP tower, 12: the T2M evaluators and
+# the length estimator, 13: comp_v6, 14: the CVAE)
+CKPT_KINDS = ("cmdm/online", "cmdm/offline", "cmdm/gru", "cmdm/mlp", "stgcn", "clip_text",
+              "t2m", "length_est", "comp_v6", "actor/transformer")
+
+
+def dist_args(save_dir, **over):
+    """The flagship training configuration for phase 16's runs: DIST's
+    global batch and steps, one step per call, every step logged."""
+    args = train_args(save_dir)
+    vars(args).update(batch_size=DIST["batch"], num_steps=DIST["steps"],
+                      save_interval=DIST["steps"], log_interval=1, steps_per_call=1)
+    vars(args).update(over)
+    return args
+
+
+class Batches(list):
+    """Collated (motion, cond) batches served as train_mdm's loader: their
+    count, iteration, and `.dataset` (the action count the model reads)."""
+
+    def __init__(self, batches, num_actions):
+        super().__init__(batches)
+        self.dataset = Namespace(num_actions=num_actions)
+
+
+def rank_rows(batch, rank, size):
+    """A data rank's rows of a collated global batch."""
+    motion, cond = batch
+    n = len(motion) // size
+    rows = slice(rank * n, (rank + 1) * n)
+
+    def cut(v):
+        return v[rows] if hasattr(v, "__len__") and len(v) == len(motion) else v
+
+    return cut(motion), {"y": {k: cut(v) for k, v in cond["y"].items()}}
+
+
+def dist_batches(args):
+    """DIST["steps"] global batches of the in-memory Chi3D clips and the
+    action count, as phase 4 builds its loader."""
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.data.get_data import BatchLoader, get_collate_fn
+    from regennet_torch.utils.fixseed import fixseed
+
+    T, B = args.num_frames, args.batch_size
+    fixseed(args.seed)
+    clips = synthetic.make_clips("chi3d", "train", num_clips=B * DIST["steps"],
+                                 min_len=T + 10, max_len=T + 60)
+    feeder = Feeder(clips=clips, dataname="chi3d", split="train", num_frames=T,
+                    num_person=2, pose_rep="rot6d")
+    loader = BatchLoader(feeder, B, get_collate_fn("chi3d", "cmdm"), shuffle=False)
+    return list(loader)[:DIST["steps"]], feeder.num_actions
+
+
+def sample_cond(batches, rows, device):
+    import torch
+
+    y = batches[0][1]["y"]
+    return {k: torch.as_tensor(y[k][:rows], device=device) for k in ("cmotion", "action")}
+
+
+def dist_sample(model, loop, batches, device):
+    """DDPM at DIST's respacing over DIST["sample_rows"] rows through
+    `model` (tensor-parallel on a tensor-parallel rank), with `loop`'s
+    diffusion."""
+    import torch
+
+    from regennet_torch.diffusion import sampling
+    from regennet_torch.diffusion.schedule import make_schedule
+    from regennet_torch.models.cmdm import make_model_fn
+
+    sched = make_schedule("cosine", loop.sched.original_num_steps,
+                          timestep_respacing=DIST["sample_respacing"], device=device)
+    cond = sample_cond(batches, DIST["sample_rows"], device)
+    shape = (DIST["sample_rows"],) + tuple(batches[0][0].shape[1:])
+    return sampling.p_sample_loop(sched, loop.cfg, make_model_fn(model.eval()), shape, cond,
+                                  clip_denoised=False,
+                                  generator=torch.Generator(device).manual_seed(7))
+
+
+def dist_rank(rank, world, init, workdir, device, scenarios, settings):
+    """One rank of phase 16 (started by torch.multiprocessing): init is
+    "gloo:<tcp address>" (this rank joins a gloo group) or "env:<port>"
+    (the launcher's variables; train_mdm starts the group, NCCL on a card).
+    Runs train_mdm.main for each (name, options) of `scenarios` on the
+    rank's rows of the global batches, and writes its launches, layout and
+    (tensor-parallel) sample to workdir. settings: the parent's FLAGSHIP,
+    TRAIN and DIST (a rehearsal cuts them)."""
+    sys.path.insert(0, str(REPO))
+    for name, value in settings.items():
+        globals()[name].update(value)
+    os.environ["REGENNET_LOG_FORMAT"] = "human,json"
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from regennet_torch.train import train_mdm
+
+    workdir = Path(workdir)
+    if device == "cuda":
+        device = "cuda:0"  # the one card that every rank shares
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    kind, where = init.split(":", 1)
+    if kind == "gloo":
+        dist.init_process_group("gloo", init_method=where, rank=rank, world_size=world)
+    else:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="localhost", MASTER_PORT=where)
+    batches, num_actions = torch.load(workdir / "batches.pt", weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for name, over in scenarios:
+        model_size = over.get("tensor_parallel", 1)
+        size = world // model_size
+        data = Batches([rank_rows(b, rank // model_size, size) for b in batches], num_actions)
+        args = dist_args(workdir / name, batch_size=DIST["batch"] // size,
+                         overwrite=True, **over)
+        loop, counts = counted_run(lambda: train_mdm.main(
+            args, device=None if kind == "env" else device, data=data), device)
+        layout = loop.layout
+        out = dict(b1=counts["b1"], b2=counts["b2"], wall_s=counts["wall_s"],
+                   layout=[layout.data_rank, layout.data_size, layout.model_rank,
+                           layout.model_size],
+                   heads=sorted({m.num_heads for m in loop.model.modules()
+                                 if hasattr(m, "in_proj_weight")}),
+                   backend=dist.get_backend())
+        if model_size > 1:
+            sample, scounts = counted_run(
+                lambda: dist_sample(loop.model, loop, batches, device), device)
+            out["sample_b1"] = scounts["b1"]
+            if rank == 0:
+                np.save(workdir / f"{name}_sample.npy", sample.cpu().numpy())
+        results[name] = out
+    (workdir / f"rank{rank}_{init.split(':')[0]}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+
+
+def start_ranks(world, init, workdir, device, scenarios):
+    """Start dist_rank in `world` fresh processes; (their context, when
+    they started, what join_ranks reads)."""
+    import torch.multiprocessing as mp
+
+    settings = {"FLAGSHIP": FLAGSHIP, "TRAIN": TRAIN, "DIST": DIST}
+    ctx = mp.start_processes(dist_rank,
+                             args=(world, init, str(workdir), device, scenarios, settings),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, time.perf_counter(), (world, init, workdir)
+
+
+def join_ranks(started):
+    """Wait for start_ranks' processes (raising if one failed); (their
+    results by rank, seconds from their start)."""
+    ctx, t0, (world, init, workdir) = started
+    while not ctx.join():
+        pass
+    wall = time.perf_counter() - t0
+    return [json.loads((Path(workdir) / f"rank{r}_{init.split(':')[0]}.json").read_text())
+            for r in range(world)], wall
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def hold_state(what, run_dir, ref_dir, steps, lr):
+    """A run's saved parameters and EMA against a reference run's within
+    DIST_TOL x max(1, max|p|) (p: every parameter of the reference), its
+    AdamW first moments within DIST_TOL x max(1, max|m|) of each tensor;
+    where the reference's first moment is below NOISE_M of its tensor's
+    largest entry (the rule of tests/test_torch_distributed.py: each
+    self-attention's key bias, whose true gradient is 0), Adam's step is a
+    ratio of rounding noise and the parameter and EMA may differ by up to lr
+    a step. Returns {worst: the worst error outside that rule,
+    worst_near_zero: inside it, near_zero_entries: the nonzero entries it
+    covers, near_zero_max_ratio: their largest |m| / max|m|, at: the tensor,
+    entry and |m| / max|m| of the worst error, tol}."""
+    import torch
+
+    def load(d):
+        model = torch.load(Path(d) / f"model{steps:09d}.pt", map_location="cpu",
+                           weights_only=True)
+        opt = torch.load(Path(d) / f"opt{steps:09d}.pt", map_location="cpu", weights_only=False)
+        state = opt["optimizer"]["state"]
+        moments = {k: {n: state[i][k] for i, n in enumerate(opt["ema"])}
+                   for k in ("exp_avg", "exp_avg_sq")}
+        return model, opt["ema"], moments
+
+    model, ema, moments = load(run_dir)
+    ref_model, ref_ema, ref_moments = load(ref_dir)
+    if set(model) != set(ref_model) or set(ema) != set(ref_ema):
+        raise AssertionError(f"{what}: the checkpoint's names differ from the reference's")
+    out = dict(worst=0.0, worst_near_zero=0.0, near_zero_entries=0, near_zero_max_ratio=0.0,
+               at=None,
+               tol=DIST_TOL * max(1.0, max(float(ref_model[n].abs().max()) for n in ref_ema)))
+    for n in ref_ema:
+        m = ref_moments["exp_avg"][n]
+        noise = m.abs() < NOISE_M * m.abs().max()
+        out["near_zero_entries"] += int((noise & (m != 0)).sum())
+        if noise.any():
+            out["near_zero_max_ratio"] = max(out["near_zero_max_ratio"], float(
+                m.abs()[noise].max() / m.abs().max()))
+        for kind, got, want in (("parameter", model[n], ref_model[n]),
+                                ("EMA", ema[n], ref_ema[n]),
+                                ("first moment", moments["exp_avg"][n], m)):
+            tol = (DIST_TOL * max(1.0, float(m.abs().max())) if kind == "first moment"
+                   else out["tol"])
+            diff = (got.float() - want.float()).abs()
+            if kind != "first moment" and noise.any():
+                err = float(diff[noise].max())
+                hold(f"{what}: {kind} {n} (near-zero gradient)", err,
+                     max(tol, lr * steps * 1.01))
+                out["worst_near_zero"] = max(out["worst_near_zero"], err)
+                diff = torch.where(noise, torch.zeros_like(diff), diff)
+            err = float(diff.max()) if diff.numel() else 0.0
+            if err > out["worst"]:
+                i = int(diff.argmax())
+                out["worst"], out["at"] = err, (
+                    kind, n, i, float(m.abs().flatten()[i] / m.abs().max()))
+            hold(f"{what}: {kind} {n}", err, tol)
+    return out
+
+
+def run_distributed(report, card, workdir, device="cuda"):
+    """Phase 16 (a) and (b): train_mdm at --data_parallel 2 and at
+    --tensor_parallel 2 on two ranks over gloo (both on `device`), then at
+    --data_parallel 1 and --param_sharding fsdp in a real NCCL group of one
+    rank (on a card only), each DIST["steps"] steps of the global batch,
+    held against train_mdm in this process on the same global batches; the
+    FSDP checkpoint is sampled by cgenerate. Returns the launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.train import train_mdm
+
+    t0 = time.perf_counter()
+    walls = {}
+    ref_args = dist_args(workdir / "one")
+    batches, num_actions = dist_batches(ref_args)
+    torch.save((batches, num_actions), workdir / "batches.pt")
+    # the ranks run beside each other and beside the one-process reference
+    # here (each process holds its own copy of the model on the card)
+    gloo_ranks = start_ranks(2, f"gloo:tcp://localhost:{free_port()}", workdir, device,
+                             [("dp", {"data_parallel": 2}),
+                              ("tp", {"tensor_parallel": 2, "num_steps": 1})])
+    nccl = device != "cpu" and torch.distributed.is_nccl_available()
+    if nccl:
+        nccl_rank = start_ranks(1, f"env:{free_port()}", workdir, device,
+                                [("dp1", {"data_parallel": 1}),
+                                 ("fsdp", {"data_parallel": 1, "param_sharding": "fsdp"})])
+    os.environ["REGENNET_LOG_FORMAT"] = "human,json"
+    ref, ref_counts = counted_run(lambda: train_mdm.main(
+        ref_args, device=device, data=Batches(batches, num_actions)), device)
+    walls["one_process"] = ref_counts["wall_s"]
+    runs = [ref_counts]
+
+    def losses(run_dir):
+        with open(Path(run_dir) / "progress.json") as f:
+            return [float(json.loads(line)["loss"]) for line in f]
+
+    ref_losses = losses(workdir / "one")
+    out = {"one_process_losses": ref_losses}
+    # data parallel for DIST["steps"] steps; tensor parallel one step (the
+    # one-process run saved after its first step too)
+    gloo, walls["gloo_ranks"] = join_ranks(gloo_ranks)
+    for name, layouts, steps in (("dp", [[0, 2, 0, 1], [1, 2, 0, 1]], DIST["steps"]),
+                                 ("tp", [[0, 1, 0, 2], [0, 1, 1, 2]], 1)):
+        got = [r[name]["layout"] for r in gloo]
+        if got != layouts or any(r[name]["backend"] != "gloo" for r in gloo):
+            raise AssertionError(f"phase 16 {name}: layouts {got}")
+        runs += [dict(b1=r[name]["b1"] + r[name].get("sample_b1", 0), b2=r[name]["b2"])
+                 for r in gloo]
+        run_losses = losses(workdir / name)
+        hold(f"phase 16 {name}: the losses against one process",
+             float(np.max(np.abs(np.subtract(run_losses, ref_losses[:steps])))),
+             DIST_TOL * max(1.0, max(ref_losses)))
+        print(f"  {name} over gloo, 2 ranks on {device}: losses {run_losses} (one process "
+              f"{ref_losses[:steps]}); heads per rank {gloo[0][name]['heads']}; B2 launches "
+              f"per rank {gloo[0][name]['b2']}; train_mdm {gloo[0][name]['wall_s']:.1f} s")
+        state = hold_state(f"phase 16 {name}", workdir / name, workdir / "one", steps,
+                           ref_args.lr)
+        out[name] = dict(losses=run_losses, steps=steps, **state,
+                         ranks=[{k: r[name][k] for k in ("b1", "b2", "heads", "wall_s")}
+                                for r in gloo])
+        print(f"    parameters, EMA and AdamW first moments within {state['worst']:.3g} of one "
+              f"process (tolerance {state['tol']:.3g}; the worst: {state['at']}); "
+              f"{state['near_zero_entries']} entries of near-zero gradient (|m| below "
+              f"{state['near_zero_max_ratio']:.3g} of its tensor's largest) within "
+              f"{state['worst_near_zero']:.3g} (lr {ref_args.lr:g} a step)")
+    layers = ref_args.layers
+    if gloo[0]["tp"]["heads"] != [FLAGSHIP["heads"] // 2] or \
+            gloo[0]["tp"]["sample_b1"] != layers * int(DIST["sample_respacing"]) * \
+            (device != "cpu"):
+        raise AssertionError(f"phase 16 tp: heads {gloo[0]['tp']['heads']}, sampling B1 "
+                             f"{gloo[0]['tp']['sample_b1']}")
+    # the tensor-parallel model's DDPM against one process on its own weights
+    # (its whole checkpoint)
+    from regennet_torch.train import checkpoint
+
+    whole = checkpoint.load_model(copy.deepcopy(ref.model), str(workdir / "tp" /
+                                                             f"model{1:09d}.pt"))
+    ref_sample = dist_sample(whole, ref, batches, device)
+    tp_sample = torch.tensor(np.load(workdir / "tp_sample.npy"))
+    err = max_abs_err(tp_sample, ref_sample.cpu())
+    tol = 1e-4 * max(1.0, float(ref_sample.abs().max()))
+    hold("phase 16 tp: DDPM through the tensor-parallel model", err, tol)
+    out["tp"]["sample_err"] = err
+    print(f"  tp sampling (DDPM {DIST['sample_respacing']} steps, {DIST['sample_rows']} rows, "
+          f"B1 at {gloo[0]['tp']['heads'][0]} heads a rank): max_abs_err {err:.3g} against one "
+          f"process on the same weights (tolerance {tol:.3g})")
+
+    if not nccl:
+        out["nccl"] = "skipped: no NCCL (CPU rehearsal)"
+    else:
+        (ranked,), walls["nccl_rank"] = join_ranks(nccl_rank)
+        if any(ranked[n]["backend"] != "nccl" for n in ("dp1", "fsdp")):
+            raise AssertionError(f"phase 16: backend {ranked['dp1']['backend']}")
+        runs += [dict(b1=ranked[n]["b1"], b2=ranked[n]["b2"]) for n in ("dp1", "fsdp")]
+        dp1 = hold_state("phase 16 NCCL dp1", workdir / "dp1", workdir / "one",
+                         DIST["steps"], ref_args.lr)
+        fsdp = hold_state("phase 16 NCCL fsdp", workdir / "fsdp", workdir / "dp1",
+                          DIST["steps"], ref_args.lr)
+        from regennet_torch.data import synthetic
+        from regennet_torch.data.feeder import Feeder
+        from regennet_torch.sample import cgenerate
+
+        T = ref_args.num_frames
+        clips = Feeder(clips=synthetic.make_clips("chi3d", "test", num_clips=4, min_len=T + 10,
+                                                  max_len=2 * T),
+                       dataname="chi3d", split="test", num_frames=T, num_person=2,
+                       pose_rep="rot6d")
+        gen_args = request_args(workdir / "fsdp_samples", 4, 1.0, "float32", seed=0)
+        gen_args.model_path = str(workdir / "fsdp" / f"model{DIST['steps']:09d}.pt")
+        gen_args.timestep_respacing = "ddim10"
+        gen_args.use_ddim = True
+        npy, gen_counts = counted_run(
+            lambda: cgenerate.main(gen_args, device=device, data=clips), device)
+        walls["cgenerate"] = gen_counts["wall_s"]
+        runs.append(gen_counts)
+        results = np.load(npy, allow_pickle=True).item()
+        if not np.isfinite(results["output"]).all():
+            raise AssertionError("phase 16: cgenerate on the FSDP checkpoint is not finite")
+        out["nccl"] = dict(dp1=dp1, fsdp=fsdp,
+                           losses={n: losses(workdir / n) for n in ("dp1", "fsdp")},
+                           cgenerate_shape=list(results["output"].shape))
+        print(f"  NCCL at world 1: dp1 within {dp1['worst']:.3g} of one process "
+              f"({dp1['worst_near_zero']:.3g} at near-zero gradients), fsdp within "
+              f"{fsdp['worst']:.3g} of dp1 ({fsdp['worst_near_zero']:.3g}); cgenerate on "
+              f"fsdp's model{DIST['steps']:09d}.pt: {list(results['output'].shape)} finite")
+    out["wall_s"] = time.perf_counter() - t0
+    out["walls"] = walls
+    print(f"  walls: {', '.join(f'{k} {v:.1f} s' for k, v in walls.items())}")
+    report["phase16_distributed"] = out
+    return runs, ref
+
+
+def extras_model_calls(steps, order):
+    """The denoiser calls of phase 16's sampler extras over `steps` steps:
+    PLMS (at order > 1 its first step, the pseudo improved Euler, calls the
+    model twice), the reverse DDIM loop then DDIM, and the bpd loop. B1
+    launches layers times each."""
+    return {"plms": steps + (order > 1), "round_trip": 2 * steps, "bpd": steps}
+
+
+def run_sampler_extras(report, card, loop, batches, device="cuda"):
+    """Phase 16 (c), at EXTRAS' respacing and batch on the trained flagship
+    model: PLMS at EXTRAS["order"] (steps + 1 model calls), the reverse DDIM
+    loop then DDIM (the round trip's error printed), and calc_bpd_loop
+    (finite); PLMS held on EXTRAS["cpu_rows"] rows against a CPU copy.
+    Returns the launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from regennet_torch.diffusion import losses, sampling
+    from regennet_torch.diffusion.schedule import make_schedule
+    from regennet_torch.models.cmdm import make_model_fn
+
+    sched = make_schedule("cosine", loop.sched.original_num_steps,
+                          timestep_respacing=EXTRAS["respacing"], device=device)
+    steps, B, layers = sched.num_timesteps, EXTRAS["batch"], loop.args.layers
+    model = loop.model.eval()
+    cond = sample_cond(batches, B, device)
+    x0 = torch.as_tensor(batches[0][0][:B], device=device)
+    shape = tuple(x0.shape)
+    noise = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(device)
+    on_card = device != "cpu"
+    calls = {}
+
+    def plms():
+        return sampling.plms_sample_loop(sched, loop.cfg, make_model_fn(model), shape, cond,
+                                         clip_denoised=False, noise=noise,
+                                         order=EXTRAS["order"])
+
+    def round_trip():
+        xT = sampling.ddim_reverse_sample_loop(sched, loop.cfg, make_model_fn(model), x0, cond,
+                                               clip_denoised=False)
+        back = sampling.ddim_sample_loop(sched, loop.cfg, make_model_fn(model), shape, cond,
+                                         clip_denoised=False, noise=xT,
+                                         step_noise=[torch.zeros(shape)] * steps)
+        return xT, back
+
+    def bpd():
+        return losses.calc_bpd_loop(sched, loop.cfg, make_model_fn(model), x0, cond,
+                                    generator=torch.Generator(device).manual_seed(5))
+
+    sample, calls["plms"] = counted_run(plms, device)
+    (xT, back), calls["round_trip"] = counted_run(round_trip, device)
+    terms, calls["bpd"] = counted_run(bpd, device)
+    for name, n in extras_model_calls(steps, EXTRAS["order"]).items():
+        if calls[name]["b1"] != layers * n * on_card:
+            raise AssertionError(f"phase 16 {name}: B1 launches {calls[name]['b1']} != "
+                                 f"{layers} x {n}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (sample, xT, back, *terms.values()))
+    if not finite or terms["vb"].shape != (B, steps):
+        raise AssertionError("phase 16: the sampler extras gave non-finite or misshapen output")
+    round_err = max_abs_err(back.cpu(), x0.cpu())
+
+    # PLMS on the first rows against a CPU copy of the model
+    rows = EXTRAS["cpu_rows"]
+    t_cpu = time.perf_counter()
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_sched = make_schedule("cosine", loop.sched.original_num_steps,
+                              timestep_respacing=EXTRAS["respacing"])
+    ref = sampling.plms_sample_loop(cpu_sched, loop.cfg, make_model_fn(cpu_model),
+                                    (rows,) + shape[1:],
+                                    {k: v[:rows].cpu() for k, v in cond.items()},
+                                    clip_denoised=False, noise=noise[:rows].cpu(),
+                                    order=EXTRAS["order"])
+    cpu_s = time.perf_counter() - t_cpu
+    err, tol = max_abs_err(sample[:rows].cpu(), ref), 1e-4 * max(1.0, float(ref.abs().max()))
+    hold(f"phase 16: PLMS order {EXTRAS['order']} on {device} against a CPU copy", err, tol)
+    row = dict(respacing=EXTRAS["respacing"], batch=B, plms_order=EXTRAS["order"],
+               launches={k: v["b1"] for k, v in calls.items()},
+               ms={k: v["wall_s"] * 1e3 for k, v in calls.items()},
+               round_trip_err=round_err, plms_cpu_err=err, plms_cpu_tol=tol, cpu_copy_s=cpu_s,
+               total_bpd_mean=float(terms["total_bpd"].mean()),
+               prior_bpd_mean=float(terms["prior_bpd"].mean()))
+    report["phase16_extras"] = row
+    print(f"  PLMS order {EXTRAS['order']}, {steps} steps, batch {B}: "
+          f"{calls['plms']['wall_s'] * 1e3:.1f} ms, B1 {calls['plms']['b1']}; against a CPU "
+          f"copy on {rows} row {err:.3g} (tolerance {tol:.3g}; {cpu_s:.1f} s on the host); "
+          f"reverse DDIM then DDIM: "
+          f"{calls['round_trip']['wall_s'] * 1e3:.1f} ms, round-trip max_abs_err "
+          f"{round_err:.3g}; calc_bpd_loop {calls['bpd']['wall_s'] * 1e3:.1f} ms, total bpd "
+          f"{row['total_bpd_mean']:.4f} (prior {row['prior_bpd_mean']:.3g}), B1 "
+          f"{calls['bpd']['b1']} [{card}]")
+    return list(calls.values())
+
+
+def run_ckpt_check(report, card, root):
+    """Phase 16 (d): torch_ckpt --check on every model file the earlier
+    phases wrote under `root` (model<N>.pt, latest.tar, the CLIP tower):
+    each detected kind loads strictly into the port's module, and every
+    kind of CKPT_KINDS is among them. Files of no checker kind (a decomposition
+    pair, a GAN's G and D) are listed."""
+    import contextlib as cl
+    import io
+
+    from regennet_torch.convert import torch_ckpt
+
+    t0 = time.perf_counter()
+    checked, other = {}, []
+    files = sorted(p for p in Path(root).rglob("*")
+                   if p.is_file() and (re.fullmatch(r"model\d+\.pt", p.name)
+                                       or p.name in ("latest.tar", "ViT-B-32.pt")))
+    for path in files:
+        import torch
+
+        try:
+            kind = torch_ckpt.detect_kind(torch.load(path, map_location="cpu",
+                                                     weights_only=False))
+        except ValueError:
+            other.append(str(path.relative_to(root)))
+            continue
+        out = io.StringIO()
+        with cl.redirect_stdout(out):
+            torch_ckpt.main(["--check", str(path)])
+        if not out.getvalue().startswith(f"OK: {path} is a valid {kind} checkpoint"):
+            raise AssertionError(f"torch_ckpt --check {path}: {out.getvalue()}")
+        checked.setdefault(kind, []).append(str(path.relative_to(root)))
+    missing = sorted(set(CKPT_KINDS) - set(checked))
+    if missing:
+        raise AssertionError(f"torch_ckpt --check: no checkpoint of {missing} under {root}")
+    report["phase16_ckpt_check"] = dict(checked=checked, other=other,
+                                        seconds=time.perf_counter() - t0)
+    print(f"  torch_ckpt --check: {sum(map(len, checked.values()))} files of "
+          f"{len(checked)} kinds loaded strictly ({', '.join(sorted(checked))}); no checker "
+          f"kind: {other} [{card}]")
+
+
+def check_phase16_kernels(report):
+    """B1 and B2 at phase 16's shapes (f32, causal: the online decoder's
+    self-attention) against their plain versions, as phases 2 and 2b hold
+    them. The tensor-parallel ranks: B2 at [DIST batch, T, D/2], 2 heads,
+    each rank's [B, 3] seed (head0 0 and 2), at TRAIN["rate"], forward and
+    gradients; its dropout mask against dropout_bits of that seed and
+    against the same heads of the whole model's mask ([B, 2] seed, 4
+    heads); B1 at [sample_rows, T, D/2]. The data-parallel ranks' B2 at
+    [DIST batch / 2, T, D]; B1 at the extras' batch, the one-process DDPM's
+    rows and cgenerate's 4 rows at [., T, D]. Returns the worst errors."""
+    import torch
+
+    from regennet_torch.ops import attention
+
+    B, T, D, H = DIST["batch"], FLAGSHIP["T"], FLAGSHIP["latent_dim"], FLAGSHIP["heads"]
+    Dl, Hl = D // 2, H // 2
+    f32 = "float32"
+    worst = {"forward": 0.0, "train_forward": 0.0, "backward": 0.0}
+    cases = []
+    for b1, b2, d, h, seed, head0 in (
+            ([], [(B, T, f32)], Dl, Hl, 20, 0),
+            ([], [(B, T, f32)], Dl, Hl, 21, Hl),
+            ([(DIST["sample_rows"], T, f32)], [], Dl, Hl, 22, None),
+            ([(EXTRAS["batch"], T, f32), (DIST["sample_rows"], T, f32), (4, T, f32)],
+             [(B // 2, T, f32)], D, H, 23, None)):
+        w, c = hold_kernels_at(b1, b2, True, d, h, seed=seed, head0=head0)
+        worst = {k: max(v, w[k]) for k, v in worst.items()}
+        cases += c
+    rate = TRAIN["rate"]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    whole = train_mask(B, T, rate, seeds, True, D, H)
+    seen = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    fracs = []
+    for rank in (0, 1):
+        seeds3 = torch.cat([seeds, torch.full((B, 1), rank * Hl, dtype=torch.int32,
+                                              device="cuda")], dim=1)
+        kept = train_mask(B, T, rate, seeds3, True, Dl, Hl)
+        want = (attention.dropout_bits(seeds3, B, Hl, T)
+                >= attention.dropout_threshold(rate)) & seen
+        frac = float(kept.sum()) / (B * Hl * float(seen.sum()))
+        if not (torch.equal(kept, want) and torch.equal(kept, whole[:, rank * Hl:(rank + 1) * Hl])
+                and abs(frac - (1 - rate)) <= 0.005):
+            raise AssertionError(f"phase 16: tensor-parallel rank {rank}'s dropout mask (keep "
+                                 f"fraction {frac}) differs from dropout_bits of its [B, 3] "
+                                 "seed or from the whole model's heads")
+        fracs.append(frac)
+    report["phase16_kernel_cases"] = cases
+    report["phase16_tp_masks"] = dict(rate=rate, keep_fractions=fracs)
+    print(f"  B2 at [{B}, {T}, {Dl}], {Hl} heads, [B, 3] seeds (head0 0 and {Hl}), rate {rate}; "
+          f"B1 at [{DIST['sample_rows']}, {T}, {Dl}]; B2 at [{B // 2}, {T}, {D}]; B1 at "
+          f"[{EXTRAS['batch']}, {DIST['sample_rows']} and 4, {T}, {D}]: match their plain "
+          f"versions (worst max_abs_err B1 {worst['forward']:.3g}, B2 forward "
+          f"{worst['train_forward']:.3g}, backward {worst['backward']:.3g} against the plain "
+          f"backward; tolerance 1e-5 x max(1, max|plain|)); each tensor-parallel rank's "
+          f"mask equals dropout_bits of its seed and heads 0-{Hl - 1} and {Hl}-{H - 1} of "
+          f"the whole model's (keep fractions {fracs[0]:.5f}, {fracs[1]:.5f})")
+    return worst
+
+
+def run_phase16(report, card, workdir, device="cuda"):
+    """Phase 16: run_distributed, run_sampler_extras on its one-process
+    model, run_ckpt_check over `workdir` (the earlier phases' files).
+    Returns {"b1", "b2"}: the launches of every run."""
+    t0 = time.perf_counter()
+    dist_dir = Path(workdir) / "dist"
+    dist_dir.mkdir(exist_ok=True)
+    runs, loop = run_distributed(report, card, dist_dir, device)
+    batches, _ = __import__("torch").load(dist_dir / "batches.pt", weights_only=False)
+    runs += run_sampler_extras(report, card, loop, batches, device)
+    run_ckpt_check(report, card, workdir)
+    out = {"b1": sum(r["b1"] for r in runs),
+           "b2": {w: sum(r["b2"][w] for r in runs) for w in ("forward", "backward")}}
+    wall_s = time.perf_counter() - t0
+    report["phase16"] = dict(wall_s=wall_s, launches=out)
+    print(f"  phase 16: {wall_s:.1f} s; B1 launches {out['b1']}, B2 {out['b2']} [{card}]")
+    return out
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
@@ -4079,6 +4703,11 @@ def main() -> int:
               "evaluate_cvae on phase 14's CVAE and the SMPLify fit")
         gan_worst = check_gan_kernels(report)
         phase15 = run_phase15(report, card, Path(tmp))
+        print("phase 16: train_mdm at --data_parallel 2 and --tensor_parallel 2 (two ranks "
+              "over gloo on this card), --param_sharding fsdp in an NCCL group of one, the "
+              "sampler extras and the VLB terms, torch_ckpt --check on phases 4-15's files")
+        p16_worst = check_phase16_kernels(report)
+        phase16 = run_phase16(report, card, Path(tmp))
     bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
                for w in ("forward", "backward")}
     paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
@@ -4086,14 +4715,16 @@ def main() -> int:
                                      "phase 8": guard["fused_attention_btd"],
                                      "phase 9": bf16_b1, "phase 10": a2m["b1"],
                                      "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"],
-                                     "phase 14": phase14["b1"], "phase 15": phase15["b1"]},
+                                     "phase 14": phase14["b1"], "phase 15": phase15["b1"],
+                                     "phase 16": phase16["b1"]},
              "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
                                            "phase 8": guard["fused_attention_btd_train"],
                                            "phase 9": bf16_b2, "phase 10": a2m["b2"],
                                            "phase 11": t2m["b2"],
                                            "phase 12": t2m_eval["b2"],
                                            "phase 14": phase14["b2"],
-                                           "phase 15": phase15["b2"]},
+                                           "phase 15": phase15["b2"],
+                                           "phase 16": phase16["b2"]},
              "fused_causal_attention": {"phase 2c": causal_launches}}
     report["launches_by_path"] = paths
 
@@ -4109,7 +4740,8 @@ def main() -> int:
     } for name, launches, timing, err in (
         ("fused_attention_btd", path_launches(paths, "fused_attention_btd"), flagship,
          max(worst, guard_worst["forward"], a2m_worst["forward"], t2m_worst["forward"],
-             t2m_eval_worst["forward"], cvae_worst["forward"], gan_worst["forward"])),
+             t2m_eval_worst["forward"], cvae_worst["forward"], gan_worst["forward"],
+             p16_worst["forward"])),
         # the evaluation's f32 batch-64 shape: phase 6's launches
         ("fused_attention_btd (f32 [64, 150, 512], phase 6)", b1["phase 6"], eval_shape,
          max(worst, guard_worst["forward"])),
@@ -4134,7 +4766,7 @@ def main() -> int:
             launched = path_launches(paths, "fused_attention_btd_train", which)
             err = max(err, *(w["train_forward" if which == "forward" else "backward"]
                              for w in (guard_worst, a2m_worst, t2m_worst, cvae_worst,
-                                       gan_worst)))
+                                       gan_worst, p16_worst)))
         else:
             name = f"fused_attention_btd_train ({which}, bf16 [64, 150, 512], phase 9)"
             launched = paths["fused_attention_btd_train"]["phase 9"][which]

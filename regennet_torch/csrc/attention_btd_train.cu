@@ -581,7 +581,7 @@ __device__ __forceinline__ uint32_t keep_mask_cols(const Dropout& d, int h, int 
   for (int bit = 0; bit < QS / 2; ++bit) {
     const int e = bit & 3;
     const int i = i0 + 8 * (bit >> 2) + 2 * t + (e & 1), j = kw + g + 8 * (e >> 1);
-    if (sees(p, i, j) && philox_word0(d.k0, d.k1, j, i, h) >= d.threshold) bits |= 1u << bit;
+    if (sees(p, i, j) && d.bits(h, i, j) >= d.threshold) bits |= 1u << bit;
   }
   return bits;
 }

@@ -39,10 +39,12 @@ template <typename T> __device__ __forceinline__ float softmax_num(float s, floa
 
 // Dropout bits: Philox4x32-10 keyed by the batch row's two seed words (a
 // replicated [2] seed adds row * 0x9E3779B9 to the first word), with counter
-// (key j, query i, head h, 0); the first output word is the bits. The mask
-// depends on (seed, b, h, i, j) only: not on the grid, the tiles or which
-// kernel asks, and the plain version (ops/attention.dropout_bits) computes
-// the same bits.
+// (key j, query i, head h0 + h, 0); the first output word is the bits. h0
+// is 0, or the third word of a [B, 3] seed: the global index of the first
+// head under tensor parallelism, so that a rank's heads draw the bits of
+// the same heads of the whole model. The mask depends on (seed, b, h, i,
+// j) only: not on the grid, the tiles or which kernel asks, and the plain
+// version (ops/attention.dropout_bits) computes the same bits.
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
 constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
 
@@ -66,24 +68,32 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t k0, uint32_t k1, uint3
 
 struct Dropout {
   uint32_t k0, k1;     // Philox key of this batch row
+  uint32_t h0;         // the global index of head 0
   uint32_t threshold;  // drop iff bits < threshold; 0 keeps every weight
   float scale_w;       // 1/(1-rate) in the weights' dtype
   float scale_f32;     // 1/(1-rate) in f32, for dP
 
+  __device__ __forceinline__ uint32_t bits(int h, int i, int j) const {
+    return philox_word0(k0, k1, (uint32_t)j, (uint32_t)i, h0 + (uint32_t)h);
+  }
   __device__ __forceinline__ bool keep(int h, int i, int j) const {
-    return threshold == 0u || philox_word0(k0, k1, (uint32_t)j, (uint32_t)i, (uint32_t)h) >= threshold;
+    return threshold == 0u || bits(h, i, j) >= threshold;
   }
 };
 
+// seed_per_row: 0 for a [2] seed, 1 for [B, 2], 2 for [B, 3] (with h0)
 __device__ __forceinline__ Dropout make_dropout(const int* seed, int seed_per_row, long long b,
                                                 uint32_t threshold, float scale_w,
                                                 float scale_f32) {
   Dropout d;
+  d.h0 = 0u;
   if (threshold == 0u) {  // nothing is dropped; seed may be null
     d.k0 = d.k1 = 0u;
   } else if (seed_per_row) {
-    d.k0 = (uint32_t)seed[2 * b];
-    d.k1 = (uint32_t)seed[2 * b + 1];
+    const long long words = seed_per_row == 2 ? 3 : 2;
+    d.k0 = (uint32_t)seed[words * b];
+    d.k1 = (uint32_t)seed[words * b + 1];
+    if (seed_per_row == 2) d.h0 = (uint32_t)seed[words * b + 2];
   } else {
     d.k0 = (uint32_t)seed[0] + (uint32_t)b * PHILOX_W0;
     d.k1 = (uint32_t)seed[1];

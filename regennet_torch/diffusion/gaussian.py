@@ -7,7 +7,7 @@ contract, as in the JAX package:
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -30,6 +30,14 @@ def scale_timesteps(sched: Schedule, cfg: DiffusionConfig, t: torch.Tensor):
     return new_t
 
 
+def q_mean_variance(sched: Schedule, x_start, t):
+    """Mean, variance and log variance of q(x_t | x_0)."""
+    mean = _extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = _extract(1.0 - sched.alphas_cumprod, t, x_start.ndim)
+    log_variance = _extract(sched.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
+
+
 def q_sample(sched: Schedule, x_start, t, noise):
     """Sample from q(x_t | x_0)."""
     return (
@@ -49,6 +57,19 @@ def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t):
     return mean, variance, log_variance
 
 
+def predict_xstart_from_eps(sched: Schedule, x_t, t, eps):
+    return (
+        _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+        - _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps
+    )
+
+
+def predict_xstart_from_xprev(sched: Schedule, x_t, t, xprev):
+    c1 = _extract(1.0 / sched.posterior_mean_coef1, t, x_t.ndim)
+    c2 = _extract(sched.posterior_mean_coef2 / sched.posterior_mean_coef1, t, x_t.ndim)
+    return c1 * xprev - c2 * x_t
+
+
 def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
     return (
         _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - pred_xstart
@@ -63,34 +84,78 @@ def p_mean_variance(
     t: torch.Tensor,
     cond: Dict,
     clip_denoised: bool = True,
+    denoised_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Model-predicted p(x_{t-1} | x_t) plus the x_0 prediction, for a
-    model that predicts x_0 (start_x) with a fixed variance.
+    """Model-predicted p(x_{t-1} | x_t) plus the x_0 prediction.
 
-    The motion-inpainting hook: where cond holds 'inpainting_mask' and
-    'inpainted_motion', the x_0 prediction is overwritten with the
-    inpainted motion where the mask is set, before the clamp."""
-    if cfg.model_var_type == "fixed_large":
+    A learned variance ('learned', 'learned_range') takes the model
+    output's channels past C = x.shape[1]. The motion-inpainting hook:
+    where cond holds 'inpainting_mask' and 'inpainted_motion', the model's
+    x_0 prediction is overwritten with the inpainted motion where the mask
+    is set, before denoised_fn and the clamp (x_0 prediction only)."""
+    model_output = model_fn(x, scale_timesteps(sched, cfg, t), cond)
+
+    if "inpainting_mask" in cond and "inpainted_motion" in cond:
+        if cfg.model_mean_type != "start_x":
+            raise ValueError("inpainting supports only x_start prediction")
+        m = cond["inpainting_mask"].to(model_output.dtype)
+        model_output = model_output * (1 - m) + cond["inpainted_motion"] * m
+
+    if cfg.model_var_type in ("learned", "learned_range"):
+        C = x.shape[1]
+        model_output, model_var_values = model_output[:, :C], model_output[:, C:]
+        if cfg.model_var_type == "learned":
+            model_log_variance = model_var_values
+        else:
+            min_log = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
+            max_log = _extract(torch.log(sched.betas), t, x.ndim)
+            frac = (model_var_values + 1) / 2
+            model_log_variance = frac * max_log + (1 - frac) * min_log
+        model_variance = torch.exp(model_log_variance)
+    elif cfg.model_var_type == "fixed_large":
         model_variance = _extract(sched.fixed_large_variance, t, x.ndim)
         model_log_variance = _extract(sched.fixed_large_log_variance, t, x.ndim)
-    elif cfg.model_var_type == "fixed_small":
+    else:  # fixed_small
         model_variance = _extract(sched.posterior_variance, t, x.ndim)
         model_log_variance = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
-    else:
-        raise NotImplementedError(f"model_var_type={cfg.model_var_type}")
-    if cfg.model_mean_type != "start_x":
-        raise NotImplementedError(f"model_mean_type={cfg.model_mean_type}")
 
-    pred_xstart = model_fn(x, scale_timesteps(sched, cfg, t), cond)
-    if "inpainting_mask" in cond and "inpainted_motion" in cond:
-        m = cond["inpainting_mask"].to(pred_xstart.dtype)
-        pred_xstart = pred_xstart * (1 - m) + cond["inpainted_motion"] * m
-    if clip_denoised:
-        pred_xstart = pred_xstart.clamp(-1.0, 1.0)
-    model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    def process_xstart(v):
+        if denoised_fn is not None:
+            v = denoised_fn(v)
+        if clip_denoised:
+            v = v.clamp(-1.0, 1.0)
+        return v
+
+    if cfg.model_mean_type == "previous_x":
+        pred_xstart = process_xstart(predict_xstart_from_xprev(sched, x, t, model_output))
+        model_mean = model_output
+    else:
+        if cfg.model_mean_type == "start_x":
+            pred_xstart = process_xstart(model_output)
+        else:  # epsilon
+            pred_xstart = process_xstart(predict_xstart_from_eps(sched, x, t, model_output))
+        model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return {
         "mean": model_mean,
         "variance": model_variance,
         "log_variance": model_log_variance,
         "pred_xstart": pred_xstart,
     }
+
+
+def condition_mean(sched, cfg, cond_fn, p_mean_var, x, t, cond):
+    """Classifier guidance (Sohl-Dickstein et al.): the mean shifted by
+    the variance times cond_fn's gradient."""
+    gradient = cond_fn(x, scale_timesteps(sched, cfg, t), cond)
+    return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+
+def condition_score(sched, cfg, cond_fn, p_mean_var, x, t, cond):
+    """Classifier guidance through the score (Song et al.)."""
+    alpha_bar = _extract(sched.alphas_cumprod, t, x.ndim)
+    eps = predict_eps_from_xstart(sched, x, t, p_mean_var["pred_xstart"])
+    eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, scale_timesteps(sched, cfg, t), cond)
+    out = dict(p_mean_var)
+    out["pred_xstart"] = predict_xstart_from_eps(sched, x, t, eps)
+    out["mean"], _, _ = q_posterior_mean_variance(sched, out["pred_xstart"], x, t)
+    return out

@@ -1,15 +1,16 @@
-"""Training losses for loss_type 'mse' (counterpart of the mse part of
-regennet_tpu/diffusion/losses.py): masked rotation MSE plus the
-geometric and interaction terms, with the joints decoded by `rot2xyz`.
+"""Training losses and the variational-bound terms (counterpart of
+regennet_tpu/diffusion/losses.py): masked rotation MSE plus the geometric
+and interaction terms, with the joints decoded by `rot2xyz`; the 'kl'
+losses and a learned variance's 'vb' term; the bits-per-dim evaluation.
 
 Every per-example term has shape [B]. Masking is a dense multiply; the
 normalisers are those of `masked_l2` (sum of the mask times the product
-of dims 1 and 2 of the compared tensors). The variational-bound terms
-(learned variances, 'kl' losses) are not ported.
+of dims 1 and 2 of the compared tensors).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -35,6 +36,88 @@ def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Ten
     mask = mask.to(loss.dtype)
     n_entries = float(a.shape[1] * a.shape[2])
     return sum_flat(loss * mask) / (sum_flat(mask) * n_entries)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal Gaussians, in nats (any argument may be a
+    python float)."""
+    logvar1, logvar2 = (torch.as_tensor(v) for v in (logvar1, logvar2))
+    return 0.5 * (
+        -1.0
+        + logvar2
+        - logvar1
+        + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def _approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretized into bins of 2/255."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = _approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = _approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def vb_terms_bpd(sched, cfg, model_fn, x_start, x_t, t, cond, clip_denoised=True):
+    """The variational-bound term of one timestep, in bits per dim: the
+    decoder NLL at t = 0, else KL(q(x_{t-1} | x_t, x_0) || p(x_{t-1} | x_t))."""
+    true_mean, _, true_logvar = gaussian.q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = gaussian.p_mean_variance(sched, cfg, model_fn, x_t, t, cond, clip_denoised)
+    kl = normal_kl(true_mean, true_logvar, out["mean"], out["log_variance"])
+    kl = mean_flat(kl) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return {"output": torch.where(t == 0, decoder_nll, kl),
+            "pred_xstart": out["pred_xstart"]}
+
+
+def prior_bpd(sched, x_start):
+    """KL(q(x_T | x_0) || N(0, I)) in bits per dim."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                   device=x_start.device)
+    mean, _, log_variance = gaussian.q_mean_variance(sched, x_start, t)
+    return mean_flat(normal_kl(mean, log_variance, 0.0, 0.0)) / math.log(2.0)
+
+
+@torch.no_grad()
+def calc_bpd_loop(sched, cfg, model_fn, x_start, cond, clip_denoised=True,
+                  generator: Optional[torch.Generator] = None, step_noise=None):
+    """The whole variational bound, one model call per timestep from
+    t = T-1 down to 0. Returns total_bpd [N], prior_bpd [N], and vb,
+    xstart_mse and mse as [N, T] tensors whose column 0 is t = T-1.
+    step_noise: the q_sample draw of each step in loop order, else drawn
+    from `generator`."""
+    B = x_start.shape[0]
+    steps = None if step_noise is None else iter(step_noise)
+    vb, xstart_mse, mse = [], [], []
+    for i in range(sched.num_timesteps - 1, -1, -1):
+        if steps is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device, dtype=x_start.dtype)
+        else:
+            noise = next(steps).to(x_start.device, x_start.dtype)
+        t = torch.full((B,), i, dtype=torch.long, device=x_start.device)
+        x_t = gaussian.q_sample(sched, x_start, t, noise)
+        out = vb_terms_bpd(sched, cfg, model_fn, x_start, x_t, t, cond, clip_denoised)
+        vb.append(out["output"])
+        xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+        eps = gaussian.predict_eps_from_xstart(sched, x_t, t, out["pred_xstart"])
+        mse.append(mean_flat((eps - noise) ** 2))
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
+    prior = prior_bpd(sched, x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}
 
 
 def _fc_loss(cfg: DiffusionConfig, target_xyz, output_xyz, mask):
@@ -79,14 +162,30 @@ def training_losses(
     """All loss terms of one batch of timesteps t [B]; each term is [B].
 
     noise: the N(0, 1) draw of q_sample, shaped like x_start.
-    rot2xyz_fn(x) decodes [B, J, F, T] pose tensors to joints."""
-    if cfg.loss_type != "mse":
-        raise NotImplementedError(f"loss_type={cfg.loss_type!r} is not ported")
-    if cfg.model_var_type not in ("fixed_small", "fixed_large"):
-        raise NotImplementedError(f"model_var_type={cfg.model_var_type!r}")
+    rot2xyz_fn(x) decodes [B, J, F, T] pose tensors to joints. 'kl' and
+    'rescaled_kl' return the variational-bound term alone; a learned
+    variance adds the 'vb' term, whose gradient reaches the variance
+    channels only."""
     mask = cond["mask"]  # [B, 1, 1, T]
     x_t = gaussian.q_sample(sched, x_start, t, noise)
+
+    if cfg.loss_type in ("kl", "rescaled_kl"):
+        loss = vb_terms_bpd(sched, cfg, model_fn, x_start, x_t, t, cond,
+                            clip_denoised=False)["output"]
+        if cfg.loss_type == "rescaled_kl":
+            loss = loss * sched.num_timesteps
+        return {"loss": loss}
+
     model_output = model_fn(x_t, gaussian.scale_timesteps(sched, cfg, t), cond)
+    vb = None
+    if cfg.model_var_type in ("learned", "learned_range"):
+        C = x_t.shape[1]
+        model_output, model_var_values = model_output[:, :C], model_output[:, C:]
+        frozen = torch.cat([model_output.detach(), model_var_values], dim=1)
+        vb = vb_terms_bpd(sched, cfg, lambda *a, **k: frozen, x_start, x_t, t, cond,
+                          clip_denoised=False)["output"]
+        if cfg.loss_type == "rescaled_mse":
+            vb = vb * (sched.num_timesteps / 1000.0)
 
     if cfg.model_mean_type == "previous_x":
         target = gaussian.q_posterior_mean_variance(sched, x_start, x_t, t)[0]
@@ -96,6 +195,8 @@ def training_losses(
         target = noise
 
     terms: Dict[str, torch.Tensor] = {"rot_mse": masked_l2(target, model_output, mask)}
+    if vb is not None:
+        terms["vb"] = vb
 
     target_xyz = output_xyz = None
     if cfg.lambda_rcxyz or cfg.lambda_vel_rcxyz or cfg.lambda_fc or cfg.lambda_body:
@@ -143,6 +244,8 @@ def training_losses(
             terms["transl"] = masked_l2(gt_tr, out_tr, mask3)
 
     loss = terms["rot_mse"]
+    if vb is not None:
+        loss = loss + vb
     for name, lam in (("vel_mse", cfg.lambda_vel), ("rcxyz_mse", cfg.lambda_rcxyz),
                       ("fc", cfg.lambda_fc), ("orient", cfg.lambda_orient),
                       ("body", cfg.lambda_body), ("transl", cfg.lambda_transl)):

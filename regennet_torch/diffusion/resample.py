@@ -1,8 +1,9 @@
 """Timestep schedule samplers, uniform and loss-aware importance sampling
 (the port's copy of regennet_tpu/diffusion/resample.py).
 
-Host-side numpy state machines. Single process only: the losses a
-loss-aware sampler learns from are this process's own.
+Host-side numpy state machines. Under a torch.distributed process group
+of more than one rank, a loss-aware sampler learns from every rank's
+losses: each update all-gathers the ranks' (t, loss) pairs first.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 
 import numpy as np
+import torch.distributed as dist
 
 
 def create_named_schedule_sampler(name: str, num_timesteps: int):
@@ -46,10 +48,19 @@ class UniformSampler(ScheduleSampler):
 
 
 class LossAwareSampler(ScheduleSampler):
-    def update_with_local_losses(self, local_ts, local_losses):
-        """Update the reweighting with this process's per-example losses."""
-        self.update_with_all_losses(np.asarray(local_ts).tolist(),
-                                    np.asarray(local_losses).tolist())
+    def update_with_local_losses(self, local_ts, local_losses, group=None):
+        """Update the reweighting with every rank's per-example losses,
+        gathered in rank order over `group` (default: every rank; a
+        training run passes its "data" group); this rank's alone without a
+        process group."""
+        local_ts = np.asarray(local_ts)
+        local_losses = np.asarray(local_losses)
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size(group) > 1:
+            gathered = [None] * dist.get_world_size(group)
+            dist.all_gather_object(gathered, (local_ts, local_losses), group=group)
+            local_ts = np.concatenate([g[0].reshape(-1) for g in gathered])
+            local_losses = np.concatenate([g[1].reshape(-1) for g in gathered])
+        self.update_with_all_losses(local_ts.tolist(), local_losses.tolist())
 
     @abstractmethod
     def update_with_all_losses(self, ts, losses):

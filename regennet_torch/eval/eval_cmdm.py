@@ -9,6 +9,8 @@ classifier-free guidance when --guidance_param is not 1. The CMDM is the
 --seed with 'random'. The results go to
 `evaluation_results_<name>_<mode>_<niter>.yaml` beside the checkpoint, in
 the text yaml.dump writes (eval/tools.py), for eval/easy_table.py.
+Under `torchrun --nproc_per_node N` the ranks share each sampling batch
+(stgcn_eval) and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from regennet_torch.eval import stgcn_eval
 from regennet_torch.eval.tools import save_metrics
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
 from regennet_torch.models.stgcn import STGCN, random_init_
+from regennet_torch.parallel import mesh
 from regennet_torch.train import checkpoint
 from regennet_torch.utils import parser_util
 from regennet_torch.utils.fixseed import fixseed
@@ -63,7 +66,8 @@ def main(args=None, device=None, data=None):
     place of loading args.data_path."""
     if args is None:
         args = parser_util.evaluation_parser()
-    device = resolve_device(device, getattr(args, "device", 0))
+    device = mesh.local_device(resolve_device(device, getattr(args, "device", 0)))
+    mesh.init_distributed(device)  # under a launcher: the ranks share each batch
     # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -106,9 +110,10 @@ def main(args=None, device=None, data=None):
         acc_only=args.eval_mode == "debug",
         auto_regressive=getattr(args, "auto_regressive", False),
     )
-    print(eval_dict)
-    save_metrics(log_file, eval_dict)
-    print(f"saved evaluation results to [{log_file}]")
+    if mesh.global_rank() == 0:
+        print(eval_dict)
+        save_metrics(log_file, eval_dict)
+        print(f"saved evaluation results to [{log_file}]")
     return eval_dict
 
 

@@ -14,6 +14,12 @@ order, so the same seeds select the same batches and metric draws. The
 sampling noise cannot be the JAX package's: each (seed-stacked) batch
 draws it from a torch.Generator on the sampler's device, seeded from
 (the chunk's first seed, the batch index, the split index).
+
+Under a process group of more than one data rank (the JAX package shards
+each sampling batch over its devices), each rank samples its rows of the
+batch from the whole batch's noise, the ranks gather the rows, and rank 0
+computes the metrics: they are those of one process. The other ranks
+return no metrics.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from regennet_torch.data.get_data import BatchLoader
 from regennet_torch.diffusion import sampling
 from regennet_torch.eval import metrics as M
 from regennet_torch.models.stgcn import STGCN
+from regennet_torch.parallel import mesh
 from regennet_torch.train import checkpoint
 from regennet_torch.utils.fixseed import fixseed
 
@@ -229,9 +236,40 @@ def batch_generator(first_seed: int, batch_index: int, split_index: int,
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def row_range(batch: int, rank: int, size: int):
+    """[start, stop) of a rank's rows when `batch` rows split over `size`
+    ranks as evenly as they go, the first ranks taking one more."""
+    base, extra = divmod(batch, size)
+    start = rank * base + min(rank, extra)
+    return start, start + base + (rank < extra)
+
+
+def sharded_sampler(sample_fn, layout: Optional[mesh.Layout] = None):
+    """sample_fn(generator, cond, shape, rows=None) run on this data
+    rank's rows of every batch, the rows gathered from every rank: the
+    whole batch, on each rank. The sampler itself without a process group
+    of more than one data rank."""
+    rank, size = mesh.process_shard_info(layout)
+    if size == 1:
+        return sample_fn
+    group = None if layout is None else layout.data_group
+
+    def fn(generator, cond, shape):
+        start, stop = row_range(shape[0], rank, size)
+        local = {k: v[start:stop] if torch.is_tensor(v) and v.dim() and v.shape[0] == shape[0]
+                 else v for k, v in cond.items()}
+        out = sample_fn(generator, local, (stop - start,) + tuple(shape[1:]),
+                        rows=(start, shape[0]))
+        parts = mesh.gather_objects(out.cpu(), group)
+        return torch.cat(parts).to(out.device)
+
+    return fn
+
+
 def evaluate(args, model_fn_builder, sched, cfg, data, evaluator: STGCNEvaluator,
              setting: str = "cmdm", acc_only: bool = False,
-             auto_regressive: bool = False, oracle: bool = False) -> Dict:
+             auto_regressive: bool = False, oracle: bool = False,
+             layout: Optional[mesh.Layout] = None) -> Dict:
     """The multi-seed evaluation loop (args: batch_size, num_samples,
     num_seeds, and optionally eval_seed_batch and seed_start).
 
@@ -242,14 +280,21 @@ def evaluate(args, model_fn_builder, sched, cfg, data, evaluator: STGCNEvaluator
 
     oracle=True puts the loader's ground-truth reactor motion in place of
     the sampler's output, through the same generated-side pipeline: an
-    upper bound on what any model can score under this protocol."""
+    upper bound on what any model can score under this protocol.
+
+    layout: the training run's ranks (its "data" group shares the rows);
+    by default every rank of an initialised process group. Rank 0 returns
+    the metrics, the others {"feats": {}}."""
     bs = args.batch_size
     device = sched.device
     model_fn = None if oracle else model_fn_builder()
 
-    def sample_fn(generator, cond, shape):
+    def sample_one(generator, cond, shape, rows=None):
         return sampling.p_sample_loop(sched, cfg, model_fn, shape, cond,
-                                      clip_denoised=False, generator=generator)
+                                      clip_denoised=False, generator=generator, rows=rows)
+
+    sample_fn = sharded_sampler(sample_one, layout)
+    is_main = mesh.global_rank() == 0
 
     data_types = ["train", "test"]
     datasets = {k: copy.deepcopy(data) for k in data_types}
@@ -319,11 +364,15 @@ def evaluate(args, model_fn_builder, sched, cfg, data, evaluator: STGCNEvaluator
         # and the diversity draws consume that ambient stream across the
         # four loader passes (seed=None below), as in the reference
         for seed in chunk:
+            if not is_main:
+                continue
             np.random.seed(seed)
             loaders = {"gen": gen_batches[seed], "gt": gt_batches[seed]}
             stgcn_metrics[seed] = evaluate_seed_metrics(evaluator, loaders,
                                                         acc_only=acc_only, seed=None)
 
+    if not is_main:
+        return {"feats": {}}
     return {"feats": {
         key: ["{:.6}".format(stgcn_metrics[seed][key]) for seed in seeds]
         for key in stgcn_metrics[seeds[0]]

@@ -223,8 +223,7 @@ class CMDM(nn.Module):
         B = cond_emb.shape[0]
         keep = torch.ones((B,), dtype=cond_emb.dtype, device=cond_emb.device)
         if generator is not None and self.cond_mask_prob > 0.0:
-            drop = torch.rand((B,), generator=generator,
-                              device=cond_emb.device) < self.cond_mask_prob
+            drop = tfm.uniform((B,), generator, cond_emb.device) < self.cond_mask_prob
             keep = keep * (1.0 - drop.to(cond_emb.dtype))
         if uncond is not None:
             forced = torch.as_tensor(uncond, device=cond_emb.device).expand(B)

@@ -189,7 +189,7 @@ class ForwardArgs(NamedTuple):
     kv_len: int  # 0: no key-length mask
     softmax_f32: int
     copy_bytes: int
-    seed_per_row: int  # 1: seed is [B, 2]; 0: [2]
+    seed_per_row: int  # 0: seed is [2]; 1: [B, 2]; 2: [B, 3]
     threshold: int  # drop iff bits < threshold; 0 drops nothing
     keep_w: float  # kept weights' scale, 1/(1-rate) in the dtype
 
@@ -299,10 +299,18 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
+def seed_mode(seed_shape) -> int:
+    """The kernels' seed_per_row for a seed of this shape: 0 for [2], 1
+    for [B, 2], 2 for [B, 3] (the third word the global index of head 0)."""
+    if len(seed_shape) == 1:
+        return 0
+    return 1 if seed_shape[-1] == 2 else 2
+
+
 def _seed_words(seed: torch.Tensor, B: int):
     """Philox key words [B, 1, 1, 1] (int64) of each batch row: the row's
-    two seed words for a [B, 2] seed; for a [2] seed, the row index times
-    0x9E3779B9 is added to the first word so that rows differ."""
+    two seed words for a [B, 2] or [B, 3] seed; for a [2] seed, the row
+    index times 0x9E3779B9 is added to the first word so that rows differ."""
     s = seed.to(torch.int64) & _U32
     if s.shape == (2,):
         rows = torch.arange(B, dtype=torch.int64, device=seed.device)
@@ -313,15 +321,25 @@ def _seed_words(seed: torch.Tensor, B: int):
     return k0.view(B, 1, 1, 1), k1.reshape(B, 1, 1, 1)
 
 
+def _head_offset(seed: torch.Tensor, B: int) -> torch.Tensor:
+    """The global index of head 0 per row, [B, 1, 1, 1] (int64): the third
+    word of a [B, 3] seed (tensor parallelism), else 0."""
+    if seed.shape == (B, 3):
+        return (seed[:, 2].to(torch.int64) & _U32).view(B, 1, 1, 1)
+    return torch.zeros((B, 1, 1, 1), dtype=torch.int64, device=seed.device)
+
+
 def dropout_bits(seed: torch.Tensor, B: int, H: int, T: int) -> torch.Tensor:
     """The 32 random bits of every attention weight, [B, H, T(query),
     T(key)] as int64 values in [0, 2^32): the first Philox4x32-10 word for
-    counter (key, query, head, 0) under the row's seed key."""
+    counter (key, query, h0 + head, 0) under the row's seed key, h0 the
+    third word of a [B, 3] seed (else 0)."""
     _check_seed(seed, B)
     dev = seed.device
     j = torch.arange(T, dtype=torch.int64, device=dev).view(1, 1, 1, T)
     i = torch.arange(T, dtype=torch.int64, device=dev).view(1, 1, T, 1)
     h = torch.arange(H, dtype=torch.int64, device=dev).view(1, H, 1, 1)
+    h = (h + _head_offset(seed, B)) & _U32
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     words = philox4x32_10((j, i, h, zero), _seed_words(seed, B))
     return words[0].expand(B, H, T, T)
@@ -333,9 +351,9 @@ def dropout_threshold(rate: float) -> int:
 
 
 def _check_seed(seed, B):
-    if seed.dtype != torch.int32 or seed.shape not in ((2,), (B, 2)):
+    if seed.dtype != torch.int32 or seed.shape not in ((2,), (B, 2), (B, 3)):
         raise ValueError(
-            f"seed must be int32 of shape [2] or [{B}, 2], got "
+            f"seed must be int32 of shape [2], [{B}, 2] or [{B}, 3], got "
             f"{seed.dtype} {tuple(seed.shape)}"
         )
 
@@ -410,7 +428,9 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     """Differentiable multi-head self-attention on [B, T, D] inputs with
     attention-weight dropout at `dropout_rate` (0 <= rate < 1).
 
-    seed: int32 [B, 2] (per-row seeds, as the model draws them) or [2].
+    seed: int32 [B, 2] (per-row seeds, as the model draws them) or [2];
+    [B, 3] adds the global index of head 0 (tensor parallelism: a rank's
+    heads draw the dropout bits of the same heads of the whole model).
     On the GPU the forward (attention_fwd.cu, with dropout at rate > 0) and
     the backward are CUDA kernels on the current stream (or this raises);
     the backward regenerates the mask from the seed and saves nothing [B,
@@ -479,7 +499,7 @@ def train_forward_args(shape, strides, dtype: torch.dtype, addresses, seed_shape
     views = _head_strides([*strides, (T * D, D, 1)], hd)
     return forward_args((B, cfg.num_heads, T, hd), views, dtype, addresses, scale_q, 1.0,
                         cfg.causal, cfg.kv_len, cfg.softmax_f32,
-                        seed_per_row=int(len(seed_shape) == 2), threshold=threshold,
+                        seed_per_row=seed_mode(seed_shape), threshold=threshold,
                         keep_w=keep_w)
 
 
@@ -551,7 +571,7 @@ def _launch_train_backward(q, k, v, dout, seed, cfg: _TrainConfig):
         rc = lib.attention_train_backward(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), seed.data_ptr(), int(seed.dim() == 2),
+            stats.data_ptr(), seed.data_ptr(), seed_mode(seed.shape),
             threshold, keep_w, keep_f32, B, T, cfg.num_heads, hd,
             *_strides(q, k, v), scale_q, scale_f32, int(cfg.causal),
             cfg.kv_len, int(cfg.softmax_f32), stream,

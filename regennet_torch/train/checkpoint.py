@@ -86,10 +86,17 @@ def save_checkpoint(save_dir: str, step: int, model: nn.Module,
                     ema: Dict[str, torch.Tensor],
                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Write model{step}.pt and opt{step}.pt; returns the model file's path."""
+    return save_state(save_dir, step, model.state_dict(), optimizer.state_dict(), ema, extra)
+
+
+def save_state(save_dir: str, step: int, model_state: Dict[str, torch.Tensor],
+               optimizer_state: Dict[str, Any], ema: Dict[str, torch.Tensor],
+               extra: Optional[Dict[str, Any]] = None) -> str:
+    """save_checkpoint from the state dicts themselves."""
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(save_dir, ckpt_name(step)))
-    torch.save(_cpu(model.state_dict()), path)
-    train_state = {"optimizer": _cpu(optimizer.state_dict()), "ema": _cpu(ema),
+    torch.save(_cpu(model_state), path)
+    train_state = {"optimizer": _cpu(optimizer_state), "ema": _cpu(ema),
                    "step": int(step), **(extra or {})}
     torch.save(train_state, os.path.join(save_dir, opt_name(step)))
     return path

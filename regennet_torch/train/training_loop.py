@@ -1,5 +1,7 @@
-"""Training runtime (counterpart of regennet_tpu/train/training_loop.py),
-single device.
+"""Training runtime (counterpart of regennet_tpu/train/training_loop.py):
+one process, or one process per card under torch.distributed
+(parallel/mesh.py: --data_parallel, --tensor_parallel, --param_sharding
+fsdp).
 
 One optimizer step is: the training forward of the CMDM (dropout and
 condition dropout drawn from the loop's torch.Generator; the decoder
@@ -22,14 +24,26 @@ the loss terms and the joint decode are too.
 `--steps_per_call K` keeps the JAX loop's step boundaries: K single steps
 run back to back, their host batches drawn first; saves, logs and the
 DIFFUSION_TRAINING_TEST exit fall at the same steps, and `--nan_guard`
-rolls back whole K-step blocks. `--eval_during_training` runs the debug
-evaluation of the dataset after every save (humanml and kit: the T2M
-evaluation of eval/eval_humanml.py); `--profile_steps` writes a
-torch.profiler Chrome trace of a window of steps.
+rolls back whole K-step blocks.
+
+Under a process group each rank trains on its local batch of
+--batch_size rows (the global batch is batch_size times the data size);
+t, the noise and every dropout draw are the global batch's, sliced to the
+rank's rows, so the step equals one process's step on the concatenated
+batch. Rank 0 alone logs and writes files; the metrics, the NaN guard's
+decision and the loss-aware sampler's history are the global batch's on
+every rank. A checkpoint holds the full state in the one-device layout
+whatever the sharding, and loads back into any layout.
+
+`--eval_during_training` runs the debug evaluation of the dataset after
+every save (humanml and kit: the T2M evaluation of eval/eval_humanml.py);
+`--profile_steps` writes a Chrome trace of a window of steps
+(utils.profiling.trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -47,8 +61,10 @@ from regennet_torch.diffusion.resample import (
 from regennet_torch.models.clip_text import encode_text_or_fallback
 from regennet_torch.ops import body_model as bm
 from regennet_torch.ops.pose_decode import make_rot2xyz
+from regennet_torch.parallel import mesh
 from regennet_torch.train import checkpoint
 from regennet_torch.utils import kvlogger as logger
+from regennet_torch.utils import profiling
 from regennet_torch.utils.model_util import model_dtype
 
 ADAM_BETAS = (0.9, 0.999)
@@ -97,7 +113,9 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
                     rot2xyz_fn, ema: Dict[str, torch.Tensor],
                     ema_rate: float = 0.9999, num_timesteps: int = 1000,
                     lr_schedule: Optional[Callable[[int], float]] = None,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32,
+                    layout: Optional[mesh.Layout] = None,
+                    fsdp: Optional[mesh.FlatShard] = None):
     """Build step(batch, generator, step, noise=None) -> metrics.
 
     batch: device tensors {"motion", "t", "weights", "cond"}; step: the
@@ -107,20 +125,39 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
     parameters until the next step. metrics: 0-dim device tensors (the
     weighted term means, loss, grad_norm, param_norm, loss_q0..3) and the
     per-example loss_per_elem [B]. dtype: the compute dtype; below float32
-    the model runs on copies of the float32 parameters cast to it."""
+    the model runs on copies of the float32 parameters cast to it.
+
+    layout: this rank's place in a process group (batch: the rank's rows;
+    the draws are the global batch's; gradients averaged over "data"; the
+    metrics are the global batch's, loss_per_elem the rank's rows); one
+    process's (parallel.mesh.one_process) by default. fsdp:
+    the flat shard that the optimizer updates (ema then holds {"flat":
+    its EMA}); the module's parameters are gathered for the step and
+    released after it."""
+    if layout is None:
+        layout = mesh.one_process()
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
-    ema_list = [ema[n] for n in names]
+    sharded = mesh.sharded_flags(names, layout)
+    if fsdp is None:
+        master, ema_list = params, [ema[n] for n in names]
+    else:
+        master, ema_list, sharded = [fsdp.shard], [ema["flat"]], [fsdp.flags(sharded)]
+
+    def norm(tensors):
+        return mesh.global_norm(tensors, sharded, layout, over_data=fsdp is not None)
 
     def train_step(batch, generator: torch.Generator, step: int,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         x, t, weights = batch["motion"], batch["t"], batch["weights"]
+        draws = layout.draws(generator, x.shape[0])
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+            noise = draws.randn(x.shape, x.device, x.dtype)
+        if fsdp is not None:
+            fsdp.gather_()
 
         def model_fn(x_t, ts, cond):
-            kwargs = dict(train=True, generator=generator)
+            kwargs = dict(train=True, generator=draws)
             if dtype == torch.float32:
                 return model(x_t, ts, cond, **kwargs)
             cast = {n: p.to(dtype) for n, p in zip(names, params)}
@@ -131,27 +168,40 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
                                        noise, rot2xyz_fn=rot2xyz_fn)
         loss = torch.mean(terms["loss"] * weights)
         loss.backward()
+        if fsdp is not None:
+            fsdp.reduce_grads_()
+        else:
+            mesh.average_grads_(params, layout)
         if lr_schedule is not None:
             for group in optimizer.param_groups:
                 group["lr"] = lr_schedule(step)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        grad_norm = global_norm(grads)
+        grad_norm = norm([p.grad if p.grad is not None else torch.zeros_like(p)
+                          for p in master])
         optimizer.step()
+        if fsdp is not None:
+            fsdp.release_()
         with torch.no_grad():
             torch._foreach_mul_(ema_list, ema_rate)
-            torch._foreach_add_(ema_list, params, alpha=1.0 - ema_rate)
+            torch._foreach_add_(ema_list, master, alpha=1.0 - ema_rate)
 
             metrics = {k: torch.mean(v.detach() * weights) for k, v in terms.items()}
             metrics["loss"] = loss.detach()
-            metrics["loss_per_elem"] = terms["loss"].detach()
-            metrics["grad_norm"] = grad_norm
-            metrics["param_norm"] = global_norm(params)
             quartile = (4 * t) // num_timesteps
             weighted = terms["loss"].detach() * weights
+            sums = []
             for q in range(4):
                 sel = (quartile == q).to(weighted.dtype)
-                metrics[f"loss_q{q}"] = torch.sum(weighted * sel) / torch.clamp(
-                    torch.sum(sel), min=1.0)
+                sums += [torch.sum(weighted * sel), torch.sum(sel)]
+            # the global batch's: means of the ranks' means, sums of sums
+            keys = list(metrics)
+            flat = layout.sum_over_data(torch.stack([metrics[k] for k in keys] + sums))
+            metrics = dict(zip(keys, flat[:len(keys)] / layout.data_size))
+            sums = flat[len(keys):]
+            metrics["loss_per_elem"] = terms["loss"].detach()
+            metrics["grad_norm"] = grad_norm
+            metrics["param_norm"] = norm(master)
+            for q in range(4):
+                metrics[f"loss_q{q}"] = sums[2 * q] / torch.clamp(sums[2 * q + 1], min=1.0)
         return metrics
 
     return train_step
@@ -159,7 +209,9 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
 
 class TrainLoop:
     def __init__(self, args, train_platform, model, sched, cfg, data,
-                 device: torch.device):
+                 device: torch.device, layout: Optional[mesh.Layout] = None):
+        """layout: this rank's place in the process group; by default
+        parallel.mesh.setup's from args (one process's without a launcher)."""
         self.args = args
         self.train_platform = train_platform
         self.device = device
@@ -180,8 +232,12 @@ class TrainLoop:
         self.save_dir = args.save_dir
         self.step = 0
         self.resume_step = 0
-        self.global_batch = self.batch_size
-        self.num_epochs = self.num_steps // (len(self.data) + 1)
+        self.layout = layout if layout is not None else mesh.setup(args, device)
+        self._is_main = self.layout.is_main
+        self.global_batch = self.batch_size * self.layout.data_size
+        # the JAX loop's len(data) * process_count: its processes are the
+        # port's data ranks (a JAX process owns every device of its replica)
+        self.num_epochs = self.num_steps // (len(self.data) * self.layout.data_size + 1)
 
         self.schedule_sampler = create_named_schedule_sampler(
             os.environ.get("REGENNET_SCHEDULE_SAMPLER", "uniform"),
@@ -203,12 +259,14 @@ class TrainLoop:
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.log(f"Model parameters: {n_params / 1e6:.2f}M")
         self._resume()
+        self._tp = self._fsdp = None
+        self._shard_state()
         self._train_step = make_train_step(
             self.model, sched, cfg, self.optimizer, self.rot2xyz_fn, self.ema,
             ema_rate=float(getattr(args, "ema_rate", 0.9999)),
             num_timesteps=sched.num_timesteps,
             lr_schedule=lambda s: learning_rate(self.lr, self.lr_anneal_steps, s),
-            dtype=self.dtype,
+            dtype=self.dtype, layout=self.layout, fsdp=self._fsdp,
         )
         self._nan_guard = bool(getattr(args, "nan_guard", False))
         self._nan_skips = 0
@@ -245,24 +303,106 @@ class TrainLoop:
         if "generator" in extra:
             self.generator.set_state(extra["generator"])
 
+    def _shard_state(self):
+        """Put the (full, possibly resumed) parameters, AdamW moments and
+        EMA into the layout: tensor-parallel blocks over "model", then one
+        flat FSDP shard over "data"."""
+        layout = self.layout
+        names = [n for n, _ in self.model.named_parameters()]
+        full = dict(self.model.named_parameters())
+        moments = {n: self.optimizer.state.get(full[n], {}) for n in names}
+        if layout.model_size > 1:
+            self._tp = mesh.TensorParallel(layout.model_group, layout.model_rank,
+                                           layout.model_size)
+            mesh.shard_model_(self.model, self._tp)
+            moments = {n: {k: (mesh.shard_tensor(n, v, self._tp.rank, self._tp.size)
+                               if k != "step" else v) for k, v in st.items()}
+                       for n, st in moments.items()}
+            self.ema = {n: mesh.shard_tensor(n, e, self._tp.rank, self._tp.size).clone()
+                        for n, e in self.ema.items()}
+        params = [p for _, p in self.model.named_parameters()]
+        if layout.fsdp:
+            self._fsdp = mesh.FlatShard(params, layout)
+            self.optimizer = make_optimizer([self._fsdp.shard], self.lr, self.weight_decay)
+            st = moments[names[0]]
+            if st:
+                self.optimizer.state[self._fsdp.shard] = {
+                    "step": st["step"].clone(),
+                    **{k: self._fsdp.shard_of([moments[n][k] for n in names])
+                       for k in ("exp_avg", "exp_avg_sq")}}
+            self.ema = {"flat": self._fsdp.shard_of([self.ema[n] for n in names])}
+            self._fsdp.release_()
+        elif self._tp is not None:
+            self.optimizer = make_optimizer(params, self.lr, self.weight_decay)
+            for n, p in zip(names, params):
+                if moments[n]:
+                    self.optimizer.state[p] = {k: v.clone() for k, v in moments[n].items()}
+
+    def _master(self) -> List[torch.Tensor]:
+        """The tensors AdamW updates: the FSDP shard, or the parameters."""
+        if self._fsdp is not None:
+            return [self._fsdp.shard]
+        return list(self.model.parameters())
+
     def _snapshot(self):
-        return ([p.detach().clone() for p in self.model.parameters()],
+        return ([p.detach().clone() for p in self._master()],
                 copy.deepcopy(self.optimizer.state_dict()),
                 {n: e.clone() for n, e in self.ema.items()})
 
     def _rollback(self, snapshot):
         params, opt_state, ema = snapshot
         with torch.no_grad():
-            for p, saved in zip(self.model.parameters(), params):
+            for p, saved in zip(self._master(), params):
                 p.copy_(saved)
             for n, e in self.ema.items():
                 e.copy_(ema[n])
         self.optimizer.load_state_dict(opt_state)
 
+    def _full_state(self):
+        """(model state dict, AdamW state dict, EMA) of the whole model in
+        the one-device layout, on every rank (collectives under a layout)."""
+        names = [n for n, _ in self.model.named_parameters()]
+        if self._fsdp is not None:
+            fs = self._fsdp
+            params = fs.full_of(fs.shard)
+            ema = fs.full_of(self.ema["flat"])
+            st = self.optimizer.state.get(fs.shard, {})
+            moments = {k: fs.full_of(st[k]) if st else [None] * len(names)
+                       for k in ("exp_avg", "exp_avg_sq")}
+            step = st.get("step")
+        else:
+            params = [p.detach() for p in self.model.parameters()]
+            ema = [self.ema[n] for n in names]
+            # a parameter that has had no gradient has no AdamW state
+            states = [self.optimizer.state.get(p, {}) for p in self.model.parameters()]
+            moments = {k: [st.get(k) for st in states] for k in ("exp_avg", "exp_avg_sq")}
+            step = next((st["step"] for st in states if st), None)
+        if self._tp is not None:
+            def unshard(tensors):
+                return [t if t is None else mesh.unshard_tensor(n, t, self._tp)
+                        for n, t in zip(names, tensors)]
+
+            params, ema = unshard(params), unshard(ema)
+            moments = {k: unshard(v) for k, v in moments.items()}
+        full = [torch.nn.Parameter(p.clone()) for p in params]
+        optimizer = make_optimizer(full, self.lr, self.weight_decay)
+        optimizer.param_groups[0]["lr"] = self.optimizer.param_groups[0]["lr"]
+        for i, p in enumerate(full):
+            if moments["exp_avg"][i] is not None:
+                optimizer.state[p] = {"step": step.clone(), "exp_avg": moments["exp_avg"][i],
+                                      "exp_avg_sq": moments["exp_avg_sq"][i]}
+        model_state = self.model.state_dict()
+        model_state.update(zip(names, params))
+        return model_state, optimizer.state_dict(), dict(zip(names, ema))
+
     # -- stepping -------------------------------------------------------
 
     def _make_host_batch(self, motion, cond) -> Dict:
-        t, weights = self.schedule_sampler.sample(motion.shape[0], self._host_rng)
+        B = motion.shape[0]
+        # the global batch's draw, this rank's rows
+        t, weights = self.schedule_sampler.sample(B * self.layout.data_size, self._host_rng)
+        rows = slice(self.layout.data_rank * B, (self.layout.data_rank + 1) * B)
+        t, weights = t[rows], weights[rows]
         y = cond["y"]
         cond_np = {
             "mask": np.asarray(y["mask"]),
@@ -313,7 +453,7 @@ class TrainLoop:
         if isinstance(self.schedule_sampler, LossAwareSampler):
             for host, lpe in zip(host_batches, losses_per_elem):
                 self.schedule_sampler.update_with_local_losses(
-                    host["t"], lpe.cpu().numpy())
+                    host["t"], lpe.cpu().numpy(), group=self.layout.data_group)
         return per_step
 
     def _run(self, items) -> List[Dict]:
@@ -382,7 +522,7 @@ class TrainLoop:
         for metrics in per_step_metrics:
             if metrics.get("nan_skipped"):
                 continue  # a dropped update: no logging, no step
-            if self.step % self.log_interval == 0:
+            if self.step % self.log_interval == 0 and self._is_main:
                 for k, v in metrics.items():
                     v = float(v)
                     logger.logkv_mean(k, v)
@@ -411,52 +551,64 @@ class TrainLoop:
         return False
 
     def save(self):
+        """model{N}.pt and opt{N}.pt of the whole model, from rank 0."""
         logger.log("saving model...")
-        path = checkpoint.save_checkpoint(
-            self.save_dir, self.state_step, self.model, self.optimizer, self.ema,
-            extra={"host_rng": self._host_rng.bit_generator.state,
-                   "generator": self.generator.get_state()},
-        )
-        logger.log(f"saved checkpoint: {path}")
+        model_state, optimizer_state, ema = self._full_state()
+        if self._is_main:
+            path = checkpoint.save_state(
+                self.save_dir, self.state_step, model_state, optimizer_state, ema,
+                extra={"host_rng": self._host_rng.bit_generator.state,
+                       "generator": self.generator.get_state()},
+            )
+            logger.log(f"saved checkpoint: {path}")
+        self.layout.barrier()
 
     # -- profiling and evaluation ----------------------------------------
 
     def _maybe_profile(self):
         """The JAX loop's window: trace steps [profile_start, profile_start +
-        profile_steps) with torch.profiler (the CUDA activity on the card),
-        started and stopped at the call boundaries where the loop sees
-        those steps."""
+        profile_steps) with utils.profiling.trace (the CUDA activity where a
+        card is visible), started and stopped at the call boundaries where
+        the loop sees those steps."""
         n = int(getattr(self.args, "profile_steps", 0) or 0)
-        if n <= 0:
+        if n <= 0 or not self._is_main:
             return
         start = int(getattr(self.args, "profile_start", 10) or 0)
         if start <= self.step < start + n and self._profiler is None:
-            from torch.profiler import ProfilerActivity, profile
+            profile_dir = os.path.join(self.save_dir, "profile")
+            os.makedirs(profile_dir, exist_ok=True)
+            first = self.state_step
 
-            activities = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            self._profile_dir = os.path.join(self.save_dir, "profile")
-            os.makedirs(self._profile_dir, exist_ok=True)
-            self._profile_first = self.state_step
-            self._profiler = profile(activities=activities)
-            self._profiler.start()
+            def write(prof):
+                """A Chrome trace (no TensorBoard needed) into <save_dir>/profile."""
+                path = os.path.join(profile_dir, f"trace_steps{first:09d}-"
+                                                 f"{self.state_step:09d}.json")
+                prof.export_chrome_trace(path)
+                logger.log(f"profiler trace written to {path}")
+
+            self._profiler = contextlib.ExitStack()
+            self._profiler.enter_context(profiling.trace(profile_dir, on_trace_ready=write))
         elif self.step >= start + n and self._profiler is not None:
             self._stop_profile()
 
     def _stop_profile(self):
-        """Close an open trace and write it as a Chrome trace (no
-        TensorBoard needed) into <save_dir>/profile."""
+        """Close an open trace, which writes it."""
         if self._profiler is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        prof, self._profiler = self._profiler, None
-        prof.stop()
-        path = os.path.join(self._profile_dir, f"trace_steps{self._profile_first:09d}-"
-                                               f"{self.state_step:09d}.json")
-        prof.export_chrome_trace(path)
-        logger.log(f"profiler trace written to {path}")
+        window, self._profiler = self._profiler, None
+        window.close()
+
+    def _eval_model(self):
+        """A copy of the current parameters at the compute dtype, for
+        sampling (tensor-parallel under tensor parallelism)."""
+        if self._fsdp is not None:
+            self._fsdp.gather_()
+        model = copy.deepcopy(self.model).to(self.dtype).eval()
+        if self._fsdp is not None:
+            self._fsdp.release_()
+        return model
 
     def evaluate(self):
         """In-training evaluation after a save, with --eval_during_training
@@ -492,7 +644,7 @@ class TrainLoop:
         eval_args.eval_mode = "debug"
         dataset = getattr(self.data, "dataset", self.data)
         eval_args.num_actions = getattr(dataset, "num_actions", 1)
-        model = copy.deepcopy(self.model).to(self.dtype).eval()
+        model = self._eval_model()
         if self.args.dataset in ("humanact12", "uestc"):
             eval_args.num_seeds = self.args.eval_rep_times
             eval_dict = eval_humanact12_uestc.evaluate(
@@ -500,9 +652,10 @@ class TrainLoop:
                 rec)
         else:
             evaluator = eval_cmdm.load_stgcn_evaluator(eval_args, rec, self.device)
+            # under a process group the "data" ranks share each batch
             eval_dict = stgcn_eval.evaluate(
                 eval_args, lambda: make_model_fn(model), self.sched, self.cfg, dataset,
-                evaluator, setting=self.args.setting, acc_only=True)
+                evaluator, setting=self.args.setting, acc_only=True, layout=self.layout)
         for k, v in eval_dict["feats"].items():
             self.train_platform.report_scalar(
                 name=k, value=float(v[0]), iteration=self.state_step, group_name="Eval")
@@ -531,7 +684,7 @@ class TrainLoop:
                                          dataset_name=self.args.dataset)
             self._hml_eval = (wrapper, eval_ds)
         wrapper, eval_ds = self._hml_eval
-        model = copy.deepcopy(self.model).to(self.dtype).eval()
+        model = self._eval_model()
         num_samples = self.args.eval_num_samples
         gt_factory = eval_humanml.make_gt_loader_factory(
             eval_ds, self.args.eval_batch_size, num_samples)

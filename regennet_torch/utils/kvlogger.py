@@ -147,12 +147,15 @@ class Logger:
 
 
 _CURRENT: Optional[Logger] = None
+_QUIET = False
 
 
-def configure(log_dir: Optional[str] = None, formats=None):
+def configure(log_dir: Optional[str] = None, formats=None, quiet: bool = False):
     """formats default: human,csv; REGENNET_LOG_FORMAT overrides them (a
-    comma list of human/csv/json/tensorboard)."""
-    global _CURRENT
+    comma list of human/csv/json/tensorboard). quiet: `log` prints nothing
+    (the ranks other than 0 of a process group)."""
+    global _CURRENT, _QUIET
+    _QUIET = quiet
     if formats is None:
         formats = tuple(
             os.environ.get("REGENNET_LOG_FORMAT", "human,csv").split(",")
@@ -181,5 +184,6 @@ def dumpkvs():
 
 
 def log(*args):
-    print(*args, flush=True)
+    if not _QUIET:
+        print(*args, flush=True)
 

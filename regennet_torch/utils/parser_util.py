@@ -223,12 +223,18 @@ def add_training_options(parser):
     group.add_argument("--profile_start", default=10, type=int)
     group.add_argument("--resume_checkpoint", default="", type=str)
     group.add_argument("--data_parallel", default=-1, type=int,
-                       help="Single device only: -1 or 1.")
+                       help="Ranks on the mesh's data axis (-1: the world size "
+                            "over --tensor_parallel); more than one needs a "
+                            "launcher (torchrun --nproc_per_node N). "
+                            "--batch_size is each data rank's.")
     group.add_argument("--tensor_parallel", default=1, type=int,
-                       help="Single device only: 1.")
+                       help="Ranks on the mesh's model axis: the attention's "
+                            "heads and the feed-forward width split over them.")
     group.add_argument("--param_sharding", default="replicated",
                        choices=["replicated", "fsdp"], type=str,
-                       help="Single device only: replicated.")
+                       help="fsdp: the parameters, AdamW moments and EMA "
+                            "sharded over the data axis; checkpoints stay "
+                            "whole.")
     group.add_argument("--compute_dtype", default="float32",
                        choices=["float32", "bfloat16"], type=str,
                        help="Dtype the denoiser computes in; parameters, "
@@ -250,19 +256,6 @@ def train_args(argv=None):
     add_diffusion_options(parser)
     add_training_options(parser)
     return parser.parse_args(argv)
-
-
-def check_single_device_training(args):
-    """Raise for the options this port does not train with: more than one
-    device or a sharded state."""
-    if getattr(args, "data_parallel", -1) not in (-1, 1):
-        raise NotImplementedError("distributed training is not ported: "
-                                  "--data_parallel must be -1 or 1")
-    if getattr(args, "tensor_parallel", 1) != 1:
-        raise NotImplementedError("tensor parallelism is not ported: "
-                                  "--tensor_parallel must be 1")
-    if getattr(args, "param_sharding", "replicated") != "replicated":
-        raise NotImplementedError("--param_sharding fsdp is not ported")
 
 
 def add_evaluation_options(parser):

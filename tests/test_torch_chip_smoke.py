@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -750,3 +751,81 @@ def test_phase15_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     fit = report["gan_fit"]
     assert fit["steps"] == 6 and fit["last_loss"] < fit["first_loss"]
     assert report["phase15"]["fit_ms_per_step"] > 0
+
+
+def test_phase16_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 16 at a cut size on the CPU: train_mdm at --data_parallel 2 and
+    --tensor_parallel 2 on two gloo ranks (spawned, as on the card) held
+    against one process, the tensor-parallel DDPM sample against one
+    process on the same weights, the sampler
+    extras with PLMS against a CPU copy, and torch_ckpt --check over the
+    phase's own checkpoints. (b), the NCCL group at world 1 with FSDP, is
+    skipped: the CPU has no NCCL (tests/test_torch_distributed.py holds
+    FSDP over gloo). The CPU runs launch nothing."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    for key, value in dict(layers=2, latent_dim=32, heads=4, T=16).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    monkeypatch.setitem(cs.DIST, "batch", 8)
+    monkeypatch.setitem(cs.DIST, "sample_rows", 4)
+    for key, value in dict(respacing="10", batch=4).items():
+        monkeypatch.setitem(cs.EXTRAS, key, value)
+    monkeypatch.setattr(cs, "CKPT_KINDS", ("cmdm/online",))
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,json")
+    report = {}
+    launches = cs.run_phase16(report, "cpu", tmp_path, device="cpu")
+    assert launches == {"b1": 0, "b2": {"forward": 0, "backward": 0}}
+    dist = report["phase16_distributed"]
+    assert dist["nccl"].startswith("skipped")
+    for name, steps in (("dp", cs.DIST["steps"]), ("tp", 1)):
+        assert len(dist[name]["losses"]) == steps == dist[name]["steps"]
+        np.testing.assert_allclose(dist[name]["losses"], dist["one_process_losses"][:steps],
+                                   rtol=1e-5)
+    assert dist["tp"]["ranks"][0]["heads"] == [2]
+    assert dist["tp"]["sample_err"] < 1e-5  # the same weights, one forward apart
+    extras = report["phase16_extras"]
+    # the same plain attention on both sides, batches of 4 rows and of 1
+    assert extras["plms_cpu_err"] < 1e-5 and np.isfinite(extras["round_trip_err"])
+    assert set(report["phase16_ckpt_check"]["checked"]) == {"cmdm/online"}
+    # one process and dp, each saved after its first and its last step; tp's one step
+    assert len(report["phase16_ckpt_check"]["checked"]["cmdm/online"]) == 5
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_phase16_launch_arithmetic(monkeypatch, order):
+    """extras_model_calls against the loops' own denoiser calls: PLMS at
+    order k makes steps + 1 calls for k > 1 (steps for k = 1), the reverse
+    DDIM loop and DDIM steps each, the bpd loop steps; B1 launches layers
+    times each on the card."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    import torch
+
+    from regennet_torch.diffusion import DiffusionConfig, losses, make_schedule, sampling
+
+    sched, cfg, shape = make_schedule("cosine", 1000, timestep_respacing="7"), \
+        DiffusionConfig(), (2, 3, 2, 4)
+    calls = []
+
+    def model_fn(x, t, cond):
+        calls.append(1)
+        return torch.tanh(x)
+
+    counts = {}
+    for name, run in (
+            ("plms", lambda: sampling.plms_sample_loop(sched, cfg, model_fn, shape, {},
+                                                       order=order,
+                                                       generator=torch.Generator())),
+            ("round_trip", lambda: sampling.ddim_sample_loop(
+                sched, cfg, model_fn, shape, {}, generator=torch.Generator(),
+                noise=sampling.ddim_reverse_sample_loop(sched, cfg, model_fn,
+                                                        torch.zeros(shape), {}))),
+            ("bpd", lambda: losses.calc_bpd_loop(sched, cfg, model_fn, torch.zeros(shape), {},
+                                                 generator=torch.Generator()))):
+        calls.clear()
+        run()
+        counts[name] = len(calls)
+    assert counts == cs.extras_model_calls(7, order)
+    assert cs.extras_model_calls(50, 2) == {"plms": 51, "round_trip": 100, "bpd": 50}
+    assert 8 * cs.extras_model_calls(50, 2)["plms"] == 408

@@ -51,11 +51,12 @@ def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
 
 
 def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, offset=0,
-                heads=4, hd=128):
+                heads=4, hd=128, head0=None):
     """Kernel and plain version of the training attention on the same
     packed inputs (q, k, v column views starting `offset` elements into each
-    row; `heads` heads of `hd`): (out, grads) of each, then the grads of the
-    backward kernel's plain version."""
+    row; `heads` heads of `hd`; head0: [B, 3] seeds whose heads are those
+    from head0 of a larger model): (out, grads) of each, then the grads of
+    the backward kernel's plain version."""
     dmodel = heads * hd
     gen = torch.Generator(device="cuda").manual_seed(seed + T)
     td = getattr(torch, dtype)
@@ -63,6 +64,9 @@ def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, of
     dout = torch.randn(B, T, dmodel, device="cuda", generator=gen).to(td)
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 2), device="cuda",
                           generator=gen, dtype=torch.int32)
+    if head0 is not None:
+        seeds = torch.cat([seeds, torch.full((B, 1), head0, dtype=torch.int32,
+                                             device="cuda")], dim=1)
     results = []
     for fn in (attention.fused_attention_btd_train,
                attention.attention_btd_train_reference):
@@ -78,13 +82,14 @@ def _train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, seed=0, of
 
 
 def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offset=0,
-                      heads=4, hd=128):
+                      heads=4, hd=128, head0=None):
     """_train_case's kernels against both plain versions, with the launch
     counters: one forward and one backward launch, none of B1's."""
     fn = attention.fused_attention_btd_train
     before = (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches)
     (out, grads), (ref, ref_grads), plain_grads = _train_case(
-        B, T, dtype, causal, kv_len, rate, softmax_f32, offset=offset, heads=heads, hd=hd)
+        B, T, dtype, causal, kv_len, rate, softmax_f32, offset=offset, heads=heads, hd=hd,
+        head0=head0)
     torch.cuda.synchronize()
     assert (fn.launches, fn.backward_launches, attention.fused_attention_btd.launches) == (
         before[0] + 1, before[1] + 1, before[2])
@@ -146,6 +151,35 @@ def test_cuda_train_kernels_on_unaligned_views(offset, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     _check_train_case(4, 151, dtype, True, None, 0.1, offset=offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [60, 150, 200])
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+def test_cuda_train_kernels_with_a_head_offset_seed(T, dtype, softmax_f32):
+    """[B, 3] seeds (tensor parallelism: a rank's 2 heads of 128 are heads
+    2 and 3 of the model) on both kernels, against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    _check_train_case(3, T, dtype, True, None, 0.1, softmax_f32, heads=2, head0=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [48, 200])
+def test_cuda_train_forward_mask_with_a_head_offset(T):
+    """The forward kernel's mask under a [B, 3] seed is the whole model's
+    dropout_bits at the heads from the offset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    import chip_smoke
+
+    B, H = 2, chip_smoke.FLAGSHIP["heads"]
+    seeds = torch.tensor([[7, -1], [2 ** 30, 5]], dtype=torch.int32, device="cuda")
+    offset = torch.cat([seeds, torch.full((B, 1), 3, dtype=torch.int32, device="cuda")], 1)
+    kept = chip_smoke.train_mask(B, T, 0.5, offset, True)
+    seen = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    bits = attention.dropout_bits(seeds, B, H + 3, T)[:, 3:]
+    assert torch.equal(kept, (bits >= attention.dropout_threshold(0.5)) & seen)
 
 
 @pytest.mark.cuda

@@ -35,7 +35,10 @@ new = {"regennet_torch.sample.edit", "regennet_torch.sample.predict",
        "regennet_torch.visualize.fit_seq", "regennet_torch.visualize.vis_utils",
        "regennet_torch.visualize.render_mesh", "regennet_torch.render.rendermotion",
        "regennet_torch.render.crendermotion", "regennet_torch.preprocess.actor_reactor",
-       "regennet_torch.preprocess.split_2p", "regennet_torch.preprocess.prepare_data"}
+       "regennet_torch.preprocess.split_2p", "regennet_torch.preprocess.prepare_data",
+       "regennet_torch.parallel", "regennet_torch.parallel.mesh",
+       "regennet_torch.convert.torch_ckpt", "regennet_torch.utils.profiling",
+       "regennet_torch.utils.config"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 chip_smoke.load_capability_study()
@@ -110,6 +113,26 @@ def test_train_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
     args = Namespace(seed=0, device=0, save_dir=str(save_dir), overwrite=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mdm.main(args)
+    assert not save_dir.exists() and not os.listdir(tmp_path)  # nothing written
+
+
+def test_distributed_train_entry_point_without_device_needs_cuda(monkeypatch, tmp_path):
+    """Under a launcher's environment, --data_parallel 2 without --device cpu
+    asks for the card: it raises before joining a process group or writing."""
+    import torch.distributed as dist
+
+    from regennet_torch.train import train_mdm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for key, value in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                           MASTER_PORT="1").items():
+        monkeypatch.setenv(key, value)
+    save_dir = tmp_path / "run"
+    args = Namespace(seed=0, device=0, save_dir=str(save_dir), overwrite=False,
+                     data_parallel=2, tensor_parallel=1, param_sharding="replicated")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mdm.main(args)
+    assert not dist.is_initialized()
     assert not save_dir.exists() and not os.listdir(tmp_path)  # nothing written
 
 

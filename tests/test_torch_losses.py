@@ -145,6 +145,20 @@ def test_masked_l2_normaliser_and_flat_reductions():
     torch.testing.assert_close(got, torch.stack(want))
     torch.testing.assert_close(losses.sum_flat(a), a.sum(dim=(1, 2, 3)))
     torch.testing.assert_close(losses.mean_flat(a), a.mean(dim=(1, 2, 3)))
-    with pytest.raises(NotImplementedError, match="loss_type"):
-        losses.training_losses(make_schedule("cosine", 10), DiffusionConfig(loss_type="kl"),
-                               None, a, None, {}, a)
+    # loss_type="kl": the variational-bound term alone, held against JAX
+    rng = np.random.default_rng(3)
+    x0 = np.clip(rng.normal(size=(2, 3, 2, 4)), -1, 1).astype(np.float32)
+    noise = rng.normal(size=x0.shape).astype(np.float32)
+    t = np.array([0, 6])
+    kl_mask = np.ones((2, 1, 1, 4), bool)
+    got = losses.training_losses(
+        make_schedule("cosine", 10), DiffusionConfig(loss_type="kl"),
+        lambda x, ts, cond: torch.tanh(x), torch.tensor(x0), torch.tensor(t),
+        {"mask": torch.tensor(kl_mask)}, torch.tensor(noise))
+    want = jlosses.training_losses(
+        jmake_schedule("cosine", 10), JConfig(loss_type="kl"),
+        lambda x, ts, cond: jnp.tanh(x), jnp.asarray(x0), jnp.asarray(t, jnp.int32),
+        {"mask": jnp.asarray(kl_mask)}, None, noise=jnp.asarray(noise))
+    assert set(got) == set(want) == {"loss"}
+    np.testing.assert_allclose(got["loss"].numpy(), np.asarray(want["loss"]),
+                               rtol=1e-5, atol=0)

@@ -25,6 +25,7 @@ import torch
 
 from regennet_tpu.train import training_loop as jtl
 from regennet_torch.models import cmdm
+from regennet_torch.parallel import mesh
 from regennet_torch.train import training_loop
 from regennet_torch.train.train_platforms import TrainPlatform
 from regennet_torch.utils.model_util import create_model_and_diffusion
@@ -113,7 +114,9 @@ def test_eval_protocol_is_the_jax_loops(monkeypatch, tmp_path):
     assert (calls["args"].batch_size, calls["args"].num_samples) == (16, 100)
     assert calls["evaluator"] == jcalls["evaluator"] == ("stgcn", "/ckpt/stgcn.pt")
     assert calls["dataset"] is jcalls["dataset"] is loop.data.dataset
-    assert calls["kw"] == {"setting": "cmdm", "acc_only": True}
+    # the loop's layout (one process's here) says which ranks share the rows
+    assert calls["kw"] == {"setting": "cmdm", "acc_only": True, "layout": loop.layout}
+    assert loop.layout == mesh.one_process()
     assert calls["dtype"] == torch.float32
     assert loop.train_platform.scalars == jscalars == [
         (k, 0.5, 7, "Eval") for k in sorted(DEBUG_METRICS)]
