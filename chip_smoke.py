@@ -27,9 +27,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      10's [64, 61, 512], phase 11's [64, 197, 512] (the three-pass
      forward, the long-row backward), phase 14's CVAE at head dim 64,
      [20, 62, 256] and [20, 60, 256], and phase 15's GAN, D's [32, 60,
-     256] and G's [32, 16, 256] (B2 at rate 0), timed by device time under
-     torch.profiler beside their plain versions, SDPA and the bounds; and
-     B2's second-order term (PyTorch ops) at the GAN's shapes;
+     256] and G's [32, 16, 256] (B2 at rate 0); and causal at head dim 32,
+     the full-scale capability study's [64, 60, 128] (B2 at rate 0.1);
+     timed by device time under torch.profiler beside their plain
+     versions, SDPA and the bounds; and B2's second-order term (PyTorch
+     ops) at the GAN's shapes;
   3. the sampling path, `regennet_torch.sample.cgenerate.main`, on the flagship
      online CMDM (8 layers, latent 512, 4 heads, ff 1024, Chi3D SMPL-X
      56x6, T=150, random weights from a seed) for three requests built from
@@ -61,11 +63,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      against a CPU copy; the GRU's bias_hh r/z slices unchanged by training;
   8. the learning guard, scripts/capability_study_torch.py at its smokefit
      scale (a reduced ST-GCN trained on learnable clips, the online CMDM at
-     latent 64 trained 800 steps, the eval_cmdm protocol for the trained,
-     random-init and oracle rows), held to the six thresholds of
+     latent 64 trained 800 steps, the eval_cmdm protocol over the
+     checkpoint curve, the top-2 selection, then the random-init and
+     oracle rows), held to the six thresholds of
      tests/test_capability_smoke.py; before it, B1 and B2 at its shapes
-     (head dim 16: [32, 24 and 25, 64], 4 heads) against their plain
-     versions;
+     (head dim 16: [32, 24 and 25, 64], 4 heads) and at the full scale's
+     (head dim 32: [64, 60, 128], 4 heads, B2 at rate 0.1 with its dropout
+     mask) against their plain versions;
   9. bf16 training at the flagship width: train_mdm --compute_dtype
      bfloat16 on phase 4's configuration (40 steps) with the in-training
      evaluation (random ST-GCN, 32 samples) after each save; the state and
@@ -1572,64 +1576,86 @@ def hold_kernels_at(b1_shapes, b2_shapes, causal, D, H, seed, rate=None, head0=N
 
 
 def check_guard_kernels(report):
-    """B1 and B2 at the learning guard's shapes (f32, 4 heads of 16, B 32,
-    T 24 and 25, causal, B2 at its dropout 0.1) against their plain
-    versions, as phases 2 and 2b hold them. Returns the worst errors."""
+    """B1 and B2 against their plain versions, as phases 2 and 2b hold them,
+    at the learning guard's shapes (f32, 4 heads of 16, B 32, T 24 and 25,
+    causal, B2 at its dropout 0.1) and at the full-scale capability study's
+    (f32, 4 heads of 32, T 60, causal: B1 at [64, 60, 128], CFG's fold of
+    the curve's protocol batch of 32, and at [192, 60, 128], the headline's
+    three stacked seeds; B2 at the training batch, [64, 60, 128], rate
+    0.1); B2's dropout mask at head dim 32 against dropout_bits, its keep
+    fraction within 0.005 of 0.9. Returns the worst errors."""
+    import torch
+
+    from regennet_torch.ops import attention
+
     shapes = [(32, T, "float32") for T in (24, 25)]
-    worst, report["guard_kernel_cases"] = hold_kernels_at(shapes, shapes, True, 64, 4, seed=6)
-    print(f"  B1 and B2 at head dim 16 ([32, 24 and 25, 64], 4 heads, f32, causal, B2 at "
-          f"rate 0.1) match their plain versions (worst max_abs_err B1 {worst['forward']:.3g}, "
-          f"B2 forward {worst['train_forward']:.3g}, backward {worst['backward']:.3g} against "
-          "the plain backward; tolerance 1e-5 x max(1, max|plain|))")
+    worst, cases = hold_kernels_at(shapes, shapes, True, 64, 4, seed=6)
+    full = load_capability_study().SCALES["full"]
+    B, T, D, H, rate = full["batch"], full["frames"], full["latent"], 4, TRAIN["rate"]
+    rows = 2 * 32  # CFG's 2B of the protocol batch
+    w, c = hold_kernels_at([(rows, T, "float32"), (full["seeds"] * rows, T, "float32")],
+                           [(B, T, "float32")], True, D, H, seed=7, rate=rate)
+    worst = {k: max(v, w[k]) for k, v in worst.items()}
+    report["guard_kernel_cases"] = cases + c
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    kept = train_mask(B, T, rate, seeds, True, D, H)
+    seen = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    want = (attention.dropout_bits(seeds, B, H, T) >= attention.dropout_threshold(rate)) & seen
+    frac = float(kept.sum()) / (B * H * float(seen.sum()))
+    if not (torch.equal(kept, want) and abs(frac - (1 - rate)) <= 0.005):
+        raise AssertionError(f"phase 8: B2's dropout mask at [{B}, {T}, {D}], {H} heads (keep "
+                             f"fraction {frac}) differs from dropout_bits")
+    report["guard_full_mask"] = dict(rate=rate, keep_fraction=frac)
+    print(f"  B1 and B2 at head dim 16 ([32, 24 and 25, 64]) and 32 (B1 at [{rows} and "
+          f"{full['seeds'] * rows}, {T}, {D}], B2 at [{B}, {T}, {D}]), 4 heads, f32, causal, "
+          f"B2 at rate {rate}, match their plain versions (worst max_abs_err B1 "
+          f"{worst['forward']:.3g}, B2 forward {worst['train_forward']:.3g}, backward "
+          f"{worst['backward']:.3g} against the plain backward; tolerance 1e-5 x max(1, "
+          f"max|plain|)); B2's mask at head dim 32 equals dropout_bits (keep fraction "
+          f"{frac:.5f})")
     return worst
 
 
 def run_learning_guard(report, card, workdir, device="cuda"):
-    """Phase 8: the learning guard in process, its launches of B1 (its
-    sampling, layers x steps x sampling calls) and B2 (its CMDM training,
-    layers x steps each way) read around it, and its six thresholds.
-    Returns {kernel: launches}."""
-    from regennet_torch.eval import stgcn_eval
-    from regennet_torch.ops import attention
-
+    """Phase 8: the learning guard in process (the smokefit scale: its
+    checkpoint curve, the top-2 selection, the trained, random-init and
+    oracle rows), its launches of B1 (its sampling: layers x the steps of
+    its sampling calls) and B2 (its CMDM training, layers x steps each way)
+    read around it, and its six thresholds. Returns {kernel: launches}."""
     study = load_capability_study()
-    calls = []
-    sample_output = stgcn_eval._sample_output
-
-    def counted(*a, **kw):
-        calls.append(a[3][0])
-        return sample_output(*a, **kw)
-
-    b1, b2 = attention.fused_attention_btd, attention.fused_attention_btd_train
-    b1.launches = b2.launches = b2.backward_launches = 0
-    stgcn_eval._sample_output = counted
-    try:
-        results = study.run_study(device, str(workdir))
-    finally:
-        stgcn_eval._sample_output = sample_output
-    launches = {"fused_attention_btd": b1.launches,
-                "fused_attention_btd_train": {"forward": b2.launches,
-                                              "backward": b2.backward_launches}}
+    results, counts = counted_run(lambda: study.run_study(device, str(workdir)), device)
+    launches = {"fused_attention_btd": counts["b1"],
+                "fused_attention_btd_train": counts["b2"]}
     train = results["cmdm_training"]
     on_card = device != "cpu"
-    want = {"fused_attention_btd": train["layers"] * train["diffusion_steps"] * len(calls)
-            * on_card,
+    want = {"fused_attention_btd": train["layers"] * counts["sampling_steps"] * on_card,
             "fused_attention_btd_train": {w: train["layers"] * train["steps"] * on_card
                                           for w in ("forward", "backward")}}
-    print(f"  launches: B1 {launches['fused_attention_btd']} (layers x steps x sampling calls "
-          f"= {train['layers']} x {train['diffusion_steps']} x {len(calls)}), B2 "
-          f"{launches['fused_attention_btd_train']} (layers x steps = "
+    print(f"  launches: B1 {launches['fused_attention_btd']} (layers x steps = "
+          f"{train['layers']} x {counts['sampling_steps']} over {counts['sampling_calls']} "
+          f"sampling calls), B2 {launches['fused_attention_btd_train']} (layers x steps = "
           f"{train['layers']} x {train['steps']} each)")
     if launches != want:
         raise AssertionError(f"learning guard launches {launches} != {want}")
     walls = results["walls_s"]
     print("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; total {results['total_s']:.2f} s [{card}]")
+    for point in results["fid_vs_step"]:
+        print(f"  curve, step {point['step']}: accuracy_gen_train "
+              f"{point['accuracy_gen_train']:.4f}, accuracy_gen_test "
+              f"{point['accuracy_gen_test']:.4f}, fid_gen_test {point['fid_gen_test']:.6g}")
+    sel = results["selection"]
+    print(f"  selection: candidates {sel['candidates']} x guidance {sel['guidance_sweep']}; "
+          f"chosen (step, guidance) ({sel['chosen_step']}, {sel['chosen_guidance']})")
     for row in ("trained", "random_init", "oracle"):
         print(f"  {row}: accuracy_gen_test {results[row]['accuracy_gen_test']['mean']:.4f}, "
               f"fid_gen_test {results[row]['fid_gen_test']['mean']:.6g}")
     print(f"  evaluator GT accuracy {results['evaluator']['gt_test_accuracy']:.4f}")
-    report["learning_guard"] = dict(results, launches=launches, sampling_calls=len(calls))
+    report["learning_guard"] = dict(results, launches=launches,
+                                    sampling_calls=counts["sampling_calls"],
+                                    wall_s=counts["wall_s"])
     study.require_learning(results)
     print("  all six thresholds of tests/test_capability_smoke.py hold: "
           + "; ".join(results["checked"]))
@@ -1815,12 +1841,13 @@ def check_a2m_kernels(report):
     return worst
 
 
-def time_btd_kernels(card, T, B=None, D=None, rate=None):
-    """B1 and B2 at f32 [64, T, 512] (or [B, T, D]), 4 heads, non-causal,
-    by device time under torch.profiler, beside their plain versions, SDPA
-    and the bounds (B2 as phase 2b times it, at `rate` if given). At 61 tokens a launch takes about as long as the
-    host needs to issue it, so the CUDA-event time of back-to-back calls
-    (B1's *_wall_ms) reads the host. Returns (B1's timing, B2's timing)."""
+def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False):
+    """B1 and B2 at f32 [64, T, 512] (or [B, T, D]), 4 heads, non-causal
+    unless `causal`, by device time under torch.profiler, beside their plain
+    versions, SDPA and the bounds (B2 as phase 2b times it, at `rate` if
+    given). At 61 tokens a launch takes about as long as the host needs to
+    enqueue it, so the CUDA-event time of back-to-back calls (B1's *_wall_ms)
+    reads the host. Returns (B1's timing, B2's timing)."""
     import torch
     import torch.nn.functional as F
 
@@ -1832,33 +1859,39 @@ def time_btd_kernels(card, T, B=None, D=None, rate=None):
     q4, k4, v4 = (x.view(B, T, H, D // H).transpose(1, 2) for x in (q, k, v))
     b1_timing = {}
     for name, fn, iters in (
-            ("", lambda: attention.fused_attention_btd(q, k, v, H, False), 20),
-            ("plain_", lambda: attention.attention_btd_reference(q, k, v, H, False), 5),
-            ("library_", lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)):
+            ("", lambda: attention.fused_attention_btd(q, k, v, H, causal), 20),
+            ("plain_", lambda: attention.attention_btd_reference(q, k, v, H, causal), 5),
+            ("library_", lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                is_causal=causal), 20)):
         b1_timing[f"{name}ms"] = device_ms(fn, iters=iters)
         b1_timing[f"{name}wall_ms"] = time_ms(fn, iters=iters)
     b1_timing["bound_ms"], b1_timing["bound_by"] = attention_bound_ms(
-        B, T, D, H, "float32", False, None)
-    print(f"  B1 f32 [{B}, {T}, {D}] non-causal, device time (wall with launches): kernel "
+        B, T, D, H, "float32", causal, None)
+    print(f"  B1 f32 [{B}, {T}, {D}] {'causal' if causal else 'non-causal'}, device time (wall "
+          "with launches): kernel "
           + ", ".join(f"{label}{b1_timing[name + 'ms']:.4f} ms ({b1_timing[name + 'wall_ms']:.4f})"
                       for name, label in (("", ""), ("plain_", "plain "),
                                           ("library_", "sdpa ")))
           + f", bound {b1_timing['bound_ms']:.4f} ms ({b1_timing['bound_by']}) [{card}]")
-    return b1_timing, time_train_kernels(card, "float32", T=T, causal=False, B=B, D=D,
+    return b1_timing, time_train_kernels(card, "float32", T=T, causal=causal, B=B, D=D,
                                          rate=rate)
 
 
 def time_model_kernels(report, card):
-    """Phase 2d: B1 and B2 timed at the model paths' own non-causal shapes,
-    f32 [64, T, 512]: phase 10's a2m CMDM (61 tokens) and phase 11's text
-    CMDM (197 tokens: the three-pass forward and the long-row backward).
-    Timed here, beside phase 2b's profiles, not in phases 10 and 11: in one
-    full run a profile of B1 taken in phase 10 recorded no kernel, which a
-    run of phase 10 alone did not repeat. Returns {"a2m": (B1's timing,
-    B2's timing), "t2m": (...)}."""
+    """Phase 2d: B1 and B2 timed at the model paths' own shapes: phase 10's
+    a2m CMDM (f32 [64, 61, 512], non-causal), phase 11's text CMDM (197
+    tokens: the three-pass forward and the long-row backward) and the
+    full-scale capability study's online CMDM (f32 [64, 60, 128], head dim
+    32, causal, B2 at rate 0.1). Timed here, beside phase 2b's profiles,
+    not in phases 10 and 11: in one full run a profile of B1 taken in phase
+    10 recorded no kernel, which a run of phase 10 alone did not repeat.
+    Returns {"a2m": (B1's timing, B2's timing), "t2m": (...), "study": (...)}."""
+    full = load_capability_study().SCALES["full"]
     timings = {}
-    for key, T in (("a2m", A2M["T"] + 1), ("t2m", T2M["T"] + 1)):
-        b1_timing, b2_timing = timings[key] = time_btd_kernels(card, T)
+    for key, T, kw in (("a2m", A2M["T"] + 1, {}), ("t2m", T2M["T"] + 1, {}),
+                       ("study", full["frames"], dict(B=full["batch"], D=full["latent"],
+                                                      causal=True))):
+        b1_timing, b2_timing = timings[key] = time_btd_kernels(card, T, **kw)
         report[f"{key}_attention_timing"] = {"fused_attention_btd": b1_timing,
                                              "fused_attention_btd_train": b2_timing}
     return timings
@@ -4651,7 +4684,8 @@ def main() -> int:
     print("phase 2c: fused_causal_attention on its path, against its plain version")
     causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
     print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11), "
-          "the CVAE's (phase 14) and the GAN's (phase 15)")
+          "the full-scale capability study's (head dim 32), the CVAE's (phase 14) and the "
+          "GAN's (phase 15)")
     timings = time_model_kernels(report, card)
     cvae_timings = time_cvae_kernels(report, card)
     gan_timings, second_timings = time_gan_kernels(report, card)

@@ -19,7 +19,8 @@ def test_capability_smokefit_discriminates_on_the_port(tmp_path):
     out = tmp_path / "capability_smokefit_torch.json"
     proc = subprocess.run(
         [sys.executable, "-u", os.path.join(REPO, "scripts", "capability_study_torch.py"),
-         "--device", "cpu", "--out", str(out), "--workdir", str(tmp_path / "work")],
+         "--scale", "smokefit", "--device", "cpu", "--out", str(out),
+         "--workdir", str(tmp_path / "work")],
         capture_output=True, text=True, timeout=1800, cwd=REPO,
     )
     assert proc.returncode == 0, (

@@ -504,8 +504,9 @@ def test_a_learning_guard_threshold_that_misses_raises(monkeypatch, miss, name, 
 def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_path):
     """Phase 8's control flow with the study stubbed: the launch counts
     are zeroed before the study and read after it; on the CPU the kernels
-    launch nothing, so every expected count is 0; a missed threshold fails
-    the phase after its numbers are printed."""
+    launch nothing, so every expected count is 0; the curve and the chosen
+    (step, guidance) are printed; a missed threshold fails the phase after
+    its numbers are printed."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
     from regennet_torch.ops import attention
@@ -513,7 +514,11 @@ def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_p
     study = cs.load_capability_study()
     results = _guard_results()
     results.update(cmdm_training=dict(layers=2, steps=800, diffusion_steps=50),
-                   walls_s=dict(data=0.1), total_s=1.0)
+                   walls_s=dict(data=0.1), total_s=1.0,
+                   fid_vs_step=[dict(step=s, accuracy_gen_train=0.3, accuracy_gen_test=0.3,
+                                     fid_gen_test=2.0) for s in (2, 402, 704)],
+                   selection=dict(candidates=[704, 402], guidance_sweep=[1.0],
+                                  chosen_step=704, chosen_guidance=1.0))
     results["checked"] = [what for _, what in study.guard_checks(results).values()]
     attention.fused_attention_btd.launches = 5  # from an earlier phase
 
@@ -534,6 +539,46 @@ def test_learning_guard_phase_reads_launches_around_the_study(monkeypatch, tmp_p
     results["trained"]["accuracy_gen_test"]["mean"] = 0.1
     with pytest.raises(AssertionError, match="missed"):
         cs.run_learning_guard({}, "cpu", tmp_path, device="cpu")
+
+
+def test_learning_guard_phase_runs_the_cut_study_on_cpu(monkeypatch, tmp_path, capsys):
+    """Phase 8 around the real study cut to the smoke scale (with the
+    reduced ST-GCN trained one epoch, 8 samples): the sampling loops it
+    counts are the study's own, one curve point per checkpoint and the
+    chosen (step, guidance) are printed, the launch counts hold (0 on the
+    CPU), and the guard's thresholds, which a smoke run does not learn to
+    meet, fail the phase after its numbers."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    study = cs.load_capability_study()  # a module of its own: the cut stays in it
+    study.SCALES["smoke"] = dict(study.SCALES["smoke"], stgcn=study.REDUCED_STGCN,
+                                 stgcn_epochs=1)
+    ran = {}
+
+    class Cut:
+        require_learning = staticmethod(study.require_learning)
+
+        @staticmethod
+        def run_study(device, workdir):
+            ran["results"] = study.run_study(device, workdir, "smoke",
+                                             headline_samples=8)
+            return ran["results"]
+
+    monkeypatch.setattr(cs, "load_capability_study", lambda: Cut)
+    report = {}
+    with pytest.raises(AssertionError, match="missed"):
+        cs.run_learning_guard(report, "cpu", tmp_path / "guard", device="cpu")
+    results = ran["results"]
+    guard = report["learning_guard"]
+    assert guard["sampling_calls"] == results["launches"]["sampling_calls"] > 0
+    steps = sorted(int(n[5:14]) for n in os.listdir(tmp_path / "guard" / "cmdm_save")
+                   if n.startswith("model"))
+    assert [p["step"] for p in results["fid_vs_step"]] == steps
+    out = capsys.readouterr().out
+    assert out.count("  curve, step ") == len(steps)
+    sel = results["selection"]
+    assert f"chosen (step, guidance) ({sel['chosen_step']}, {sel['chosen_guidance']})" in out
 
 
 def test_path_launches_add_up(monkeypatch):

@@ -16,7 +16,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "orbax", "regennet_tpu", "matplotlib", "imageio",
              "joblib"):
     sys.modules[name] = None  # any import of these now raises ImportError
@@ -42,6 +42,12 @@ new = {"regennet_torch.sample.edit", "regennet_torch.sample.predict",
 assert new <= set(names), new - set(names)
 import chip_smoke
 chip_smoke.load_capability_study()
+spec = importlib.util.spec_from_file_location("capability_study_torch",
+                                              "scripts/capability_study_torch.py")
+study = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(study)
+for scale in study.SCALES:  # its imports are made where it runs
+    study.train_args("unused", scale)
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "regennet_tpu")
           and sys.modules[m] is not None]
