@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      dropout, the backward of attention_btd_train.cu) against autograd of
      their plain version fed the same dropout bits, and the backward
      against its own plain version, at the training shapes and at T 200
-     (the backward's long-row route); the forward's dropout mask against
+     (the backward's row pass with P in shared memory); the forward's
+     dropout mask against
      dropout_bits on each route of the kernel (T 48, 128, 200), its keep
      fraction, bit-identical repeats and the adjoint identity; their times
      at the flagship training shape, f32 and bf16, by device time under
@@ -25,7 +26,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      version, and timed at bf16 [128, 4, 150, 128];
   2d. B1 and B2 at the model paths' own f32 shapes, non-causal: phase
      10's [64, 61, 512], phase 11's [64, 197, 512] (the three-pass
-     forward, the long-row backward), phase 14's CVAE at head dim 64,
+     forward, the backward's row pass with P in shared memory; B2 also at
+     bf16 there, as train_mdm --dataset humanml --compute_dtype bfloat16
+     runs it, split by pass: no phase trains it, so the kernel line has
+     no row for it), phase 14's CVAE at head dim 64,
      [20, 62, 256] and [20, 60, 256], and phase 15's GAN, D's [32, 60,
      256] and G's [32, 16, 256] (B2 at rate 0); and causal at head dim 32,
      the full-scale capability study's [64, 60, 128] (B2 at rate 0.1);
@@ -450,8 +454,8 @@ def _train_pair(B, T, dtype, causal, kv_len, rate, gen, softmax_f32=False, D=Non
 
 
 # Phase 2b's (B, sequence lengths) in the order their inputs are drawn. The
-# backward's row pass takes T 60 at 64 keys and 150, 151 at 160 on tensor
-# cores, T 200 on its long-row route. T 200 is drawn last, so the cases
+# backward's row pass takes T 60 at 64 keys and 150, 151 at 160 with P in
+# registers, T 200 with P in shared memory. T 200 is drawn last, so the cases
 # before it keep their inputs: drawn after the B 8 cases, it gives the B 64
 # bf16 cases other inputs, on some of which the plain backward, whose
 # rounding points the kernel keeps, is itself more than 2^-6 from autograd
@@ -1880,12 +1884,14 @@ def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False):
 def time_model_kernels(report, card):
     """Phase 2d: B1 and B2 timed at the model paths' own shapes: phase 10's
     a2m CMDM (f32 [64, 61, 512], non-causal), phase 11's text CMDM (197
-    tokens: the three-pass forward and the long-row backward) and the
-    full-scale capability study's online CMDM (f32 [64, 60, 128], head dim
-    32, causal, B2 at rate 0.1). Timed here, beside phase 2b's profiles,
-    not in phases 10 and 11: in one full run a profile of B1 taken in phase
-    10 recorded no kernel, which a run of phase 10 alone did not repeat.
-    Returns {"a2m": (B1's timing, B2's timing), "t2m": (...), "study": (...)}."""
+    tokens: the three-pass forward and the backward's row pass with P in
+    shared memory; B2 also at bf16, split by pass, under "t2m_bf16") and
+    the full-scale capability study's online CMDM (f32 [64, 60, 128], head
+    dim 32, causal, B2 at rate 0.1). Timed here, beside phase 2b's
+    profiles, not in phases 10 and 11: in one full run a profile of B1
+    taken in phase 10 recorded no kernel, which a run of phase 10 alone did
+    not repeat. Returns {"a2m": (B1's timing, B2's timing), "t2m": (...),
+    "study": (...), "t2m_bf16": B2's timing}."""
     full = load_capability_study().SCALES["full"]
     timings = {}
     for key, T, kw in (("a2m", A2M["T"] + 1, {}), ("t2m", T2M["T"] + 1, {}),
@@ -1894,6 +1900,8 @@ def time_model_kernels(report, card):
         b1_timing, b2_timing = timings[key] = time_btd_kernels(card, T, **kw)
         report[f"{key}_attention_timing"] = {"fused_attention_btd": b1_timing,
                                              "fused_attention_btd_train": b2_timing}
+    timings["t2m_bf16"] = report["t2m_bf16_attention_timing"] = time_train_kernels(
+        card, "bfloat16", T=T2M["T"] + 1, causal=False)
     return timings
 
 

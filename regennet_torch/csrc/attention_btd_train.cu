@@ -5,8 +5,9 @@
 // attention_fwd.cu.
 //
 // Replaces the backward of the TPU kernel fused_attention_btd_train
-// (custom_vjp _attn_train, body _train_bwd_kernel, math in _softmax_chunk
-// and _apply_dropout) in regennet_tpu/ops/pallas_attention.py, and computes
+// (custom_vjp _attn_train, body _train_bwd_kernel :415, math in
+// _softmax_chunk and _apply_dropout) in regennet_tpu/ops/pallas_attention.py,
+// and computes
 // what it computes:
 //   * heads are column slices of D; q is scaled by 1/sqrt(hd) in the input
 //     dtype before QK; scores accumulate in f32 and are rounded to the
@@ -26,19 +27,20 @@
 // GFLOP (55 us at 67 TF/s f32): operations. The row pass alone moves q, k,
 // v, dO and dQ (98.3 MB, 29 us) and needs QK^T, dO V^T and dS K (33 us);
 // the column pass moves q, k, v, dO, dK and dV (118 MB, 35 us) and needs
-// QK^T, dO V^T, dV and dK (44 us).
+// QK^T, dO V^T, dV and dK (44 us). At the text CMDM's 197 tokens (f32 B=64,
+// D=512, non-causal) the row pass needs 7.63 GFLOP: 114 us, operations.
 //
 // Design: two deterministic passes, no atomics.
 //   1. The row pass, one block per (query tile, head, batch), writes dQ and
 //      each row's softmax max and sum (score dtype) and D_i = sum_j dP_ij
-//      P_ij (f32) to a [3, B, H, T] buffer. Rows of up to 160 keys (every
-//      training shape of the models: Chi3D T = 150, 151 tokens offline, NTU
-//      60) take the tensor-core route, attention_train_rows: attention_fwd.cu's
-//      block of 4 warps per 64-query tile, each warp owning 16 rows, built
-//      from the warp-level pieces of attention_mma.cuh (bf16 mma.sync, or
-//      the 3xTF32 split for f32). The scores (for bf16 with a bf16 softmax
-//      summed by FMAs in the column pass's order, so that both passes round
-//      them alike: scores_fma) and the exact two-pass softmax stay in the
+//      P_ij (f32) to a [3, B, H, T] buffer. Rows of up to 160 keys (the
+//      training shapes of the Chi3D models: T = 150, 151 tokens offline,
+//      NTU 60) take attention_train_rows: attention_fwd.cu's block of 4
+//      warps per 64-query tile, each warp owning 16 rows, built from the
+//      warp-level pieces of attention_mma.cuh (bf16 mma.sync, or the 3xTF32
+//      split for f32). The scores (for bf16 with a bf16 softmax summed by
+//      FMAs in the column pass's order, so that both passes round them
+//      alike: scores_fma) and the exact two-pass softmax stay in the
 //      accumulators (P rounded to the score dtype), the keep mask is drawn
 //      into registers while q and the keys load, and dP = dO V^T is
 //      computed a group of 32 keys at a time, twice: once for D, once to
@@ -48,9 +50,28 @@
 //      forward's W V with K in V's place. Operands stay in the input dtype
 //      in shared memory: q (then dO) beside a slab of keys (then values) of
 //      as many rows as keep two blocks an SM; K loads again, over the whole
-//      region, for dQ (from L2). Longer rows take the long-row route,
-//      attention_train_rows_long: CUDA-core FMAs from f32 copies in shared
-//      memory, score rows in shared memory (no model path reaches it).
+//      region, for dQ (from L2).
+//      Longer rows (the text CMDM's 197 tokens: train_mdm --dataset humanml
+//      or kit, every layer) take attention_train_rows_stored, the same block
+//      and the same products with the block's rows of P in shared memory in
+//      place of registers, as the TPU kernel holds whole rows of P in VMEM:
+//      scores a chunk of at most 160 keys at a time, masked and rounded in
+//      the accumulators and stored as they are (each lane its own
+//      fragments: no transposes, no bank conflicts), the row max across the
+//      chunks; a sweep for the exact softmax with the final max (the bf16
+//      softmax needs it before any exponent, so no online rescaling), which
+//      also draws the keep mask while dO and the values load and keeps it
+//      in the stored weights' signs; dP per group of 32 keys twice (D, then
+//      dS in place); dQ with dS reloaded as the A operand, 128 columns of
+//      dQ in registers over one pass of K. Four products, none recomputed
+//      per chunk (the forward's three-pass scheme would make seven). At
+//      f32 [64, 197, 512] 64 rows of P take 57 KB (224 keys) beside 34 KB
+//      of q: a slab of 32 keys keeps two blocks an SM; longer rows narrow
+//      the block to 32, then 16 rows of P. The longest rows it takes are
+//      those whose 16 rows of P, 16 rows of q and one group of keys fit in
+//      227 KB: 3,232 keys at f32 hd 128 (2,848 at hd 256), 6,848 at bf16
+//      with a bf16 softmax (6,464), 3,424 with an f32 one (3,232); longer
+//      rows return cudaErrorInvalidValue.
 //   2. The column pass, attention_train_cols, the row pass on its side: one
 //      block of 4 warps per (head, batch, tile of 64 keys), each warp owning
 //      16 keys as the mma rows, walks the query slabs that can see its keys
@@ -80,26 +101,15 @@
 
 namespace {
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-constexpr int THREADS = 256;  // the long-row route
-constexpr int KT = 64;        // key tile of the long-row route
-constexpr int MAX_HD = 256;   // largest head dim a launch takes
+constexpr int MAX_HD = 256;  // largest head dim a launch takes
 
 // the tensor-core row pass
 constexpr int ROW_WARPS = 4;
 constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int ROW_QT = 16 * ROW_WARPS;  // query rows of a block
 constexpr int GROUP = 32;               // keys of a group; a slab holds whole groups
-constexpr int MAX_KC = 160;             // the longest rows it takes
+constexpr int MAX_KC = 160;             // the longest rows it holds in registers
+constexpr size_t TWO_BLOCKS = 110 * 1024;  // shared memory of a block, two an SM
 
 // the column pass (the row pass's block): keys of a block, 16 a warp, and
 // the head-dim columns of dK and dV that a sweep over the queries holds in
@@ -116,8 +126,9 @@ struct RowArgs {
   float scale_f32;  // 1/sqrt(hd) in f32 (scales dQ and dK)
   int causal, klimit, softmax_f32;
   // the tensor-core row pass: hd padded to a multiple of 16, the copy width
-  // in bytes (16, 8, 4, or 2 for bf16) and the keys of a shared slab
-  int hdp, copy_bytes, kslab;
+  // in bytes (16, 8, 4, or 2 for bf16), the keys of a shared slab, and the
+  // query rows of a block of the stored-row route (64, 32 or 16)
+  int hdp, copy_bytes, kslab, qt;
 };
 
 // The scores of a warp's rows for the groups of 32 keys that start in
@@ -129,7 +140,7 @@ struct RowArgs {
 // an accumulation that is not IEEE's) round to the other side of a bf16
 // boundary often enough that the row pass's P and statistics would disagree
 // with the column pass's P, a flip changing a weight by 1.5-3% through
-// exp(); the long-row route sums in the same order.
+// exp().
 template <int NB>
 __device__ __forceinline__ void scores_fma(float (&s)[NB][4], int lo, int hi,
                                            const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -383,180 +394,336 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// The long-row route (rows over MAX_KC keys, which no model path reaches).
-// out[r * ostride + j] = sum_d a[r * ld + d] * M[j][d] for the QT rows of a
-// and keys j < kmax, M streamed through `tile` in KT-row tiles; round = 1
-// rounds each sum to the score dtype.
-// At a bf16 softmax the column pass sums over d in the same order
-// (scores_fma), so on this route it recomputes the rounded scores bit for
-// bit.
-template <typename T, int QT>
-__device__ void long_row_products(const float* a, float* tile, const T* m, long long smt,
-                                  int hd, int ld, int kmax, float* out, int ostride, bool round,
-                                  int softmax_f32) {
-  constexpr int RG = THREADS / KT;
-  constexpr int RPT = QT / RG;
-  const int tid = threadIdx.x;
-  const int kj = tid % KT;
-  const int rg = tid / KT;
-  for (int k0 = 0; k0 < kmax; k0 += KT) {
-    const int nk = min(KT, kmax - k0);
-    __syncthreads();  // `a` written / previous tile consumed
-    for (int i = tid; i < KT * hd; i += THREADS) {
-      const int r = i / hd, d = i - r * hd;
-      tile[r * ld + d] = r < nk ? to_f32<T>(m[(k0 + r) * smt + d]) : 0.f;
-    }
-    __syncthreads();
-    float acc[RPT];
+// acc += x w for one group of 32 rows of `rows` (in V's place: dO or q in
+// the column pass, K for the stored route's dQ) in the NC blocks of DC
+// columns from dh. At f32 the group's products sum into zeroed
+// accumulators, added to acc at f32's rounding: mma.sync's f32
+// accumulation is not IEEE's, and a long walk into one accumulator drifts
+// (over a key's 1,024 causal queries dK read 1.48x its 1e-5 tolerance,
+// PERF.md).
+template <typename T, int NC, int M>
+__device__ __forceinline__ void accumulate_group(float (&acc)[NC][M][4], const float (&x)[4][4],
+                                                 const typename WarpMma<T, 4>::Weights& w,
+                                                 const T* rows, int ld, int dh, int hdp) {
+  using Mma = WarpMma<T, 4>;
+  constexpr int DC = Mma::DC;
+  static_assert(M * 8 == DC, "acc holds DC columns a block");
 #pragma unroll
-    for (int x = 0; x < RPT; ++x) acc[x] = 0.f;
-    const float* mrow = tile + kj * ld;
-    for (int d = 0; d < hd; ++d) {
-      const float md = mrow[d];
+  for (int n = 0; n < NC; ++n) {
+    const int dc = dh + n * DC;
+    if (dc >= hdp) continue;
+    if constexpr (sizeof(T) == 4) {
+      float part[M][4] = {};
+      if (dc + DC <= hdp)
+        Mma::template weighted_sum<true>(part, x, w, 0, 1, rows, ld, dc, hdp);
+      else
+        Mma::template weighted_sum<false>(part, x, w, 0, 1, rows, ld, dc, hdp);
 #pragma unroll
-      for (int x = 0; x < RPT; ++x) acc[x] = fmaf(a[(rg + x * RG) * ld + d], md, acc[x]);
-    }
-    if (kj < nk) {
+      for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int x = 0; x < RPT; ++x)
-        out[(rg + x * RG) * ostride + k0 + kj] =
-            round ? score_round<T>(acc[x], softmax_f32) : acc[x];
+        for (int e = 0; e < 4; ++e) acc[n][m][e] += part[m][e];
+    } else if (dc + DC <= hdp) {
+      Mma::template weighted_sum<true>(acc[n], x, w, 0, 1, rows, ld, dc, hdp);
+    } else {
+      Mma::template weighted_sum<false>(acc[n], x, w, 0, 1, rows, ld, dc, hdp);
     }
   }
 }
 
-// o[r][d] = sum_j w[r * wstride + j] * M[j][d] over keys j < kmax, M
-// streamed through `tile`; returns per-thread accumulators in o (ACC of
-// them, output e = tid + a * THREADS of the QT x hd tile).
-template <typename T, int QT, int ACC>
-__device__ void long_row_weighted_sum(const float* w, int wstride, float* tile, const T* m,
-                                      long long smt, int hd, int ld, int kmax,
-                                      float (&o)[ACC]) {
-  const int tid = threadIdx.x;
-  const int nout = QT * hd;
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) o[a] = 0.f;
-  for (int k0 = 0; k0 < kmax; k0 += KT) {
-    const int nk = min(KT, kmax - k0);
-    __syncthreads();  // weights written / previous tile consumed
-    for (int i = tid; i < KT * hd; i += THREADS) {
-      const int r = i / hd, d = i - r * hd;
-      tile[r * ld + d] = r < nk ? to_f32<T>(m[(k0 + r) * smt + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int e = tid + a * THREADS;
-      if (e < nout) {
-        const int r = e / hd, d = e - r * hd;
-        const float* wr = w + r * wstride + k0;
-        const float* mc = tile + d;
-        float acc = o[a];
-        for (int j = 0; j < nk; ++j) acc = fmaf(wr[j], mc[j * ld], acc);
-        o[a] = acc;
-      }
-    }
-  }
+// A warp's rows of P in shared memory on the stored-row route: key block j
+// (8 keys) of the warp's 16 rows at [j][lane][4] in the score dtype, each
+// lane's own accumulators (s[j] of WarpMma's layout). A lane reads back
+// only what it wrote, and a warp's access to a block is one contiguous 512
+// (f32) or 256 bytes: no shuffles, no bank conflicts. (Values of the score
+// dtype, or dS of T: storing them to bf16 is exact.)
+__device__ __forceinline__ void put_block(float* w, int j, const float (&c)[4]) {
+  reinterpret_cast<float4*>(w)[j * 32 + (threadIdx.x & 31)] = make_float4(c[0], c[1], c[2], c[3]);
+}
+__device__ __forceinline__ void put_block(__nv_bfloat16* w, int j, const float (&c)[4]) {
+  reinterpret_cast<uint2*>(w)[j * 32 + (threadIdx.x & 31)] =
+      make_uint2(pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]));
+}
+__device__ __forceinline__ void get_block(const float* w, int j, float (&c)[4]) {
+  const float4 x = reinterpret_cast<const float4*>(w)[j * 32 + (threadIdx.x & 31)];
+  c[0] = x.x;
+  c[1] = x.y;
+  c[2] = x.z;
+  c[3] = x.w;
+}
+__device__ __forceinline__ void get_block(const __nv_bfloat16* w, int j, float (&c)[4]) {
+  const uint2 x = reinterpret_cast<const uint2*>(w)[j * 32 + (threadIdx.x & 31)];
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  c[0] = lo.x;
+  c[1] = lo.y;
+  c[2] = hi.x;
+  c[3] = hi.y;
 }
 
-template <int QT>
-size_t long_row_smem_bytes(int hd, int klimit) {
-  const size_t rows = (size_t)(2 * QT + KT) * (hd + 1);
-  return sizeof(float) * (rows + (size_t)2 * QT * klimit);
+// the group of 32 keys from key block j on
+template <typename S>
+__device__ __forceinline__ void put_group(S* w, int j, const float (&s)[4][4]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) put_block(w, j + jj, s[jj]);
+}
+template <typename S>
+__device__ __forceinline__ void get_group(const S* w, int j, float (&s)[4][4]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) get_block(w, j + jj, s[jj]);
 }
 
-// Backward row pass for rows of any length, on CUDA cores: reads dO and
-// writes dQ (both in the output strides) and stats [3, B, H, T] (row max,
-// row sum, D_i).
-// grid: (ceil(seq / QT), heads, batch); THREADS threads.
-template <typename T, int QT>
-__global__ void __launch_bounds__(THREADS)
-attention_train_rows_long(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
-                          float* __restrict__ stats, const int* __restrict__ seed,
-                          int seed_per_row, uint32_t threshold, float keep_f32, RowArgs p) {
-  constexpr int ACC = (QT * MAX_HD + THREADS - 1) / THREADS;
-  extern __shared__ float smem[];
-  const int hd = p.hd, seq = p.seq, klimit = p.klimit;
-  const int ld = hd + 1;
-  float* qs = smem;               // [QT][ld] scaled queries
-  float* tile = qs + QT * ld;     // [KT][ld] key / value tile
-  float* sc = tile + KT * ld;     // [QT][klimit] scores, then P
-  float* dos = sc + QT * klimit;  // [QT][ld] dO rows
-  float* dps = dos + QT * ld;     // [QT][klimit] dO V^T, then dS
+// The stored weights carry the keep mask in their signs: a weight is >= 0,
+// and a dropped one is stored negated (a dropped 0 as -0). mark_dropped
+// negates the weights the mask drops; take_keep returns a group's mask
+// (KeepMask<4>'s bits) and clears the signs.
+__device__ __forceinline__ void mark_dropped(float (&s)[4][4], const KeepMask<4>& keep) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!(keep.w[0] >> (4 * jj + e) & 1u)) s[jj][e] = -s[jj][e];
+}
+__device__ __forceinline__ KeepMask<4> take_keep(float (&s)[4][4]) {
+  KeepMask<4> keep;
+  keep.w[0] = 0u;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      keep.w[0] |= (~__float_as_uint(s[jj][e]) >> 31) << (4 * jj + e);
+      s[jj][e] = fabsf(s[jj][e]);
+    }
+  return keep;
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * QT;
+// Backward row pass on tensor cores for rows of more than MAX_KC keys:
+// attention_train_rows with the block's rows of P in shared memory
+// (put_block) in place of registers. Reads dO and writes dQ (both in the
+// output strides) and stats [3, B, H, T] (row max, row sum, D_i). grid:
+// (ceil(seq / p.qt), heads, batch); ROW_THREADS threads, the first p.qt /
+// 16 warps owning 16 rows each (the others help load); dynamic shared
+// memory stored_rows_smem: (p.qt + p.kslab) rows of tile_ld(hdp) elements
+// (q, then dO; beside them a slab of p.kslab keys, then values; for dQ the
+// keys over the whole region), each warp's rows of P ([kp / 8][32][4] in
+// the score dtype, kp the keys rounded up to a group), then the loads'
+// mbarrier.
+template <typename T, bool SF32>
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+attention_train_rows_stored(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            T* __restrict__ dq, float* __restrict__ stats,
+                            const int* __restrict__ seed, int seed_per_row, uint32_t threshold,
+                            float keep_f32, const RowArgs p) {
+  constexpr int NB = MAX_KC / 8;  // a chunk of scores in registers
+  using Mma = WarpMma<T, NB>;
+  using Group = WarpMma<T, 4>;  // one group of 32 keys
+  constexpr int DC = Mma::DC;
+  constexpr int NC = COL_HD / DC;  // dQ's column blocks held over a pass of K
+  using Score = typename std::conditional<SF32, float, T>::type;  // the score dtype
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = tile_ld(p.hdp, sizeof(T));
+  const int kp = (p.klimit + GROUP - 1) / GROUP * GROUP;  // keys of a stored row
+  const int whole = (p.qt + p.kslab) / GROUP * GROUP;     // keys of the region, for dQ
+  T* as = reinterpret_cast<T*>(smem_raw);  // [qt][ld] scaled q, then dO
+  T* bs = as + p.qt * ld;                   // [kslab][ld] keys, then values
+  Score* ps = reinterpret_cast<Score*>(bs + p.kslab * ld);  // the warps' rows of P
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int q0 = blockIdx.x * p.qt;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int rows = min(QT, seq - q0);
-  const int kmax = p.causal ? min(klimit, q0 + rows) : klimit;
+  const int rows = min(p.qt, p.seq - q0);
+  const int kmax = p.causal ? min(p.klimit, q0 + rows) : p.klimit;  // keys the tile sees
+  const int row0 = q0 + 16 * warp;  // the warp's first query row
+  const bool active = 16 * warp < p.qt && row0 < p.seq;
+  const int wmax = p.causal ? min(kmax, row0 + 16) : kmax;  // keys the warp sees
+  const int lim[2] = {p.causal ? min(p.klimit, row0 + g + 1) : p.klimit,
+                      p.causal ? min(p.klimit, row0 + g + 9) : p.klimit};
+  const T* wa = as + 16 * warp * ld;
+  Score* pw = ps + 16 * warp * kp;
   const Dropout drop = make_dropout(seed, seed_per_row, b, threshold, 1.f, keep_f32);
+  Loader<T, ROW_THREADS> loads{reinterpret_cast<uint64_t*>(ps + p.qt * kp), 0u, ld, p.hd,
+                               p.copy_bytes};
 
-  const T* qb = q + b * p.sqb + h * p.sqh;
+  const T* qb = q + b * p.sqb + h * p.sqh + (long long)q0 * p.sqt;
   const T* kb = k + b * p.skb + h * p.skh;
   const T* vb = v + b * p.svb + h * p.svh;
   const long long ob = b * p.sob + h * p.soh;  // this (batch, head) in dO / dQ
 
-  for (int i = tid; i < QT * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    qs[r * ld + d] = r < rows ? round_to<T>(to_f32<T>(qb[(q0 + r) * p.sqt + d]) * p.scale_q) : 0.f;
-    dos[r * ld + d] = r < rows ? to_f32<T>(dout[ob + (q0 + r) * p.sot + d]) : 0.f;
-  }
+  // rows [first, first + n) of src into dst, and zeros up to a whole group
+  // (the products read whole groups; zero weights must meet finite values)
+  auto load_slab = [&](T* dst, const T* src, long long stride, int first, int n) {
+    const int padded = (n + GROUP - 1) / GROUP * GROUP;
+    if (padded > n) zero_rows<ROW_THREADS>(dst, ld, n, padded, p.hdp);
+    loads.issue(dst, src + first * stride, stride, n);
+  };
 
-  // scores, scaled and rounded to the score dtype; dO V^T rows in f32
-  long_row_products<T, QT>(qs, tile, kb, p.skt, hd, ld, kmax, sc, klimit, true, p.softmax_f32);
-  long_row_products<T, QT>(dos, tile, vb, p.svt, hd, ld, kmax, dps, klimit, false, 0);
+  // q and the first slab of keys
+  if (threadIdx.x == 0) mbar_init(loads.bar);
+  zero_cols<ROW_THREADS>(as, ld, p.qt + p.kslab, p.hd, p.hdp);
+  if (rows < p.qt) zero_rows<ROW_THREADS>(as, ld, rows, p.qt, p.hdp);  // stays zero for dO
   __syncthreads();
+  loads.issue(as, qb, p.sqt, rows);
+  load_slab(bs, kb, p.skt, 0, min(p.kslab, kmax));
+  loads.wait();
+  __syncthreads();
+  scale_rows<ROW_THREADS>(as, as, ld, rows, p.hdp, p.scale_q);
+  int held = 0;  // the first key of the slab in bs
 
-  // softmax of each real row over its valid keys, then dS, one warp a row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    const int i = q0 + r;
-    float* srow = sc + r * klimit;
-    const int n = p.causal ? min(klimit, i + 1) : klimit;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = softmax_num<T>(srow[j], m, p.softmax_f32);
-      srow[j] = e;
-      sum += e;
+  // the scores, rounded and masked, a chunk at a time into P; the row max
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  for (int a = 0; a < kmax; a += p.kslab) {
+    if (a != held) {
+      __syncthreads();
+      load_slab(bs, kb, p.skt, a, min(p.kslab, kmax - a));
+      loads.wait();
+      held = a;
     }
-    sum = score_round<T>(warp_sum(sum), p.softmax_f32);
-    float* drow = dps + r * klimit;
-    float dsum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float pij = score_round<T>(srow[j] / sum, p.softmax_f32);
-      const float dp = drop.keep(h, i, j) ? drow[j] * drop.scale_f32 : 0.f;
-      srow[j] = pij;
-      drow[j] = dp;
-      dsum += dp * pij;
-    }
-    dsum = warp_sum(dsum);
-    for (int j = lane; j < kmax; j += 32)
-      drow[j] = j < n ? round_to<T>(srow[j] * (drow[j] - dsum)) : 0.f;
-    if (lane == 0) {
-      const long long plane = (long long)gridDim.z * p.heads * seq;
-      const long long at = (b * p.heads + h) * seq + i;
-      stats[at] = m;
-      stats[plane + at] = sum;
-      stats[2 * plane + at] = dsum;
+    __syncthreads();
+    const int end = min(a + p.kslab, wmax);
+#pragma unroll 1
+    for (int c = a; active && c < end; c += MAX_KC) {
+      const int n = min(MAX_KC, end - c);  // keys of the chunk the warp sees
+      float s[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if constexpr (sizeof(T) == 2 && !SF32)
+        scores_fma<NB>(s, 0, n, wa, bs + (c - a) * ld, ld, p.hdp);
+      else
+        Mma::scores(s, 0, n, wa, bs + (c - a) * ld, ld, p.hdp);
+      finish_scores<T, SF32>(s, c, lim, n, 1.f);
+      row_max(s, m, n);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j / 4 * GROUP < n) put_block(pw, c / 8 + j, s[j]);
     }
   }
 
-  // dQ = scale * dS K
-  float o[ACC];
-  long_row_weighted_sum<T, QT, ACC>(dps, klimit, tile, kb, p.skt, hd, ld, kmax, o);
-
-  const int nout = QT * hd;
+  // q and the keys are consumed: dO and the first slab of values load
+  // during the softmax, which draws the keep mask
+  __syncthreads();
+  loads.issue(as, dout + ob + (long long)q0 * p.sot, p.sot, rows);
+  load_slab(bs, vb, p.svt, 0, min(p.kslab, kmax));
+  held = 0;
+  reduce_max(m);
+  float l[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int c = 0; active && c < wmax; c += GROUP) {
+    float s[4][4];
+    get_group(pw, c / 8, s);
+    exponentiate<T, SF32>(s, m, l, GROUP);
+    if (drop.threshold) mark_dropped(s, keep_mask<4>(drop, h, row0, p.seq, c, lim, GROUP));
+    put_group(pw, c / 8, s);
+  }
+  reduce_sum<T, SF32>(l);
+  // the statistics of the real rows, from lane t = 0 of each: m and l now,
+  // D once the first dP pass has summed it
+  const long long plane = (long long)gridDim.z * p.heads * p.seq;
+  float* st = stats + (b * p.heads + h) * p.seq;
+  if (active && t == 0) {
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = tid + a * THREADS;
-    if (e < nout) {
-      const int r = e / hd, d = e - r * hd;
-      if (r < rows) dq[ob + (q0 + r) * p.sot + d] = from_f32<T>(o[a] * p.scale_f32);
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + g + 8 * r;
+      if (i < p.seq) {
+        st[i] = m[r];
+        st[plane + i] = l[r];
+      }
+    }
+  }
+
+  float dsum[2] = {0.f, 0.f};
+  // the slab of values that starts at key a into bs, unless it is there
+  auto values = [&](int a) {
+    if (a != held) {
+      __syncthreads();
+      load_slab(bs, vb, p.svt, a, min(p.kslab, kmax - a));
+      loads.wait();
+      held = a;
+    }
+    __syncthreads();
+  };
+
+  // P = e / l in the score dtype (the forward's weights are in T), and D
+  loads.wait();  // dO and the first slab of values
+  for (int a = 0; a < kmax; a += p.kslab) {
+    values(a);
+    const int end = min(a + p.kslab, wmax);
+#pragma unroll 1
+    for (int c = a; active && c < end; c += GROUP) {
+      float s[4][4];
+      get_group(pw, c / 8, s);
+      const KeepMask<4> keep = take_keep(s);
+      weights<Score>(s, l, GROUP);
+      dp_groups<T, false>(s, dsum, keep, drop.scale_f32, 0, 1, wa, bs + (c - a) * ld, ld,
+                          p.hdp);
+      mark_dropped(s, keep);
+      put_group(pw, c / 8, s);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    const int i = row0 + g + 8 * r;
+    if (active && t == 0 && i < p.seq) st[2 * plane + i] = dsum[r];
+  }
+  // dS over P in place; the last slab of values is still in place: walk
+  // back from it
+  for (int a = (kmax - 1) / p.kslab * p.kslab; a >= 0; a -= p.kslab) {
+    values(a);
+    const int end = min(a + p.kslab, wmax);
+#pragma unroll 1
+    for (int c = a; active && c < end; c += GROUP) {
+      float s[4][4];
+      get_group(pw, c / 8, s);
+      const KeepMask<4> keep = take_keep(s);
+      dp_groups<T, true>(s, dsum, keep, drop.scale_f32, 0, 1, wa, bs + (c - a) * ld, ld,
+                         p.hdp);
+      put_group(pw, c / 8, s);
+    }
+  }
+
+  // dQ = scale dS K: the forward's W V with K in V's place and dS reloaded
+  // a group at a time, over the whole region once dO and the values are
+  // consumed; COL_HD columns of dQ in registers over one pass of K
+  const bool resident = kmax <= whole;
+  __syncthreads();
+  if (resident) {
+    load_slab(as, kb, p.skt, 0, kmax);
+    loads.wait();
+    __syncthreads();
+  }
+  T* dqb = dq + ob;
+#pragma unroll 1
+  for (int dh = 0; dh < p.hdp; dh += COL_HD) {
+    float o[NC][DC / 8][4] = {};
+    for (int a = 0; a < kmax; a += whole) {
+      if (!resident) {
+        __syncthreads();
+        load_slab(as, kb, p.skt, a, min(whole, kmax - a));
+        loads.wait();
+        __syncthreads();
+      }
+      const int end = min(a + whole, wmax);
+#pragma unroll 1
+      for (int c = a; active && c < end; c += GROUP) {
+        float s[4][4];
+        get_group(pw, c / 8, s);
+        typename Group::Weights w;
+        Group::pack(s, w);  // (dS is a value of T: packing it to bf16 is exact)
+        accumulate_group(o, s, w, as + (c - a) * ld, ld, dh, p.hdp);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int dc = dh + n * DC;
+      if (dc < p.hdp) {
+#pragma unroll
+        for (int x = 0; x < DC / 8; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][x][e] *= p.scale_f32;
+        if (active) store_rows<T, DC>(o[n], dqb, p.sot, row0, p.seq, dc, p.hd);
+      }
     }
   }
 }
@@ -672,19 +839,6 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
     loads.issue(vs, vb + (long long)k0 * p.svt, p.svt, nk);
   }
 
-  // acc += x w over the group's 32 queries, with `rows` (dO or q) in V's place
-  auto accumulate = [&](Acc& acc, const float (&x)[4][4], const typename Mma::Weights& w,
-                        const T* rows, int dh) {
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int dc = dh + n * DC;
-      if (dc + DC <= p.hdp)
-        Mma::template weighted_sum<true>(acc[n], x, w, 0, 1, rows, ld, dc, p.hdp);
-      else if (dc < p.hdp)
-        Mma::template weighted_sum<false>(acc[n], x, w, 0, 1, rows, ld, dc, p.hdp);
-    }
-  };
-
 #pragma unroll 1
   for (int dh = 0; dh < p.hdp; dh += COL_HD) {
     Acc ak = {}, av = {};
@@ -760,9 +914,9 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
         // dV += W dO, dK += dS q (values of T: packing them to bf16 is exact)
         typename Mma::Weights w;
         Mma::pack(s, w);
-        accumulate(av, s, w, dg, dh);
+        accumulate_group(av, s, w, dg, ld, dh, p.hdp);
         Mma::pack(c, w);
-        accumulate(ak, c, w, qg, dh);
+        accumulate_group(ak, c, w, qg, ld, dh, p.hdp);
       }
     }
 #pragma unroll
@@ -802,9 +956,8 @@ template <typename T, int KC, bool SF32>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* dout, void* dq,
                         float* stats, const int* seed, int seed_per_row, uint32_t threshold,
                         float keep_f32, int batch, RowArgs p, cudaStream_t stream) {
-  const size_t budget = 110 * 1024;  // two blocks an SM, as the forward's f32
   const int row_bytes = tile_ld(p.hdp, sizeof(T)) * sizeof(T);
-  p.kslab = row_key_slab(min(KC, p.klimit), row_bytes, budget);
+  p.kslab = row_key_slab(min(KC, p.klimit), row_bytes, TWO_BLOCKS);  // as the forward's f32
   const size_t smem = (size_t)(ROW_QT + p.kslab) * row_bytes + 16;
   auto kernel = attention_train_rows<T, KC, SF32>;
   cudaError_t err =
@@ -818,28 +971,54 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-template <typename T, int QT>
-cudaError_t launch_long_rows(const void* q, const void* k, const void* v, const void* dout,
-                             void* dq, float* stats, const int* seed, int seed_per_row,
-                             uint32_t threshold, float keep_f32, int batch, const RowArgs& p,
-                             cudaStream_t stream) {
-  const size_t smem = long_row_smem_bytes<QT>(p.hd, p.klimit);
-  auto kernel = attention_train_rows_long<T, QT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + QT - 1) / QT, p.heads, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
-      keep_f32, p);
-  return cudaGetLastError();
+// The stored-row route's shared memory: qt rows of q (or dO) and kslab
+// of keys (or values) at row_bytes, qt rows of P at p_row_bytes, the
+// mbarrier
+size_t stored_rows_smem(int qt, int kslab, size_t row_bytes, size_t p_row_bytes) {
+  return (qt + kslab) * row_bytes + qt * p_row_bytes + 16;
 }
 
-// The row pass: rows of up to 64 or MAX_KC keys on tensor cores (one
-// chunk in registers, as the forward's dispatch), longer ones on the
-// long-row route at the widest query tile whose score rows fit in shared
-// memory.
+// The widest block (64, 32 or 16 rows) whose rows of P fit in shared memory
+// beside its rows of q and a slab of one group, with the largest slab that
+// keeps two blocks an SM or, where even one group does not, that fits in
+// the cap (one block an SM). Rows too long for 16 rows of P return
+// cudaErrorInvalidValue (the limits are in the note at the top).
+template <typename T, bool SF32>
+cudaError_t launch_stored_rows(const void* q, const void* k, const void* v, const void* dout,
+                               void* dq, float* stats, const int* seed, int seed_per_row,
+                               uint32_t threshold, float keep_f32, int batch, RowArgs p,
+                               cudaStream_t stream) {
+  using Score = typename std::conditional<SF32, float, T>::type;
+  int cap = 0;
+  cudaError_t err = shared_memory_cap(&cap);
+  if (err != cudaSuccess) return err;
+  const size_t row_bytes = tile_ld(p.hdp, sizeof(T)) * sizeof(T);
+  const int keys = (p.klimit + GROUP - 1) / GROUP * GROUP;
+  const size_t p_row = (size_t)keys * sizeof(Score);
+  for (int qt = ROW_QT; qt >= 16; qt /= 2) {
+    const size_t least = stored_rows_smem(qt, GROUP, row_bytes, p_row);
+    if (least > (size_t)cap) continue;
+    const size_t budget = least <= TWO_BLOCKS ? TWO_BLOCKS : (size_t)cap;
+    const int most = (budget - stored_rows_smem(qt, 0, row_bytes, p_row)) / row_bytes;
+    p.qt = qt;
+    p.kslab = min(keys, most / GROUP * GROUP);
+    const size_t smem = stored_rows_smem(qt, p.kslab, row_bytes, p_row);
+    auto kernel = attention_train_rows_stored<T, SF32>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.seq + qt - 1) / qt, p.heads, batch);
+    kernel<<<grid, ROW_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
+        keep_f32, p);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;  // rows too long for this design
+}
+
+// The row pass: rows of up to 64 or MAX_KC keys on tensor cores with P in
+// registers (one chunk, as the forward's dispatch), longer ones with P in
+// shared memory.
 template <typename T, bool SF32>
 cudaError_t dispatch_rows(const void* q, const void* k, const void* v, const void* dout,
                           void* dq, float* stats, const int* seed, int seed_per_row,
@@ -851,16 +1030,8 @@ cudaError_t dispatch_rows(const void* q, const void* k, const void* v, const voi
   if (p.klimit <= MAX_KC)
     return launch_rows<T, MAX_KC, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row,
                                         threshold, keep_f32, batch, p, stream);
-  int cap = 0;
-  cudaError_t err = shared_memory_cap(&cap);
-  if (err != cudaSuccess) return err;
-  if (long_row_smem_bytes<16>(p.hd, p.klimit) <= (size_t)cap)
-    return launch_long_rows<T, 16>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
-                                   keep_f32, batch, p, stream);
-  if (long_row_smem_bytes<4>(p.hd, p.klimit) <= (size_t)cap)
-    return launch_long_rows<T, 4>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
-                                  keep_f32, batch, p, stream);
-  return cudaErrorInvalidValue;  // sequence too long for this design
+  return launch_stored_rows<T, SF32>(q, k, v, dout, dq, stats, seed, seed_per_row, threshold,
+                                     keep_f32, batch, p, stream);
 }
 
 template <typename T, bool SF32>
@@ -948,7 +1119,7 @@ RowArgs row_args(int elem, const void* q, const void* k, const void* v, const vo
       (long long)reinterpret_cast<uintptr_t>(v), (long long)reinterpret_cast<uintptr_t>(dout),
       sqb * elem, sqt * elem, skb * elem, skt * elem, svb * elem, svt * elem, p.sot * elem};
   p.copy_bytes = copy_width(hd, elem, spans);
-  p.kslab = 0;  // set by launch_rows
+  p.kslab = p.qt = 0;  // set by the launch
   return p;
 }
 

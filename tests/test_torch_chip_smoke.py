@@ -127,7 +127,7 @@ def test_offline_and_eval_phases_run_on_cpu_at_a_cut_size(monkeypatch, tmp_path)
      "int, float, (anonymous namespace)::RowArgs)", "training attention backward"),
     ("void (anonymous namespace)::attention_train_rows<__nv_bfloat16, 64, false>(x)",
      "training attention backward"),
-    ("void (anonymous namespace)::attention_train_rows_long<float, 16>(float const*)",
+    ("void (anonymous namespace)::attention_train_rows_stored<float, true>(float const*)",
      "training attention backward"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x16", "dense GEMMs (cuBLAS)"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "dense GEMMs (cuBLAS)"),
@@ -142,8 +142,8 @@ def test_profile_kernel_groups(monkeypatch, name, group):
 
 def test_train_cases_draw_t200_last(monkeypatch):
     """Phase 2b's 84 cases: T 150, 60, 151 at B 8 and 64, then T 200 at B 8
-    (the backward's long-row route), each causal or with a key mask of T -
-    10, f32 and bf16, at rates 0, 0.1 and 0.5."""
+    (the backward's row pass with P in shared memory), each causal or with
+    a key mask of T - 10, f32 and bf16, at rates 0, 0.1 and 0.5."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
 

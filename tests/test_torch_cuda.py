@@ -116,8 +116,8 @@ def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offs
 def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rate):
     """Every route of the forward kernel (one chunk of 64 or 160 keys in
     registers, or three passes over chunks) and of the backward's row pass
-    (tensor cores for rows of up to 64 or 160 keys, the long-row route
-    past them), with and without dropout."""
+    (P in registers for rows of up to 64 or 160 keys, in shared memory past
+    them), with and without dropout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"
@@ -125,8 +125,25 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rat
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["causal", "kv_len"])
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_train_kernels_at_1024_keys(mask, dtype, softmax_f32, rate):
+    """T 1024: the backward's row pass takes several chunks of scores and
+    several slabs of keys (f32 and an f32 softmax in blocks of 32 rows), its
+    column pass a long walk over the queries; as
+    test_cuda_train_kernels_match_plain_version. (At rate 0.5 the forward's
+    three-pass route reads 1.07e-5 against the 1e-5 tolerance at f32 with a
+    key mask: ROADMAP C.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    causal = mask == "causal"
+    _check_train_case(8, 1024, dtype, causal, None if causal else 1014, rate, softmax_f32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("heads,hd", [(4, 16), (4, 32), (4, 40), (8, 64), (2, 256)])
-@pytest.mark.parametrize("T", [60, 151])
+@pytest.mark.parametrize("T", [60, 151, 197])
 @pytest.mark.parametrize("mask", ["causal", "kv_len"])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -136,12 +153,68 @@ def test_cuda_train_kernels_at_other_head_dims(heads, hd, T, mask, dtype, softma
     128 over 4 heads), a padded head dim (40: 48 columns of
     products), half the models' (64) and the widest a launch takes (256:
     two sweeps of 128 columns), with the forward and the row pass at the
-    same shapes."""
+    same shapes (T 197: the row pass with P in shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"
     _check_train_case(8, T, dtype, causal, None if causal else T - 10, rate, softmax_f32,
                       heads=heads, hd=hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(2, 2048), (1, 3232)])
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+def test_cuda_train_kernels_at_the_longest_rows(B, T, dtype, softmax_f32):
+    """The row pass with P in shared memory in blocks of 16 rows (f32 and an
+    f32 softmax at T 2048; bf16 with a bf16 softmax in blocks of 32) and at
+    its longest f32 rows at head dim 128 (3,232 keys: 16 rows of P, 16 of q
+    and a group of 32 keys in 227 KB), causal, rate 0.1, one head of 128.
+    The output and the gradients are held against the plain versions at
+    this file's tolerances, and the gradients against autograd of the plain
+    forward as chip_smoke phase 2b holds them (gradient_tolerance: at bf16
+    the plain backward's own distance from autograd plus 2^-7 x max(1,
+    max|plain backward|); at 2,048 keys that distance alone passes 2^-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    import chip_smoke
+
+    fn = attention.fused_attention_btd_train
+    before = (fn.launches, fn.backward_launches)
+    (out, grads), (ref, ref_grads), plain_grads = _train_case(
+        B, T, dtype, True, None, 0.1, softmax_f32, heads=1)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref_np = ref.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_np, rtol=0,
+                               atol=_tolerance(dtype, ref_np), err_msg="out")
+    for name, ours, autograd, plain in zip(("dq", "dk", "dv"), grads, ref_grads, plain_grads):
+        plain_np = plain.float().cpu().numpy()
+        np.testing.assert_allclose(ours.float().cpu().numpy(), plain_np, rtol=0,
+                                   atol=_tolerance(dtype, plain_np),
+                                   err_msg=f"plain backward {name}")
+        chip_smoke.hold_gradient(name, ours, autograd, plain, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_train_backward_raises_past_its_longest_rows():
+    """Rows longer than the row pass takes (3,264 keys at f32, head dim
+    128) raise from the backward's launch; the forward runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    B, T, hd = 1, 3264, 128
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(B, T, 3 * hd, device="cuda", generator=gen).requires_grad_()
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 2), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    q, k, v = x.split(hd, dim=-1)
+    fn = attention.fused_attention_btd_train
+    out = fn(q, k, v, 1, 0.1, seeds)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(out.detach().abs().max()))
+    before = fn.backward_launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        out.backward(torch.ones_like(out))
+    assert fn.backward_launches == before
 
 
 @pytest.mark.cuda
