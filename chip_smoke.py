@@ -25,11 +25,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      151, causal or not, f32 and bf16), each call against its plain
      version, and timed at bf16 [128, 4, 150, 128];
   2d. B1 and B2 at the model paths' own f32 shapes, non-causal: phase
-     10's [64, 61, 512], phase 11's [64, 197, 512] (the three-pass
-     forward, the backward's row pass with P in shared memory; B2 also at
-     bf16 there, as train_mdm --dataset humanml --compute_dtype bfloat16
-     runs it, split by pass: no phase trains it, so the kernel line has
-     no row for it), phase 14's CVAE at head dim 64,
+     10's [64, 61, 512], phase 11's [64, 197, 512] (the forward's and the
+     backward's row pass's stored-row routes, P in shared memory; B1 and
+     B2 also at bf16 there, as generate and train_mdm --dataset humanml
+     --compute_dtype bfloat16 run them, B2's backward split by pass: no
+     phase runs them at bf16, so the kernel line has no row for them),
+     phase 14's CVAE at head dim 64,
      [20, 62, 256] and [20, 60, 256], and phase 15's GAN, D's [32, 60,
      256] and G's [32, 16, 256] (B2 at rate 0); and causal at head dim 32,
      the full-scale capability study's [64, 60, 128] (B2 at rate 0.1);
@@ -60,7 +61,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. the evaluation CLI, `regennet_torch.eval.eval_cmdm.main`, in debug
      mode on phase 4's checkpoint with CFG 2.5 and a random ST-GCN, on 128
      in-memory clips: metrics, results file, times, launches; then the
-     ST-GCN on the card against a CPU copy;
+     ST-GCN on the card against a CPU copy; then train_stgcn.main at a cut
+     size (the full-width classifier, 256 learnable clips, 12 epochs: at
+     4 its BatchNorm statistics had not settled and the held-out accuracy
+     read chance) started with TF32 allowed, which must leave both TF32
+     flags False, and the trained network's logits on a test batch and its
+     GT accuracy without TF32 and with it;
   7. the gru and mlp trunks (cm_mode add) at the flagship width, each:
      train_mdm for 16 steps (f32 batch 64), a DDPM-1000 cgenerate request
      (f32 batch 16) from its checkpoint, one denoiser forward on the card
@@ -1472,6 +1478,77 @@ def run_eval(report, card, model_path, device="cuda"):
     return launches
 
 
+STGCN_TF32 = dict(clips=256, T=60, batch=64, epochs=12)  # the ST-GCN of check_stgcn_tf32
+
+
+def tf32_flags():
+    """(cuBLAS's, cuDNN's) allow_tf32."""
+    import torch
+
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def check_stgcn_tf32(report, card, workdir, device="cuda"):
+    """The ST-GCN trainer's f32 contract: train_stgcn.main at a cut size (the
+    full-width classifier, Chi3D SMPL-X, two persons, STGCN_TF32's learnable
+    clips and epochs) started with both TF32 flags True must leave them
+    False; then the trained network's logits on one test batch and its
+    accuracy on the held-out clips (GT accuracy) without TF32 and with it,
+    side by side. Returns the comparison."""
+    import copy
+
+    import torch
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.collate import collate
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.data.get_data import BatchLoader
+    from regennet_torch.device import tf32_allowed
+    from regennet_torch.eval import train_stgcn
+
+    T, B = STGCN_TF32["T"], STGCN_TF32["batch"]
+    pair = synthetic.make_clip_pair("chi3d", STGCN_TF32["clips"], min_len=T + 10,
+                                    max_len=2 * T, learnable=True)
+    data = Feeder(clips=pair["train"], test_clips=pair["test"], dataname="chi3d",
+                  split="train", num_frames=T, num_person=2)
+    args = Namespace(dataset="chi3d", data_path="", pose_rep="rot6d", body_model="smplx",
+                     glob=True, translation=True, num_frames=T, batch_size=B, lr=1e-3,
+                     num_epochs=STGCN_TF32["epochs"], save_every=STGCN_TF32["epochs"],
+                     save_dir=str(workdir / "stgcn_tf32"), seed=0, keep_best=False)
+    with tf32_allowed():
+        before = tf32_flags()
+        model = train_stgcn.main(args, device=device, data=data)
+        after = tf32_flags()
+    if before != (True, True) or after != (False, False):
+        raise AssertionError(f"train_stgcn.main left the TF32 flags at {after} (from {before})")
+    test = copy.deepcopy(data)
+    test.split = "test"
+    loader = BatchLoader(test, B, collate, shuffle=False, drop_last=False)
+    motion = torch.as_tensor(next(iter(loader))[0], device=device)
+    seen = {}
+    with torch.no_grad():
+        for name, scope in (("f32", contextlib.nullcontext), ("tf32", tf32_allowed)):
+            with scope():
+                seen[name] = (model(motion)["yhat"].float().cpu(),
+                              train_stgcn.held_out_accuracy(model, loader, device))
+    (logits, acc), (logits_tf32, acc_tf32) = seen["f32"], seen["tf32"]
+    diff = (logits_tf32 - logits).abs().max().item()
+    res = dict(flags_before=before, flags_after=after, batch=int(motion.shape[0]),
+               test_clips=len(test), logits_max_abs_diff=diff,
+               logits_max_abs=logits.abs().max().item(),
+               argmax_agreement=(logits_tf32.argmax(1) == logits.argmax(1)).float().mean().item(),
+               gt_accuracy_f32=acc, gt_accuracy_tf32=acc_tf32)
+    if not math.isfinite(diff):
+        raise AssertionError(f"the ST-GCN's logits are not finite: {res}")
+    print(f"  train_stgcn.main left the TF32 flags {after} (set {before}); trained ST-GCN, "
+          f"one test batch of {res['batch']}: logits max |TF32 - f32| {diff:.4g} (max |logit| "
+          f"{res['logits_max_abs']:.4g}), argmax agreement {res['argmax_agreement']:.4f}; "
+          f"GT accuracy over {res['test_clips']} clips f32 {acc:.4f}, TF32 {acc_tf32:.4f} "
+          f"[{card}]")
+    report["stgcn_tf32"] = res
+    return res
+
+
 TRUNK_STEPS = 16
 
 
@@ -1845,13 +1922,13 @@ def check_a2m_kernels(report):
     return worst
 
 
-def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False):
-    """B1 and B2 at f32 [64, T, 512] (or [B, T, D]), 4 heads, non-causal
-    unless `causal`, by device time under torch.profiler, beside their plain
-    versions, SDPA and the bounds (B2 as phase 2b times it, at `rate` if
-    given). At 61 tokens a launch takes about as long as the host needs to
-    enqueue it, so the CUDA-event time of back-to-back calls (B1's *_wall_ms)
-    reads the host. Returns (B1's timing, B2's timing)."""
+def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False, dtype="float32"):
+    """B1 and B2 at f32 [64, T, 512] (or [B, T, D], or `dtype`), 4 heads,
+    non-causal unless `causal`, by device time under torch.profiler, beside
+    their plain versions, SDPA and the bounds (B2 as phase 2b times it, at
+    `rate` if given). At 61 tokens a launch takes about as long as the host
+    needs to enqueue it, so the CUDA-event time of back-to-back calls (B1's
+    *_wall_ms) reads the host. Returns (B1's timing, B2's timing)."""
     import torch
     import torch.nn.functional as F
 
@@ -1859,7 +1936,8 @@ def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False):
 
     D, H, B = D or FLAGSHIP["latent_dim"], FLAGSHIP["heads"], B or TRAIN["batch"]
     gen = torch.Generator(device="cuda").manual_seed(11)
-    q, k, v = torch.randn(B, T, 3 * D, device="cuda", generator=gen).split(D, dim=-1)
+    q, k, v = (torch.randn(B, T, 3 * D, device="cuda", generator=gen).to(getattr(torch, dtype))
+               .split(D, dim=-1))
     q4, k4, v4 = (x.view(B, T, H, D // H).transpose(1, 2) for x in (q, k, v))
     b1_timing = {}
     for name, fn, iters in (
@@ -1870,28 +1948,28 @@ def time_btd_kernels(card, T, B=None, D=None, rate=None, causal=False):
         b1_timing[f"{name}ms"] = device_ms(fn, iters=iters)
         b1_timing[f"{name}wall_ms"] = time_ms(fn, iters=iters)
     b1_timing["bound_ms"], b1_timing["bound_by"] = attention_bound_ms(
-        B, T, D, H, "float32", causal, None)
-    print(f"  B1 f32 [{B}, {T}, {D}] {'causal' if causal else 'non-causal'}, device time (wall "
+        B, T, D, H, dtype, causal, None)
+    print(f"  B1 {dtype} [{B}, {T}, {D}] {'causal' if causal else 'non-causal'}, device time (wall "
           "with launches): kernel "
           + ", ".join(f"{label}{b1_timing[name + 'ms']:.4f} ms ({b1_timing[name + 'wall_ms']:.4f})"
                       for name, label in (("", ""), ("plain_", "plain "),
                                           ("library_", "sdpa ")))
           + f", bound {b1_timing['bound_ms']:.4f} ms ({b1_timing['bound_by']}) [{card}]")
-    return b1_timing, time_train_kernels(card, "float32", T=T, causal=causal, B=B, D=D,
-                                         rate=rate)
+    return b1_timing, time_train_kernels(card, dtype, T=T, causal=causal, B=B, D=D, rate=rate)
 
 
 def time_model_kernels(report, card):
     """Phase 2d: B1 and B2 timed at the model paths' own shapes: phase 10's
     a2m CMDM (f32 [64, 61, 512], non-causal), phase 11's text CMDM (197
-    tokens: the three-pass forward and the backward's row pass with P in
-    shared memory; B2 also at bf16, split by pass, under "t2m_bf16") and
+    tokens: the forward's and the backward's row pass's stored-row routes,
+    P in shared memory; B1 and B2 also at bf16, B2's backward split by pass,
+    under "t2m_bf16") and
     the full-scale capability study's online CMDM (f32 [64, 60, 128], head
     dim 32, causal, B2 at rate 0.1). Timed here, beside phase 2b's
     profiles, not in phases 10 and 11: in one full run a profile of B1
     taken in phase 10 recorded no kernel, which a run of phase 10 alone did
     not repeat. Returns {"a2m": (B1's timing, B2's timing), "t2m": (...),
-    "study": (...), "t2m_bf16": B2's timing}."""
+    "study": (...), "t2m_bf16": (...)}."""
     full = load_capability_study().SCALES["full"]
     timings = {}
     for key, T, kw in (("a2m", A2M["T"] + 1, {}), ("t2m", T2M["T"] + 1, {}),
@@ -1900,8 +1978,10 @@ def time_model_kernels(report, card):
         b1_timing, b2_timing = timings[key] = time_btd_kernels(card, T, **kw)
         report[f"{key}_attention_timing"] = {"fused_attention_btd": b1_timing,
                                              "fused_attention_btd_train": b2_timing}
-    timings["t2m_bf16"] = report["t2m_bf16_attention_timing"] = time_train_kernels(
-        card, "bfloat16", T=T2M["T"] + 1, causal=False)
+    b1_timing, b2_timing = timings["t2m_bf16"] = time_btd_kernels(card, T2M["T"] + 1,
+                                                                  dtype="bfloat16")
+    report["t2m_bf16_attention_timing"] = {"fused_attention_btd": b1_timing,
+                                           "fused_attention_btd_train": b2_timing}
     return timings
 
 
@@ -4163,6 +4243,7 @@ def dist_rank(rank, world, init, workdir, device, scenarios, settings):
     import torch
     import torch.distributed as dist
 
+    from regennet_torch.device import pin_f32_contract
     from regennet_torch.train import train_mdm
 
     workdir = Path(workdir)
@@ -4177,7 +4258,7 @@ def dist_rank(rank, world, init, workdir, device, scenarios, settings):
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                           MASTER_ADDR="localhost", MASTER_PORT=where)
     batches, num_actions = torch.load(workdir / "batches.pt", weights_only=False)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_f32_contract()
     results = {}
     for name, over in scenarios:
         model_size = over.get("tensor_parallel", 1)
@@ -4662,13 +4743,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     try:
+        from regennet_torch.device import pin_f32_contract
         from regennet_torch.ops import attention, kernels
     except ImportError as e:
         print(f"chip_smoke: the regennet_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     t_start = time.perf_counter()
 
     card = card_line()
@@ -4711,8 +4792,10 @@ def main() -> int:
         print("phase 5: the offline CMDM (the default --arch) at the flagship width")
         offline_train, offline_launches = run_offline(report, card, Path(tmp) / "offline",
                                                       data)
-        print("phase 6: eval_cmdm (debug) on phase 4's checkpoint")
+        print("phase 6: eval_cmdm (debug) on phase 4's checkpoint; the ST-GCN trainer's f32 "
+              "contract")
         eval_launches = run_eval(report, card, save_dir / f"model{TRAIN['steps']:09d}.pt")
+        check_stgcn_tf32(report, card, Path(tmp))
         print("phase 7: the gru and mlp trunks at the flagship width")
         for arch in ("gru", "mlp"):
             run_trunk(report, card, Path(tmp) / arch, data, arch)
@@ -4790,7 +4873,7 @@ def main() -> int:
         # the a2m evaluations' shape, non-causal at 61 tokens: phase 10's launches
         ("fused_attention_btd (f32 [64, 61, 512], non-causal, phase 10)", b1["phase 10"],
          timings["a2m"][0], a2m_worst["forward"]),
-        # the text CMDM's 197 tokens (the three-pass route): phases 11 and 12
+        # the text CMDM's 197 tokens (the stored-row route): phases 11 and 12
         ("fused_attention_btd (f32 [64, 197, 512], non-causal, phases 11, 12)",
          b1["phase 11"] + b1["phase 12"], timings["t2m"][0],
          max(t2m_worst["forward"], t2m_eval_worst["forward"])))]

@@ -107,15 +107,11 @@ constexpr int MAX_HD = 256;  // largest head dim a launch takes
 constexpr int ROW_WARPS = 4;
 constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int ROW_QT = 16 * ROW_WARPS;  // query rows of a block
-constexpr int GROUP = 32;               // keys of a group; a slab holds whole groups
-constexpr int MAX_KC = 160;             // the longest rows it holds in registers
-constexpr size_t TWO_BLOCKS = 110 * 1024;  // shared memory of a block, two an SM
 
-// the column pass (the row pass's block): keys of a block, 16 a warp, and
-// the head-dim columns of dK and dV that a sweep over the queries holds in
-// registers
+// the column pass (the row pass's block): keys of a block, 16 a warp (the
+// head-dim columns of dK and dV that a sweep over the queries holds in
+// registers: COL_HD)
 constexpr int COL_KT = 16 * ROW_WARPS;
-constexpr int COL_HD = 128;
 
 struct RowArgs {
   int seq, heads, hd;
@@ -392,108 +388,6 @@ attention_train_rows(const T* __restrict__ q, const T* __restrict__ k, const T* 
       for (int e = 0; e < 4; ++e) o[n][e] *= p.scale_f32;
     if (active) store_rows<T, DC>(o, dqb, p.sot, row0, p.seq, dc, p.hd);
   }
-}
-
-// acc += x w for one group of 32 rows of `rows` (in V's place: dO or q in
-// the column pass, K for the stored route's dQ) in the NC blocks of DC
-// columns from dh. At f32 the group's products sum into zeroed
-// accumulators, added to acc at f32's rounding: mma.sync's f32
-// accumulation is not IEEE's, and a long walk into one accumulator drifts
-// (over a key's 1,024 causal queries dK read 1.48x its 1e-5 tolerance,
-// PERF.md).
-template <typename T, int NC, int M>
-__device__ __forceinline__ void accumulate_group(float (&acc)[NC][M][4], const float (&x)[4][4],
-                                                 const typename WarpMma<T, 4>::Weights& w,
-                                                 const T* rows, int ld, int dh, int hdp) {
-  using Mma = WarpMma<T, 4>;
-  constexpr int DC = Mma::DC;
-  static_assert(M * 8 == DC, "acc holds DC columns a block");
-#pragma unroll
-  for (int n = 0; n < NC; ++n) {
-    const int dc = dh + n * DC;
-    if (dc >= hdp) continue;
-    if constexpr (sizeof(T) == 4) {
-      float part[M][4] = {};
-      if (dc + DC <= hdp)
-        Mma::template weighted_sum<true>(part, x, w, 0, 1, rows, ld, dc, hdp);
-      else
-        Mma::template weighted_sum<false>(part, x, w, 0, 1, rows, ld, dc, hdp);
-#pragma unroll
-      for (int m = 0; m < M; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][m][e] += part[m][e];
-    } else if (dc + DC <= hdp) {
-      Mma::template weighted_sum<true>(acc[n], x, w, 0, 1, rows, ld, dc, hdp);
-    } else {
-      Mma::template weighted_sum<false>(acc[n], x, w, 0, 1, rows, ld, dc, hdp);
-    }
-  }
-}
-
-// A warp's rows of P in shared memory on the stored-row route: key block j
-// (8 keys) of the warp's 16 rows at [j][lane][4] in the score dtype, each
-// lane's own accumulators (s[j] of WarpMma's layout). A lane reads back
-// only what it wrote, and a warp's access to a block is one contiguous 512
-// (f32) or 256 bytes: no shuffles, no bank conflicts. (Values of the score
-// dtype, or dS of T: storing them to bf16 is exact.)
-__device__ __forceinline__ void put_block(float* w, int j, const float (&c)[4]) {
-  reinterpret_cast<float4*>(w)[j * 32 + (threadIdx.x & 31)] = make_float4(c[0], c[1], c[2], c[3]);
-}
-__device__ __forceinline__ void put_block(__nv_bfloat16* w, int j, const float (&c)[4]) {
-  reinterpret_cast<uint2*>(w)[j * 32 + (threadIdx.x & 31)] =
-      make_uint2(pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]));
-}
-__device__ __forceinline__ void get_block(const float* w, int j, float (&c)[4]) {
-  const float4 x = reinterpret_cast<const float4*>(w)[j * 32 + (threadIdx.x & 31)];
-  c[0] = x.x;
-  c[1] = x.y;
-  c[2] = x.z;
-  c[3] = x.w;
-}
-__device__ __forceinline__ void get_block(const __nv_bfloat16* w, int j, float (&c)[4]) {
-  const uint2 x = reinterpret_cast<const uint2*>(w)[j * 32 + (threadIdx.x & 31)];
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  c[0] = lo.x;
-  c[1] = lo.y;
-  c[2] = hi.x;
-  c[3] = hi.y;
-}
-
-// the group of 32 keys from key block j on
-template <typename S>
-__device__ __forceinline__ void put_group(S* w, int j, const float (&s)[4][4]) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) put_block(w, j + jj, s[jj]);
-}
-template <typename S>
-__device__ __forceinline__ void get_group(const S* w, int j, float (&s)[4][4]) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) get_block(w, j + jj, s[jj]);
-}
-
-// The stored weights carry the keep mask in their signs: a weight is >= 0,
-// and a dropped one is stored negated (a dropped 0 as -0). mark_dropped
-// negates the weights the mask drops; take_keep returns a group's mask
-// (KeepMask<4>'s bits) and clears the signs.
-__device__ __forceinline__ void mark_dropped(float (&s)[4][4], const KeepMask<4>& keep) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (!(keep.w[0] >> (4 * jj + e) & 1u)) s[jj][e] = -s[jj][e];
-}
-__device__ __forceinline__ KeepMask<4> take_keep(float (&s)[4][4]) {
-  KeepMask<4> keep;
-  keep.w[0] = 0u;
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      keep.w[0] |= (~__float_as_uint(s[jj][e]) >> 31) << (4 * jj + e);
-      s[jj][e] = fabsf(s[jj][e]);
-    }
-  return keep;
 }
 
 // Backward row pass on tensor cores for rows of more than MAX_KC keys:
@@ -934,14 +828,6 @@ attention_train_cols(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-cudaError_t shared_memory_cap(int* cap) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err;
-}
-
 // Keys a slab of the tensor-core row pass holds: the rows' keys rounded up
 // to a whole group, or as many groups as fit beside the ROW_QT rows of q
 // (or dO) within `budget` bytes, whichever is fewer. The largest slab, not
@@ -971,18 +857,8 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-// The stored-row route's shared memory: qt rows of q (or dO) and kslab
-// of keys (or values) at row_bytes, qt rows of P at p_row_bytes, the
-// mbarrier
-size_t stored_rows_smem(int qt, int kslab, size_t row_bytes, size_t p_row_bytes) {
-  return (qt + kslab) * row_bytes + qt * p_row_bytes + 16;
-}
-
-// The widest block (64, 32 or 16 rows) whose rows of P fit in shared memory
-// beside its rows of q and a slab of one group, with the largest slab that
-// keeps two blocks an SM or, where even one group does not, that fits in
-// the cap (one block an SM). Rows too long for 16 rows of P return
-// cudaErrorInvalidValue (the limits are in the note at the top).
+// The stored-row route's block (stored_block): rows too long for 16 rows of
+// P return cudaErrorInvalidValue (the limits are in the note at the top).
 template <typename T, bool SF32>
 cudaError_t launch_stored_rows(const void* q, const void* k, const void* v, const void* dout,
                                void* dq, float* stats, const int* seed, int seed_per_row,
@@ -992,28 +868,21 @@ cudaError_t launch_stored_rows(const void* q, const void* k, const void* v, cons
   int cap = 0;
   cudaError_t err = shared_memory_cap(&cap);
   if (err != cudaSuccess) return err;
-  const size_t row_bytes = tile_ld(p.hdp, sizeof(T)) * sizeof(T);
-  const int keys = (p.klimit + GROUP - 1) / GROUP * GROUP;
-  const size_t p_row = (size_t)keys * sizeof(Score);
-  for (int qt = ROW_QT; qt >= 16; qt /= 2) {
-    const size_t least = stored_rows_smem(qt, GROUP, row_bytes, p_row);
-    if (least > (size_t)cap) continue;
-    const size_t budget = least <= TWO_BLOCKS ? TWO_BLOCKS : (size_t)cap;
-    const int most = (budget - stored_rows_smem(qt, 0, row_bytes, p_row)) / row_bytes;
-    p.qt = qt;
-    p.kslab = min(keys, most / GROUP * GROUP);
-    const size_t smem = stored_rows_smem(qt, p.kslab, row_bytes, p_row);
-    auto kernel = attention_train_rows_stored<T, SF32>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.seq + qt - 1) / qt, p.heads, batch);
-    kernel<<<grid, ROW_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
-        keep_f32, p);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;  // rows too long for this design
+  StoredBlock block;
+  if (!stored_block(p.klimit, tile_ld(p.hdp, sizeof(T)) * sizeof(T), sizeof(Score), cap, block))
+    return cudaErrorInvalidValue;  // rows too long for this design
+  p.qt = block.qt;
+  p.kslab = block.kslab;
+  auto kernel = attention_train_rows_stored<T, SF32>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)block.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + block.qt - 1) / block.qt, p.heads, batch);
+  kernel<<<grid, ROW_THREADS, block.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<T*>(dq), stats, seed, seed_per_row, threshold,
+      keep_f32, p);
+  return cudaGetLastError();
 }
 
 // The row pass: rows of up to 64 or MAX_KC keys on tensor cores with P in

@@ -3,11 +3,16 @@
 Nothing in the port falls back to the CPU because a GPU is missing: an
 entry point called without `device` on a machine without CUDA raises, so
 a run that was meant for the card never silently measures the host.
+
+It also holds the port's f32 contract: f32 work runs in f32, without TF32
+(pin_f32_contract, which every entry point calls); tf32_allowed lifts it
+inside a block, for measurements only.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -30,3 +35,24 @@ def resolve_device(device: DeviceLike = None, index: Union[int, str] = 0) -> tor
         )
     return dev
 
+
+
+def pin_f32_contract() -> None:
+    """f32 means f32 on the GPU: no TF32 in cuBLAS matmuls or cuDNN
+    convolutions. PyTorch leaves `torch.backends.cudnn.allow_tf32` True, so
+    every entry point calls this before it builds a network."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_allowed() -> Iterator[None]:
+    """TF32 allowed in cuBLAS matmuls and cuDNN convolutions inside the
+    block, to measure what the f32 contract costs or buys; the contract is
+    pinned again after it."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        pin_f32_contract()

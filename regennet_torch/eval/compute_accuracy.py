@@ -20,7 +20,7 @@ import torch
 
 from regennet_torch.data.collate import collate
 from regennet_torch.data.get_data import BatchLoader, get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.eval.tools import save_metrics
 from regennet_torch.models.stgcn import STGCN
 from regennet_torch.train import checkpoint
@@ -73,8 +73,7 @@ def main(args=None, device=None, datasets: Dict = None):
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
 
     if datasets is None:

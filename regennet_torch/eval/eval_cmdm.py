@@ -20,7 +20,7 @@ import os
 import torch
 
 from regennet_torch.data.get_data import get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.eval import stgcn_eval
 from regennet_torch.eval.tools import save_metrics
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
@@ -68,9 +68,7 @@ def main(args=None, device=None, data=None):
         args = parser_util.evaluation_parser()
     device = mesh.local_device(resolve_device(device, getattr(args, "device", 0)))
     mesh.init_distributed(device)  # under a launcher: the ranks share each batch
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
 
     args.batch_size = 32  # the protocol's batch

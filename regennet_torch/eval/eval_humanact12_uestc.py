@@ -21,7 +21,7 @@ import re
 import torch
 
 from regennet_torch.data.get_data import get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.eval.tools import save_metrics
 from regennet_torch.models import gru_classifier, stgcn
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
@@ -98,9 +98,7 @@ def main(args=None, device=None, data=None):
     if args is None:
         args = parser_util.evaluation_parser()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
 
     print(f"Eval mode [{args.eval_mode}]")

@@ -443,7 +443,7 @@ def main(args=None, device=None) -> Dict:
     device: "cpu", "cuda:N" or a torch.device; None means cuda:{args.device}
     (or the CPU for --device cpu) and raises without CUDA."""
     from regennet_torch.data.humanml.dataset import Text2MotionDataset
-    from regennet_torch.device import resolve_device
+    from regennet_torch.device import pin_f32_contract, resolve_device
     from regennet_torch.train import checkpoint
     from regennet_torch.utils import parser_util
     from regennet_torch.utils.fixseed import fixseed
@@ -456,9 +456,7 @@ def main(args=None, device=None) -> Dict:
     if args is None:
         args = parser_util.evaluation_parser()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls, convolutions or cuDNN's GRU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     if args.eval_mode not in PROTOCOLS:
         raise ValueError(f"unknown eval mode {args.eval_mode}")

@@ -39,7 +39,7 @@ import torch
 
 from regennet_torch.data.collate import collate
 from regennet_torch.data.get_data import BatchLoader, get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.eval import metrics as M
 from regennet_torch.eval import othermetrics
 from regennet_torch.eval.eval_humanact12_uestc import _classifier_state
@@ -234,9 +234,7 @@ def main(args=None, device=None, data=None, draw_z: Optional[ZDraws] = None):
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     if args.dataset not in DATASET_EVAL:
         raise NotImplementedError(

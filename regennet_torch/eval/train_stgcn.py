@@ -22,7 +22,7 @@ import torch
 
 from regennet_torch.data.collate import collate
 from regennet_torch.data.get_data import BatchLoader, get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.models.stgcn import CHANNELS, STRIDES, STGCN, cross_entropy_loss, random_init_
 from regennet_torch.train import checkpoint
 from regennet_torch.utils.fixseed import fixseed
@@ -87,6 +87,7 @@ def run_training(args, device=None, data=None) -> STGCN:
     without CUDA. data: a dataset with both splits (e.g. Feeder(clips=...,
     test_clips=...)) in place of loading args.data_path."""
     device = resolve_device(device)
+    pin_f32_contract()
     fixseed(args.seed)
     glob = bool(getattr(args, "glob", True))
     translation = bool(getattr(args, "translation", True))

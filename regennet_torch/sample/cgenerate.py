@@ -19,7 +19,7 @@ from scipy.ndimage import gaussian_filter1d
 
 from regennet_torch.data.collate import ccollate
 from regennet_torch.data.get_data import get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.diffusion import sampling
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
 from regennet_torch.ops import body_model as bm
@@ -55,9 +55,7 @@ def main(args=None, device=None, data=None,
     if args is None:
         args = parser_util.cgenerate_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
 
     if not getattr(args, "num_frames", None) or args.num_frames <= 0:

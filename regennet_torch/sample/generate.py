@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from regennet_torch.data.humanml.motion_process import recover_from_ric
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.diffusion import sampling
 from regennet_torch.eval.eval_humanml import is_comp_v6, load_comp_v6_checkpoint
 from regennet_torch.models import t2m_gen
@@ -162,9 +162,7 @@ def main(args=None, device=None) -> dict:
     if args is None:
         args = parser_util.generate_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     prompts = _prompts(args)
     estimator = (load_length_estimator(args.length_estimator, device)

@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.models.actor_cvae import ActorCVAE
 from regennet_torch.ops import body_model as bm
 from regennet_torch.ops.pose_decode import make_rot2xyz
@@ -89,9 +89,7 @@ def main(args=None, device=None) -> dict:
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     train_args = _load_train_args(args.model_path)
     state = checkpoint.load_state_dict(args.model_path)

@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.diffusion import sampling
 from regennet_torch.models.cmdm import make_cfg_model_fn, make_model_fn
 from regennet_torch.train import checkpoint
@@ -36,9 +36,7 @@ class Predictor:
         """device: "cpu", "cuda:N" or a torch.device; None means cuda:0 and
         raises without CUDA."""
         self.device = resolve_device(device)
-        # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        pin_f32_contract()
         with open(os.path.join(os.path.dirname(model_path), "args.json")) as f:
             margs = json.load(f)
         margs.setdefault("timestep_respacing", timestep_respacing)

@@ -29,7 +29,7 @@ from torch import nn
 
 from regennet_torch.data.collate import collate
 from regennet_torch.data.get_data import BatchLoader, get_dataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.models.actor_gan import (
     Discriminator,
     Generator,
@@ -102,9 +102,7 @@ def main(args=None, device=None, data=None):
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     os.makedirs(args.save_dir, exist_ok=True)
     platform = get_platform(args.train_platform_type)(args.save_dir)

@@ -18,7 +18,7 @@ import os
 import torch
 
 from regennet_torch.data.get_data import get_dataset_loader
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.parallel import mesh
 from regennet_torch.train.train_platforms import NoPlatform, get_platform
 from regennet_torch.train.training_loop import TrainLoop
@@ -44,9 +44,7 @@ def main(args=None, device=None, data=None) -> TrainLoop:
     # recorded in args.json, so the sampler builds the activation trained
     # here even though it loads a .pt file (see model_util._pick_activation)
     args.activation = _pick_activation(args)
-    # f32 means f32 on the GPU: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
 
     if args.save_dir is None:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from regennet_torch.data.humanml.dataset import Text2MotionDataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.eval.eval_humanml import _stack_items
 from regennet_torch.models import t2m_eval as t2m
 from regennet_torch.train import checkpoint
@@ -214,9 +214,7 @@ def main(args=None, device=None):
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls, convolutions or cuDNN's GRU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     os.makedirs(args.save_dir, exist_ok=True)
     dataset = Text2MotionDataset(args.data_path, split="train", dataset_name=args.dataset)

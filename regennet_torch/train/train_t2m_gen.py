@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from regennet_torch.data.humanml.dataset import Text2MotionDataset
-from regennet_torch.device import resolve_device
+from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.models import t2m_eval, t2m_gen
 from regennet_torch.train import checkpoint
 from regennet_torch.train.train_t2m_eval import _batches, _tensor
@@ -193,9 +193,7 @@ def main(args=None, device=None) -> Dict:
     if args is None:
         args = parse_args()
     device = resolve_device(device, getattr(args, "device", 0))
-    # f32 means f32 on the GPU: no TF32 in matmuls, convolutions or cuDNN's GRU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     fixseed(args.seed)
     os.makedirs(args.save_dir, exist_ok=True)
     with open(os.path.join(args.save_dir, "args.json"), "w") as f:

@@ -33,8 +33,7 @@ def child(tree: str) -> None:
 
     import chip_smoke as cs
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # (train_mdm.main, which run_training calls, pins the f32 contract)
     card = cs.card_line()
     for dtype in DTYPES:
         with tempfile.TemporaryDirectory() as tmp:

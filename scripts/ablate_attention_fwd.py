@@ -2,25 +2,37 @@
 """Where the forward attention kernel's time goes: ablations of
 regennet_torch/csrc/attention_fwd.cu on the card.
 
-    python3 scripts/ablate_attention_fwd.py
+    python3 scripts/ablate_attention_fwd.py [--root CHECKOUT]
 
-Builds the source as it is and in variants with one part taken out (the
-softmax, the tensor-core products, the copies into shared memory, the output
-stores), each into its own library in a temporary directory, and times every
-variant's kernel under torch.profiler (device time per call, 20 calls after
-a warm-up) at the main path's shapes: B1 bf16 [128, 150, 512]
-and f32 [64, 150, 512], causal, 4 heads of 128, q, k, v column views of one
-packed projection. A variant computes wrong values; only its time means
-something: the base time less a variant's is what the part costs, overlap
-with the other parts included, and the compiler also drops whatever only
-fed the removed part (no_stores loses W V and the weights with the stores,
-so it is an upper bound). Also prints the SASS instruction mix of the
-flagship instantiation (cuobjdump). Prints one JSON line with the card's
-name and power limit. Needs a CUDA device and nvcc.
+Builds the forward source of CHECKOUT (default: this script's checkout) as
+it is and in variants with one part taken out, each into its own library in
+a temporary directory; an edit applies to the source and to the headers it
+includes (attention_mma.cuh holds the copies). The variants: no_softmax
+(the single-chunk routes' softmax), no_recompute (the three-pass route's
+passes 2 and 3 keep the scores of pass 1's last chunk in place of scoring
+each chunk again), no_products (the tensor-core products of the
+single-chunk and three-pass routes), no_copies (the bulk copies into shared
+memory) and no_stores (the output stores of those routes). Each variant's
+kernel is timed under torch.profiler (device time per call, 20 calls after
+a warm-up) for B1 at: bf16 [128, 150, 512] and f32 [64, 150, 512], causal
+(the sampling and evaluation shapes), and the text CMDM's f32 and bf16
+[64, 197, 512], non-causal (rows past 160 keys: the route the checkout's
+dispatch takes there), 4 heads of 128, q, k, v column views of one packed
+projection. A variant computes wrong values; only its time means something:
+the base time less a variant's is what the part costs, overlap with the
+other parts included, and the compiler also drops whatever only fed the
+removed part (no_stores loses W V and the weights with the stores, so it is
+an upper bound). Also prints each variant's ptxas spill lines (bytes a
+thread of spill stores and loads, per instantiation that spills) and the
+SASS instruction mix (cuobjdump) of the flagship instantiation and of the
+f32 three-pass one (LDL/STL: local-memory loads and stores, the spills).
+Prints one JSON line with the card's name and power limit. Needs a CUDA
+device and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import json
@@ -32,15 +44,18 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
-# (variant, [(text in the source, replacement)]): each text must occur once
+# (variant, [(text in the source or its headers, replacement)]): each text
+# must occur somewhere, and every occurrence is replaced
 VARIANTS = {
     "base": [],
     "no_softmax": [("""    row_max(s, m, wmax);
     reduce_max(m);
     exponentiate<T, SF32>(s, m, l, wmax);
     reduce_sum<T, SF32>(l);
-    weights<T, SF32>(s, l, wmax);
+    weights<T>(s, l, wmax);
 """, "")],
+    "no_recompute": [("      chunk_scores(c, false);\n", ""),
+                     ("    chunk_scores(c, false);\n", "")],
     "no_products": [
         ("if (active) Mma::scores(", "if (false) Mma::scores("),
         ("      if (active && dc + DC <= p.hdp)\n", "      if (false)\n"),
@@ -56,62 +71,93 @@ VARIANTS = {
         ("      if (active && staged)\n", "      if (false)\n"),
         ("      else if (active)\n        store_rows<T, DC>",
          "      else if (false)\n        store_rows<T, DC>"),
+        ("    if (active) store_rows<T, DC>(o, ob,", "    if (false) store_rows<T, DC>(o, ob,"),
     ],
 }
-SHAPES = (("bfloat16", 128), ("float32", 64))
-FLAGSHIP = "attention_fwd_kernelI13__nv_bfloat16Li160ELb0ELb0ELb0E"
+SHAPES = (  # (dtype, B, T, causal)
+    ("bfloat16", 128, 150, True), ("float32", 64, 150, True),
+    ("float32", 64, 197, False), ("bfloat16", 64, 197, False))
+# the flagship sampling instantiation and the f32 three-pass one
+SASS_ENTRIES = ("attention_fwd_kernelI13__nv_bfloat16Li160ELb0ELb0ELb0E",
+                "attention_fwd_kernelIfLi160ELb1ELb1ELb0E")
 
 
-def variant_source(src: str, edits) -> str:
+def variant_sources(sources, edits):
+    """{name: text} of the source and its headers after `edits`."""
+    sources = dict(sources)
     for old, new in edits:
-        if src.count(old) != 1:
+        if not any(old in text for text in sources.values()):
             raise RuntimeError(f"the ablation no longer matches the source: {old!r}")
-        src = src.replace(old, new)
-    return src
+        sources = {name: text.replace(old, new) for name, text in sources.items()}
+    return sources
 
 
-def build(out: Path):
+def spills(log):
+    """{instantiation: "S bytes spill stores, L bytes spill loads"} of the
+    instantiations that spill, from nvcc -Xptxas -v's log."""
+    found, entry = {}, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = re.sub(r"^.*?_cu_[0-9a-f]+\d+", "", line.split("'")[1])[:60]
+        elif "spill stores" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            found[entry] = line.split(",", 1)[1].strip()
+    return found
+
+
+def build(out: Path, root: Path):
+    """Every variant of CHECKOUT `root`'s forward source, built in parallel
+    into out/<variant>/lib.so; returns {variant: its spills}."""
     from regennet_torch.ops import kernels
 
-    src = (kernels.CSRC / "attention_fwd.cu").read_text()
-    for header in kernels.sources("attention_fwd")[1:]:
-        (out / header.name).write_text(header.read_text())
+    csrc = root / "regennet_torch" / "csrc"
+    names = ["attention_fwd.cu"] + sorted(p.name for p in csrc.glob("*.cuh"))
+    sources = {name: (csrc / name).read_text() for name in names}
     procs = {}
-    for name, edits in VARIANTS.items():
-        (out / f"{name}.cu").write_text(variant_source(src, edits))
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-               str(out / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    for name, proc in procs.items():
+    for variant, edits in VARIANTS.items():
+        folder = out / variant
+        folder.mkdir()
+        for name, text in variant_sources(sources, edits).items():
+            (folder / name).write_text(text)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(folder / "lib.so"),
+               str(folder / "attention_fwd.cu")]
+        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+    found = {}
+    for variant, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
+        found[variant] = spills(log)
+    return found
 
 
 def sass_mix(lib: Path):
-    """Static instruction counts of the flagship instantiation, by opcode."""
+    """{instantiation: static instruction counts by opcode} of
+    SASS_ENTRIES found in the library."""
     from regennet_torch.ops import kernels
 
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
+    found = {}
     for fn in re.split(r"\n\s+Function : ", sass):
-        if FLAGSHIP in fn.splitlines()[0]:
-            ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
-                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn))
-            return dict(ops.most_common(20))
-    return {}
+        for entry in SASS_ENTRIES:
+            if entry in fn.splitlines()[0]:
+                ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn))
+                found[entry] = dict(ops.most_common(20), LDL=ops["LDL"], STL=ops["STL"])
+    return found
 
 
-def device_us(lib, dtype, batch):
-    """Mean device time of one launch, in microseconds."""
+def device_us(lib, dtype, batch, T, causal):
+    """Mean device time of one B1 launch at [batch, T, 512], in
+    microseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from regennet_torch.ops import attention
 
-    T, D, H = 150, 512, 4
+    D, H = 512, 4
     hd = D // H
     td = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -119,7 +165,8 @@ def device_us(lib, dtype, batch):
     out = torch.empty(batch, T, D, device="cuda", dtype=td)
     strides = [(x.stride(0), hd, x.stride(1), x.stride(2)) for x in (q, k, v, out)]
     a = attention.forward_args((batch, H, T, hd), strides, td, [x.data_ptr() for x in (q, k, v)],
-                               float(torch.tensor(hd ** -0.5, dtype=td)), 1.0, True, None, False)
+                               float(torch.tensor(hd ** -0.5, dtype=td)), 1.0, causal, None,
+                               False)
 
     def call():
         rc = lib.attention_forward(
@@ -142,6 +189,9 @@ def device_us(lib, dtype, batch):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(REPO))
+    opts = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -151,20 +201,21 @@ def main() -> int:
     import chip_smoke
     from regennet_torch.ops import attention
 
-    result = {"card": chip_smoke.card_line(), "device_us": {}}
+    result = {"root": opts.root, "card": chip_smoke.card_line(), "device_us": {}}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
-        build(out)
-        result["sass_flagship"] = sass_mix(out / "base.so")
+        result["spills"] = build(out, Path(opts.root))
+        result["sass"] = sass_mix(out / "base" / "lib.so")
         for name in VARIANTS:
-            lib = ctypes.CDLL(str(out / f"{name}.so"))
+            lib = ctypes.CDLL(str(out / name / "lib.so"))
             for fn, (restype, argtypes) in attention.PROTOTYPES["attention_fwd"].items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
-            for dtype, batch in SHAPES:
-                us = device_us(lib, dtype, batch)
-                result["device_us"][f"{dtype} B={batch} {name}"] = us
-                print(f"  {dtype} [{batch}, 150, 512] {name}: {us:.1f} us", flush=True)
+            for dtype, batch, T, causal in SHAPES:
+                us = device_us(lib, dtype, batch, T, causal)
+                shape = f"{dtype} [{batch}, {T}, 512] {'causal' if causal else 'non-causal'}"
+                result["device_us"][f"{shape} {name}"] = us
+                print(f"  {shape} {name}: {us:.1f} us", flush=True)
     print(json.dumps(result))
     return 0
 

@@ -365,12 +365,13 @@ def run_study(device="cuda", workdir=None, scale="smokefit", clips=0, headline_s
     from regennet_torch.data import synthetic
     from regennet_torch.data.collate import ccollate, collate
     from regennet_torch.data.get_data import BatchLoader
-    from regennet_torch.device import resolve_device
+    from regennet_torch.device import pin_f32_contract, resolve_device
     from regennet_torch.eval import stgcn_eval, train_stgcn
     from regennet_torch.ops import attention
     from regennet_torch.train import checkpoint, train_mdm
 
     device = resolve_device(device)
+    pin_f32_contract()  # before the ST-GCN is trained or loaded, --eval_only too
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     s = SCALES[scale]
     workdir = workdir or tempfile.mkdtemp(prefix="capability_torch_")

@@ -103,9 +103,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import chip_smoke
+    from regennet_torch.device import pin_f32_contract
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_f32_contract()
     out = {"card": chip_smoke.card_line(), "requests": []}
     for request in (("online", 16, 1.0, "float32"), ("online", 16, 2.5, "float32"),
                     ("online", 128, 1.0, "bfloat16"), ("trans_enc", 16, 1.0, "float32"),

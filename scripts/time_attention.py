@@ -16,10 +16,13 @@ forward at rate 0.1 and at rate 0, and its backward at rate 0.1; B2's
 backward also at the text CMDM's f32 and bf16 [64, 197, 512], non-causal,
 rate 0.1 (the row pass with P in shared memory); each backward's device
 time is also split by pass (row pass, column pass) by kernel name under
-torch.profiler; B3 `fused_causal_attention` causal at bf16 [128, 4, 150,
-128]. Run it as parent, change, change, parent in one call to compare two
-versions. Prints one JSON line with the card's name and power limit.
-Needs a CUDA device.
+torch.profiler; B1 and B2's forward (rate 0.1) at the text CMDM's f32 and
+bf16 [64, 197, 512], non-causal (rows past 160 keys); B3
+`fused_causal_attention` causal at bf16 [128, 4, 150, 128]. Every case is
+also timed by device time under torch.profiler (`device_ms`: the kernels'
+time per call, without the host's launches). Run it as parent, change,
+change, parent in one call to compare two versions. Prints one JSON line
+with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +44,12 @@ CASES = (  # (name, kernel, dtype, B, T, causal)
      False),
     ("B2 backward bf16 [64, 197, 512] rate 0.1 non-causal", "backward 0.1", "bfloat16", 64, 197,
      False),
+    ("B1 f32 [64, 197, 512] non-causal", "btd", "float32", 64, 197, False),
+    ("B1 bf16 [64, 197, 512] non-causal", "btd", "bfloat16", 64, 197, False),
+    ("B2 forward f32 [64, 197, 512] rate 0.1 non-causal", "train 0.1", "float32", 64, 197,
+     False),
+    ("B2 forward bf16 [64, 197, 512] rate 0.1 non-causal", "train 0.1", "bfloat16", 64, 197,
+     False),
     ("B3 bf16 [128, 4, 150, 128]", "bhtd", "bfloat16", 128, 150, True),
 )
 
@@ -57,7 +66,7 @@ def main() -> int:
         return 2
     # this checkout's profiler helper, then CHECKOUT's package
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from chip_smoke import backward_pass_ms
+    from chip_smoke import backward_pass_ms, device_ms
 
     sys.path.insert(0, opts.root)
     from regennet_torch.ops import attention, kernels
@@ -68,7 +77,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     D, H = 512, 4
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times, passes = {}, {}
+    times, device, passes = {}, {}, {}
     for name, kind, dtype, B, T, causal in CASES:
         td = getattr(torch, dtype)
         if kind == "btd":
@@ -106,9 +115,10 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         times[name] = start.elapsed_time(end) / opts.iters
+        device[name] = device_ms(call, opts.iters)
         if kind.startswith("backward"):
             passes[name] = backward_pass_ms(call, opts.iters)
-    print(json.dumps({"root": opts.root, "card": card, "ms": times,
+    print(json.dumps({"root": opts.root, "card": card, "ms": times, "device_ms": device,
                       "backward_passes_ms": passes}))
     return 0
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import runpy
 import sys
 from pathlib import Path
 
@@ -52,7 +53,8 @@ def main() -> int:
     import chip_smoke as cs
 
     sys.path.insert(0, opts.root)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # this checkout's f32 contract: CHECKOUT's package may predate the helper
+    runpy.run_path(str(HERE / "regennet_torch" / "device.py"))["pin_f32_contract"]()
     order = cs.TRAIN_CASES
     if opts.t200_inside:
         order = ((8, (150, 60, 151, 200)), (cs.TRAIN["batch"], (150, 60, 151)))

@@ -874,3 +874,23 @@ def test_phase16_launch_arithmetic(monkeypatch, order):
     assert counts == cs.extras_model_calls(7, order)
     assert cs.extras_model_calls(50, 2) == {"plms": 51, "round_trip": 100, "bpd": 50}
     assert 8 * cs.extras_model_calls(50, 2)["plms"] == 408
+
+
+def test_stgcn_tf32_check_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 6's ST-GCN check at a cut size on the CPU: train_stgcn.main
+    started with TF32 allowed leaves both flags False, the comparison is
+    recorded, and the contract is pinned again after it (the CPU has no
+    TF32: the logits agree)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    for key, value in dict(clips=16, T=24, batch=8, epochs=1).items():
+        monkeypatch.setitem(cs.STGCN_TF32, key, value)
+    report = {}
+    res = cs.check_stgcn_tf32(report, "cpu", tmp_path, device="cpu")
+    assert report["stgcn_tf32"] is res
+    assert res["flags_before"] == (True, True) and res["flags_after"] == (False, False)
+    assert cs.tf32_flags() == (False, False)
+    assert res["logits_max_abs_diff"] == 0.0 and res["argmax_agreement"] == 1.0
+    assert res["gt_accuracy_f32"] == res["gt_accuracy_tf32"]
+    assert (tmp_path / "stgcn_tf32" / "model000000001.pt").exists()

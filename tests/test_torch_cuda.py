@@ -23,8 +23,26 @@ def _tolerance(dtype, ref):
     return (1e-5 if dtype == "float32" else 2.0 ** -6) * scale
 
 
+def _longest_rows(qt, dtype, softmax_f32, hd=128):
+    """The longest rows (keys) that the stored-row routes of both kernels
+    take in blocks of `qt` query rows at head dim `hd` (attention_mma.cuh
+    stored_block): qt rows of P in the score dtype beside qt rows of q and
+    a slab of one group of 32 keys, in the device's shared memory."""
+    cap = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    elem = 4 if dtype == "float32" else 2
+    score = 4 if dtype == "float32" or softmax_f32 else 2
+    row = (hd + 16 // elem) * elem  # a shared row, padded by 16 bytes
+    return (cap - (qt + 32) * row - 16) // (qt * score) // 32 * 32
+
+
+# sequence lengths at the stored-row route's edges: its first rows (161
+# keys), 7 whole groups (224) and one key into the 8th (225), with the key
+# count as causal rows see it (T) and as kv_len = T - 10 leaves it (T + 10)
+EDGES = [161, 171, 197, 224, 225, 234, 235]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [60, 151])
+@pytest.mark.parametrize("T", [60, 151, 161, 168, 197, 224, 225, 231, 232, 1024])
 @pytest.mark.parametrize("mask", MASKS)
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
@@ -36,7 +54,7 @@ def test_cuda_kernel_matches_plain_version(T, mask, dtype, softmax_f32):
     packed = packed.to(getattr(torch, dtype))
     q, k, v = packed.split(dmodel, dim=-1)
     causal = mask == "causal"
-    kv_len = T - 7 if mask == "kv_len" else None
+    kv_len = T - 7 if mask == "kv_len" else None  # (168, 231, 232: 161, 224, 225 keys)
     before = attention.fused_attention_btd.launches
     out = attention.fused_attention_btd(q, k, v, heads, causal, softmax_f32, kv_len)
     torch.cuda.synchronize()
@@ -109,15 +127,14 @@ def _check_train_case(B, T, dtype, causal, kv_len, rate, softmax_f32=False, offs
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16, 60, 64, 65, 150, 151, 160, 161, 197, 256])
+@pytest.mark.parametrize("T", [16, 60, 64, 65, 150, 151, 160, *EDGES, 256])
 @pytest.mark.parametrize("mask", ["causal", "kv_len"])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rate):
-    """Every route of the forward kernel (one chunk of 64 or 160 keys in
-    registers, or three passes over chunks) and of the backward's row pass
-    (P in registers for rows of up to 64 or 160 keys, in shared memory past
-    them), with and without dropout."""
+    """Every route of the forward kernel and of the backward's row pass (P
+    in registers for rows of up to 64 or 160 keys, in shared memory past
+    them; the stored-row route at its edges), with and without dropout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"
@@ -127,14 +144,12 @@ def test_cuda_train_kernels_match_plain_version(T, mask, dtype, softmax_f32, rat
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", ["causal", "kv_len"])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
-@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 def test_cuda_train_kernels_at_1024_keys(mask, dtype, softmax_f32, rate):
-    """T 1024: the backward's row pass takes several chunks of scores and
-    several slabs of keys (f32 and an f32 softmax in blocks of 32 rows), its
-    column pass a long walk over the queries; as
-    test_cuda_train_kernels_match_plain_version. (At rate 0.5 the forward's
-    three-pass route reads 1.07e-5 against the 1e-5 tolerance at f32 with a
-    key mask: ROADMAP C.)"""
+    """T 1024: both kernels' stored-row routes take several chunks of scores
+    and several slabs of keys and values (f32 and an f32 softmax in blocks
+    of 32 rows), the backward's column pass a long walk over the queries; as
+    test_cuda_train_kernels_match_plain_version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     causal = mask == "causal"
@@ -162,13 +177,17 @@ def test_cuda_train_kernels_at_other_head_dims(heads, hd, T, mask, dtype, softma
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(2, 2048), (1, 3232)])
+@pytest.mark.parametrize("B,T", [(2, 2048), (1, 3232), (1, "longest at 64 rows"),
+                                 (1, "longest at 32 rows"), (1, "longest at 16 rows")])
 @pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
 def test_cuda_train_kernels_at_the_longest_rows(B, T, dtype, softmax_f32):
-    """The row pass with P in shared memory in blocks of 16 rows (f32 and an
-    f32 softmax at T 2048; bf16 with a bf16 softmax in blocks of 32) and at
-    its longest f32 rows at head dim 128 (3,232 keys: 16 rows of P, 16 of q
-    and a group of 32 keys in 227 KB), causal, rate 0.1, one head of 128.
+    """Both kernels' stored-row routes with P in shared memory in blocks of
+    16 rows (f32 and an f32 softmax at T 2048; bf16 with a bf16 softmax in
+    blocks of 32), at 3,232 keys (f32 at head dim 128: its longest, 16 rows
+    of P, 16 of q and a group of 32 keys in 227 KB), and at each dtype's
+    longest rows for blocks of 64, 32 and 16 rows (_longest_rows: f32 704,
+    1,536, 3,232; bf16 1,600, 3,328, 6,848; bf16 with an f32 softmax 800,
+    1,664, 3,424), causal, rate 0.1, one head of 128.
     The output and the gradients are held against the plain versions at
     this file's tolerances, and the gradients against autograd of the plain
     forward as chip_smoke phase 2b holds them (gradient_tolerance: at bf16
@@ -178,6 +197,8 @@ def test_cuda_train_kernels_at_the_longest_rows(B, T, dtype, softmax_f32):
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     import chip_smoke
 
+    if isinstance(T, str):
+        T = _longest_rows(int(T.split()[-2]), dtype, softmax_f32)
     fn = attention.fused_attention_btd_train
     before = (fn.launches, fn.backward_launches)
     (out, grads), (ref, ref_grads), plain_grads = _train_case(
@@ -196,21 +217,37 @@ def test_cuda_train_kernels_at_the_longest_rows(B, T, dtype, softmax_f32):
 
 
 @pytest.mark.cuda
-def test_cuda_train_backward_raises_past_its_longest_rows():
-    """Rows longer than the row pass takes (3,264 keys at f32, head dim
-    128) raise from the backward's launch; the forward runs."""
+@pytest.mark.parametrize("dtype,softmax_f32", DTYPE_MODES)
+def test_cuda_train_backward_raises_past_its_longest_rows(dtype, softmax_f32):
+    """Rows one key longer than the stored-row routes take at head dim 128
+    (f32: 3,233 keys) raise from the backward's launch; the forward takes
+    its three-pass route there, and B1 and B2 (rate 0.5, a key mask:
+    kv_len = T - 10) match their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
-    B, T, hd = 1, 3264, 128
+    B, hd = 1, 128
+    kv_len = _longest_rows(16, dtype, softmax_f32) + 1
+    T = kv_len + 10
     gen = torch.Generator(device="cuda").manual_seed(T)
-    x = torch.randn(B, T, 3 * hd, device="cuda", generator=gen).requires_grad_()
+    x = torch.randn(B, T, 3 * hd, device="cuda", generator=gen)
+    x = x.to(getattr(torch, dtype)).requires_grad_()
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 2), device="cuda", generator=gen,
                           dtype=torch.int32)
     q, k, v = x.split(hd, dim=-1)
     fn = attention.fused_attention_btd_train
-    out = fn(q, k, v, 1, 0.1, seeds)
+    before = fn.launches
+    out = fn(q, k, v, 1, 0.5, seeds, False, softmax_f32, kv_len)
     torch.cuda.synchronize()
-    assert math.isfinite(float(out.detach().abs().max()))
+    assert fn.launches == before + 1
+    with torch.no_grad():
+        for ours, plain in (
+                (out.detach(), attention.attention_btd_train_reference(
+                    q, k, v, 1, 0.5, seeds, False, softmax_f32, kv_len)),
+                (attention.fused_attention_btd(q, k, v, 1, False, softmax_f32, kv_len),
+                 attention.attention_btd_reference(q, k, v, 1, False, softmax_f32, kv_len))):
+            plain_np = plain.float().cpu().numpy()
+            np.testing.assert_allclose(ours.float().cpu().numpy(), plain_np, rtol=0,
+                                       atol=_tolerance(dtype, plain_np))
     before = fn.backward_launches
     with pytest.raises(RuntimeError, match="invalid argument"):
         out.backward(torch.ones_like(out))
@@ -262,8 +299,9 @@ def test_cuda_train_forward_mask_with_a_head_offset(T):
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_cuda_train_forward_mask_equals_dropout_bits(T, causal, rate):
     """The forward kernel's kept weights on each route (T 48: a chunk of 64
-    keys; 128: a chunk of 160; 200: three passes over chunks), read from its
-    output by chip_smoke.train_mask (one launch for each 128 keys)."""
+    keys; 128: a chunk of 160; 200: the rows of P in shared memory), read
+    from its output by chip_smoke.train_mask (one launch for each 128
+    keys)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     import chip_smoke
@@ -284,7 +322,7 @@ def test_cuda_train_forward_mask_equals_dropout_bits(T, causal, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16, 151])
+@pytest.mark.parametrize("T", [16, 151, 161, 197, 224, 225, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_causal_attention_matches_plain_version(T, causal, dtype):
@@ -358,8 +396,8 @@ def _check_forward(q, k, v, heads, causal, kv_len, dtype):
 @pytest.mark.parametrize("mask", MASKS)
 def test_cuda_forward_kernel_matches_plain_versions(B, T, hd, dtype, mask):
     """attention_fwd.cu at every sequence length (one chunk of keys in
-    registers, or three passes over chunks), head dim (padded to 16 or not)
-    and mask, on packed [B, T, 3D] views with 2 heads."""
+    registers, or the rows of P in shared memory), head dim (padded to 16 or
+    not) and mask, on packed [B, T, 3D] views with 2 heads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
     heads = 2
@@ -427,3 +465,33 @@ def test_cuda_train_backward_keeps_its_graph_under_create_graph(T, rate):
         ref = b.cpu().numpy()
         np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=0,
                                    atol=1e-4 * max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.cuda
+def test_cuda_train_stgcn_pins_the_f32_contract(tmp_path):
+    """train_stgcn.main on the card (the reduced classifier, one epoch of 8
+    clips) leaves both TF32 flags False, having started True."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    from argparse import Namespace
+
+    from regennet_torch.data import synthetic
+    from regennet_torch.data.feeder import Feeder
+    from regennet_torch.eval import train_stgcn
+
+    T = 16
+    pair = synthetic.make_clip_pair("chi3d", 8, min_len=T + 4, max_len=T + 16, learnable=True)
+    data = Feeder(clips=pair["train"], test_clips=pair["test"], dataname="chi3d",
+                  split="train", num_frames=T, num_person=2)
+    args = Namespace(dataset="chi3d", data_path="", pose_rep="rot6d", body_model="smplx",
+                     glob=True, translation=True, num_frames=T, batch_size=4, lr=1e-3,
+                     num_epochs=1, save_every=1, save_dir=str(tmp_path / "stgcn"), seed=0,
+                     keep_best=False, stgcn_channels=(8, 8), stgcn_strides=(1, 1))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        train_stgcn.main(args, device="cuda", data=data)
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert flags == (False, False)
