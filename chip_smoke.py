@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (regennet_torch) on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--phases 1b,2,...]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit; build every CUDA kernel with nvcc;
+  1b. fresh models moved to the card and drawn there by the port's
+     random_init_ (the JAX package's Flax initialisers): the flagship
+     online CMDM, the study-width gru trunk, the ACTOR CVAE, the Chi3D
+     ST-GCN, the T2M movement decoder and motion encoder and comp_v6 at
+     their published widths; each parameter against its Flax initialiser's
+     analytic std (constants exact, the sample std within 5 standard
+     errors, lecun-normal entries within the truncation, GRU gate blocks
+     orthogonal) and equal to the same seed's draw on the CPU;
   2. the sampling attention kernel against its plain PyTorch version on
      the card, at the sampler's shapes, with the kernel's, the plain
      version's and one PyTorch library call's times beside its bound;
@@ -203,6 +211,12 @@ the GAN's [32, 60, 256] (D; B1 there: evaluate_cvae's decode) and [32,
 16, 256] (G), with phase 15's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+`--phases` runs the named phases (1 always), and the phases whose
+results or files they take (NEEDS: 3 before 4, 5, 7 and 9; 4 before 6;
+11 before 12, 12 before 13; 3, 4 and 11 before 14; 14 before 15); phase
+16 then checks the checkpoint kinds those phases wrote. Such a part of
+the run prints its launches by path in place of the kernel line, and the
+last line with the phases it ran. Without it every phase runs.
 Exits non-zero without CUDA, or without the regennet_torch package beside it.
 """
 
@@ -2432,7 +2446,7 @@ def write_t2m_assets(workdir):
     import torch
 
     from regennet_torch.data.humanml.dataset import write_synthetic_humanml
-    from regennet_torch.models.clip_text_tower import ClipTextTower
+    from regennet_torch.models.clip_text_tower import ClipTextTower, random_init_
 
     t0 = time.perf_counter()
     root = write_synthetic_humanml(str(workdir / "HumanML3D"), num_clips=T2M["clips"],
@@ -2442,8 +2456,7 @@ def write_t2m_assets(workdir):
     frames = np.concatenate(clips).astype(np.float64)
     np.save(os.path.join(root, "Mean.npy"), frames.mean(0).astype(np.float32))
     np.save(os.path.join(root, "Std.npy"), frames.std(0).astype(np.float32))
-    tower = ClipTextTower(**CLIP_TOWER)
-    tower.reset_parameters(torch.Generator().manual_seed(13))
+    tower = random_init_(ClipTextTower(**CLIP_TOWER), torch.Generator().manual_seed(13))
     paths = t2m_paths(workdir)
     torch.save(tower.state_dict(), paths["clip"])
     with gzip.open(paths["bpe"], "wt", encoding="utf-8") as f:
@@ -4150,6 +4163,15 @@ EXTRAS = dict(respacing="50", batch=16, order=2, cpu_rows=1)
 # the length estimator, 13: comp_v6, 14: the CVAE)
 CKPT_KINDS = ("cmdm/online", "cmdm/offline", "cmdm/gru", "cmdm/mlp", "stgcn", "clip_text",
               "t2m", "length_est", "comp_v6", "actor/transformer")
+# the phases that write each kind's files
+CKPT_PHASES = {"cmdm/online": ("4",), "cmdm/offline": ("5",), "cmdm/gru": ("7",),
+               "cmdm/mlp": ("7",), "stgcn": ("6", "8"), "clip_text": ("11",), "t2m": ("12",),
+               "length_est": ("12",), "comp_v6": ("13",), "actor/transformer": ("14",)}
+
+
+def ckpt_kinds(selected):
+    """The kinds of CKPT_KINDS that the `selected` phases write."""
+    return tuple(k for k in CKPT_KINDS if set(CKPT_PHASES[k]) & set(selected))
 
 
 def dist_args(save_dir, **over):
@@ -4605,11 +4627,11 @@ def run_sampler_extras(report, card, loop, batches, device="cuda"):
     return list(calls.values())
 
 
-def run_ckpt_check(report, card, root):
+def run_ckpt_check(report, card, root, kinds=None):
     """Phase 16 (d): torch_ckpt --check on every model file the earlier
     phases wrote under `root` (model<N>.pt, latest.tar, the CLIP tower):
     each detected kind loads strictly into the port's module, and every
-    kind of CKPT_KINDS is among them. Files of no checker kind (a decomposition
+    kind of `kinds` (CKPT_KINDS when None) is among them. Files of no checker kind (a decomposition
     pair, a GAN's G and D) are listed."""
     import contextlib as cl
     import io
@@ -4636,7 +4658,7 @@ def run_ckpt_check(report, card, root):
         if not out.getvalue().startswith(f"OK: {path} is a valid {kind} checkpoint"):
             raise AssertionError(f"torch_ckpt --check {path}: {out.getvalue()}")
         checked.setdefault(kind, []).append(str(path.relative_to(root)))
-    missing = sorted(set(CKPT_KINDS) - set(checked))
+    missing = sorted(set(CKPT_KINDS if kinds is None else kinds) - set(checked))
     if missing:
         raise AssertionError(f"torch_ckpt --check: no checkpoint of {missing} under {root}")
     report["phase16_ckpt_check"] = dict(checked=checked, other=other,
@@ -4707,9 +4729,10 @@ def check_phase16_kernels(report):
     return worst
 
 
-def run_phase16(report, card, workdir, device="cuda"):
+def run_phase16(report, card, workdir, device="cuda", kinds=None):
     """Phase 16: run_distributed, run_sampler_extras on its one-process
-    model, run_ckpt_check over `workdir` (the earlier phases' files).
+    model, run_ckpt_check over `workdir` (the earlier phases' files, of
+    `kinds`).
     Returns {"b1", "b2"}: the launches of every run."""
     t0 = time.perf_counter()
     dist_dir = Path(workdir) / "dist"
@@ -4717,7 +4740,7 @@ def run_phase16(report, card, workdir, device="cuda"):
     runs, loop = run_distributed(report, card, dist_dir, device)
     batches, _ = __import__("torch").load(dist_dir / "batches.pt", weights_only=False)
     runs += run_sampler_extras(report, card, loop, batches, device)
-    run_ckpt_check(report, card, workdir)
+    run_ckpt_check(report, card, workdir, kinds)
     out = {"b1": sum(r["b1"] for r in runs),
            "b2": {w: sum(r["b2"][w] for r in runs) for w in ("forward", "backward")}}
     wall_s = time.perf_counter() - t0
@@ -4726,13 +4749,172 @@ def run_phase16(report, card, workdir, device="cuda"):
     return out
 
 
+# phase 1b's fresh models: the CMDM at the flagship width (online) and its gru
+# trunk at the capability study's, the ACTOR CVAE at train_cvae's defaults,
+# the Chi3D ST-GCN, two T2M evaluators at T2M_OPT's widths, comp_v6
+FRESH_SEED = 21
+
+
+def fresh_models():
+    """(name, build, init, own) of phase 1b: `build` makes the CPU module at
+    its published width, `init` is its family's random_init_, `own` maps
+    the params the module declares itself to their normal(std), or "ones"
+    for a constant."""
+    from regennet_torch.models import actor_cvae, cmdm, stgcn, t2m_eval, t2m_gen
+
+    study = dict(njoints=56, nfeats=6, num_actions=8, num_frames=60, ff_size=1024,
+                 num_heads=4, cond_mask_prob=0.1)
+    return [
+        ("cmdm online", lambda: cmdm.CMDM(**study, latent_dim=FLAGSHIP["latent_dim"],
+                                          num_layers=FLAGSHIP["layers"], arch="online",
+                                          cm_mode="concat"),
+         cmdm.random_init_, {"action_embedding": 1.0}),
+        ("cmdm gru", lambda: cmdm.CMDM(**study, latent_dim=128, num_layers=4, arch="gru"),
+         cmdm.random_init_, {"action_embedding": 1.0}),
+        ("actor cvae", lambda: actor_cvae.ActorCVAE(25, 6, 12, latent_dim=CVAE["latent_dim"],
+                                                    num_layers=CVAE["layers"]),
+         actor_cvae.random_init_, {"muQuery": 0.02, "sigmaQuery": 0.02, "actionBiases": 0.02}),
+        ("stgcn", lambda: stgcn.STGCN(12, 8, num_person=2, layout="smplx"),
+         stgcn.random_init_, {"edge_importance": "ones"}),
+        ("t2m movement decoder", lambda: t2m_eval.networks(263, "movement_dec")[0],
+         t2m_eval.random_init_, {}),
+        ("t2m motion encoder", lambda: t2m_eval.networks(263, "motion_encoder")[0],
+         t2m_eval.random_init_, {"hidden": 1.0}),
+        ("comp_v6", lambda: t2m_gen.CompV6Generator(
+            dim_z=COMP_V6["dim_z"], pri_hidden=COMP_V6["pri_hidden"],
+            dec_hidden=COMP_V6["dec_hidden"], text_hidden=COMP_V6["text_hidden"],
+            att_vec=COMP_V6["att_vec"], n_layers=COMP_V6["n_layers"]),
+         t2m_eval.random_init_, {"hidden": 1.0}),
+    ]
+
+
+def flax_initialiser(module, name, p, own):
+    """The JAX package's Flax initialiser of the port's parameter `name` of
+    `module`, from the layer that holds it: ("lecun", std) for a kernel
+    (std sqrt(1 / fan-in); fan-in = input features x receptive field, a
+    transposed convolution's [in, out, k] weight in x k), ("orthogonal",
+    std) for a GRU's recurrent weight (each [H, H] gate block; entries of
+    std sqrt(1 / H)), ("normal", std) for `own`'s, ("ones" or "zeros",
+    None) for the constants."""
+    from torch import nn
+
+    if own is not None:
+        return (own, None) if isinstance(own, str) else ("normal", own)
+    if "bias" in name:
+        return "zeros", None
+    if isinstance(module, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
+        return "ones", None
+    if isinstance(module, nn.ConvTranspose1d):
+        return "lecun", (p.shape[0] * p.shape[2]) ** -0.5
+    if isinstance(module, (nn.Conv1d, nn.Conv2d)):
+        return "lecun", p[0].numel() ** -0.5
+    if name.startswith("weight_hh"):
+        return "orthogonal", p.shape[1] ** -0.5
+    return "lecun", p.shape[1] ** -0.5  # Linear, GRU weight_ih, packed in_proj
+
+
+def check_fresh_parameters(report, card, device="cuda"):
+    """Phase 1b: fresh models moved to the card and drawn there by the port's
+    `random_init_` (models/initializers, the JAX package's Flax rules), each
+    parameter held against its Flax initialiser's analytic std: constants
+    exact; a tensor of at least 1,024 entries within 5 standard errors
+    (5/sqrt(2n), relative) of the std; a lecun-normal entry within its
+    truncation, 2 std / 0.8796; each GRU recurrent gate block orthogonal
+    (max|W W^T - I| <= 1e-5); and the card's draws equal to the same seed's
+    on the CPU. `device` "cpu" rehearses it."""
+    import torch
+
+    from regennet_torch.models import initializers
+
+    rows = {}
+    for what, build, init, own_by_name in fresh_models():
+        t0 = time.perf_counter()
+        model = init(build().to(device), torch.Generator().manual_seed(FRESH_SEED))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cpu = init(build(), torch.Generator().manual_seed(FRESH_SEED)).state_dict()
+        worst = dict(std_over_tol=0.0, max_over_truncation=0.0, orthogonality=0.0)
+        n_params = 0
+        for mod_name, module in model.named_modules():
+            for name, p in module.named_parameters(recurse=False):
+                full = f"{mod_name}.{name}" if mod_name else name
+                own = next((v for k, v in own_by_name.items() if f".{k}." in f".{full}."),
+                           None)
+                kind, std = flax_initialiser(module, name, p, own)
+                x = p.detach().double()
+                n_params += x.numel()
+                if not torch.equal(p.detach().cpu(), cpu[full]):
+                    raise AssertionError(f"phase 1b {what} {full}: the card's draw differs "
+                                         "from the CPU's")
+                if kind in ("zeros", "ones"):
+                    if not bool((x == (kind == "ones")).all()):
+                        raise AssertionError(f"phase 1b {what} {full}: not all {kind}")
+                    continue
+                if x.numel() >= 1024:
+                    tol = 5.0 / math.sqrt(2 * x.numel())
+                    ratio = float(x.std()) / std
+                    worst["std_over_tol"] = max(worst["std_over_tol"], abs(ratio - 1) / tol)
+                    if abs(ratio - 1) > tol:
+                        raise AssertionError(
+                            f"phase 1b {what} {full}: std {float(x.std()):.4g} is {ratio:.4f}x "
+                            f"the Flax {kind} std {std:.4g} (tolerance {tol:.4f})")
+                if kind == "lecun":
+                    bound = 2 * std / initializers.TRUNCATED_STD
+                    over = float(x.abs().max()) / bound
+                    worst["max_over_truncation"] = max(worst["max_over_truncation"], over)
+                    hold(f"phase 1b {what} {full} |max| over its truncation", over, 1 + 1e-6)
+                if kind == "orthogonal":
+                    for block in x.chunk(3, dim=0):
+                        eye = torch.eye(block.shape[0], dtype=x.dtype, device=x.device)
+                        err = float((block @ block.T - eye).abs().max())
+                        worst["orthogonality"] = max(worst["orthogonality"], err)
+                        hold(f"phase 1b {what} {full} orthogonality", err, 1e-5)
+        rows[what] = dict(params=n_params, init_s=init_s, **worst)
+        print(f"  {what}: {n_params} parameters drawn on the card in {init_s:.2f} s; worst "
+              f"std error {worst['std_over_tol']:.3f} of its tolerance, |max| "
+              f"{worst['max_over_truncation']:.4f} of the truncation, orthogonality "
+              f"{worst['orthogonality']:.2e}; equal to the CPU's draw [{card}]")
+    report["fresh_parameters"] = rows
+
+
 def path_launches(paths, name, which=None):
     """A kernel's launches summed over the paths that ran it (`which`:
     "forward" or "backward" for B2's per-path dicts)."""
     return sum(v if which is None else v[which] for v in paths[name].values())
 
 
-def main() -> int:
+PHASES = ("1b", "2", "2b", "2c", "2d", *map(str, range(3, 17)))
+# the phases whose results or files a phase takes
+NEEDS = {"4": ("3",), "5": ("3",), "6": ("4",), "7": ("3",), "9": ("3",), "12": ("11",),
+         "13": ("12",), "14": ("3", "4", "11"), "15": ("14",)}
+
+
+def select_phases(argv):
+    """The phases of `--phases A,B,...` (all of PHASES without it), with
+    every phase they need (NEEDS)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive regennet_torch on one NVIDIA GPU.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all), among "
+                             + ", ".join(PHASES) + "; the phases they need run too")
+    names = [p.strip() for p in parser.parse_args(argv).phases.split(",") if p.strip()]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
+    selected, todo = set(), list(names)
+    while todo:
+        phase = todo.pop()
+        if phase not in selected:
+            selected.add(phase)
+            todo.extend(NEEDS.get(phase, ()))
+    return selected
+
+
+def main(argv=None) -> int:
+    selected = select_phases(sys.argv[1:] if argv is None else argv)
+    run = selected.__contains__
     try:
         import torch
     except ImportError:
@@ -4766,92 +4948,129 @@ def main() -> int:
                 print(f"    {entry}: {line.strip()}")
     report["build_s"] = {k: v["seconds"] for k, v in built.items()}
 
-    print("phase 2: the sampling attention kernel against its plain version")
-    worst, flagship, eval_shape = check_attention_kernel(report, card)
-    print("phase 2b: the training attention kernels against their plain version")
-    train_worst, train_timing = check_train_kernels(report, card)
-    print("phase 2c: fused_causal_attention on its path, against its plain version")
-    causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
-    print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and 11), "
-          "the full-scale capability study's (head dim 32), the CVAE's (phase 14) and the "
-          "GAN's (phase 15)")
-    timings = time_model_kernels(report, card)
-    cvae_timings = time_cvae_kernels(report, card)
-    gan_timings, second_timings = time_gan_kernels(report, card)
-    print("phase 3: cgenerate at the flagship width")
-    data, launches = run_requests(report, card)
-    check_forward(report, data)
-    print("phase 4: train_mdm on the flagship training configuration")
+    if run("1b"):
+        print("phase 1b: fresh parameters drawn on the card by the JAX package's initialisers")
+        check_fresh_parameters(report, card)
+    if run("2"):
+        print("phase 2: the sampling attention kernel against its plain version")
+        worst, flagship, eval_shape = check_attention_kernel(report, card)
+    if run("2b"):
+        print("phase 2b: the training attention kernels against their plain version")
+        train_worst, train_timing = check_train_kernels(report, card)
+    if run("2c"):
+        print("phase 2c: fused_causal_attention on its path, against its plain version")
+        causal_launches, causal_worst, causal_timing = check_causal_attention(report, card)
+    if run("2d"):
+        print("phase 2d: B1 and B2 timed at the a2m and text CMDMs' shapes (phases 10 and "
+              "11), the full-scale capability study's (head dim 32), the CVAE's (phase 14) "
+              "and the GAN's (phase 15)")
+        timings = time_model_kernels(report, card)
+        cvae_timings = time_cvae_kernels(report, card)
+        gan_timings, second_timings = time_gan_kernels(report, card)
+    # each path's launches: {kernel: {phase: launches}}, of the phases that ran
+    paths = {"fused_attention_btd": {}, "fused_attention_btd_train": {},
+             "fused_causal_attention": {}}
+    b1_paths, b2_paths = paths["fused_attention_btd"], paths["fused_attention_btd_train"]
+    if run("2c"):
+        paths["fused_causal_attention"]["phase 2c"] = causal_launches
+    if run("3"):
+        print("phase 3: cgenerate at the flagship width")
+        data, b1_paths["phase 3"] = run_requests(report, card)
+        check_forward(report, data)
     with tempfile.TemporaryDirectory() as tmp:
         save_dir = Path(tmp) / "train"
-        loop, loader, train_launches = run_training(report, card, save_dir)
-        check_train_step(report, loop, loader)
-        profile_train_step(report, loop, loader)
-        sample_trained(report, save_dir, data)
-        del loop, loader
-        print("phase 5: the offline CMDM (the default --arch) at the flagship width")
-        offline_train, offline_launches = run_offline(report, card, Path(tmp) / "offline",
-                                                      data)
-        print("phase 6: eval_cmdm (debug) on phase 4's checkpoint; the ST-GCN trainer's f32 "
-              "contract")
-        eval_launches = run_eval(report, card, save_dir / f"model{TRAIN['steps']:09d}.pt")
-        check_stgcn_tf32(report, card, Path(tmp))
-        print("phase 7: the gru and mlp trunks at the flagship width")
-        for arch in ("gru", "mlp"):
-            run_trunk(report, card, Path(tmp) / arch, data, arch)
-        print("phase 8: the learning guard (scripts/capability_study_torch.py, smokefit)")
-        guard_worst = check_guard_kernels(report)
-        guard = run_learning_guard(report, card, Path(tmp) / "guard")
-        print("phase 9: bf16 training at the flagship width")
-        bf16_train, bf16_b1 = run_bf16_training(report, card, Path(tmp) / "bf16", data)
-        bf16_trunks = [run_bf16_trunk(report, card, Path(tmp) / f"bf16_{arch}", data, arch)
-                       for arch in ("trans_enc", "gru", "mlp")]
-        print("phase 10: the single-person a2m path (HumanAct12, UESTC) at the a2m width")
-        a2m_worst = check_a2m_kernels(report)
-        a2m = run_a2m(report, card, Path(tmp) / "a2m")
-        print("phase 11: the text-to-motion path (HumanML3D, CLIP, generate) at the CLIs' "
-              "default width")
-        t2m_worst = check_t2m_kernels(report)
-        t2m = run_t2m(report, card, Path(tmp) / "t2m")
-        print("phase 12: the text evaluation (train_t2m_eval, eval_humanml, the in-training "
-              "route, generate --length_estimator) on phase 11's model")
-        t2m_eval_worst = check_t2m_eval_kernels(report)
-        t2m_eval = run_t2m_eval(report, card, Path(tmp) / "t2m")
-        print("phase 13: the comp_v6 generator (train_t2m_gen, eval_humanml and generate's "
-              "comp_v6 routes, motion_process) at its published widths")
-        run_comp_v6(report, card, Path(tmp) / "t2m")
-        print("phase 14: edit, the Predictor, the ACTOR CVAE (train_cvae, "
-              "generate_sequences) and mesh rendering")
-        cvae_worst = check_cvae_kernels(report)
-        phase14 = run_phase14(report, card, Path(tmp), data)
-        print("phase 15: the ACTOR GAN (train_gan hinge and wgan-gp, gen_samples_per_class), "
-              "evaluate_cvae on phase 14's CVAE and the SMPLify fit")
-        gan_worst = check_gan_kernels(report)
-        phase15 = run_phase15(report, card, Path(tmp))
-        print("phase 16: train_mdm at --data_parallel 2 and --tensor_parallel 2 (two ranks "
-              "over gloo on this card), --param_sharding fsdp in an NCCL group of one, the "
-              "sampler extras and the VLB terms, torch_ckpt --check on phases 4-15's files")
-        p16_worst = check_phase16_kernels(report)
-        phase16 = run_phase16(report, card, Path(tmp))
-    bf16_b2 = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
-               for w in ("forward", "backward")}
-    paths = {"fused_attention_btd": {"phase 3": launches, "phase 5": offline_launches,
-                                     "phase 6": eval_launches,
-                                     "phase 8": guard["fused_attention_btd"],
-                                     "phase 9": bf16_b1, "phase 10": a2m["b1"],
-                                     "phase 11": t2m["b1"], "phase 12": t2m_eval["b1"],
-                                     "phase 14": phase14["b1"], "phase 15": phase15["b1"],
-                                     "phase 16": phase16["b1"]},
-             "fused_attention_btd_train": {"phase 4": train_launches, "phase 5": offline_train,
-                                           "phase 8": guard["fused_attention_btd_train"],
-                                           "phase 9": bf16_b2, "phase 10": a2m["b2"],
-                                           "phase 11": t2m["b2"],
-                                           "phase 12": t2m_eval["b2"],
-                                           "phase 14": phase14["b2"],
-                                           "phase 15": phase15["b2"],
-                                           "phase 16": phase16["b2"]},
-             "fused_causal_attention": {"phase 2c": causal_launches}}
+        if run("4"):
+            print("phase 4: train_mdm on the flagship training configuration")
+            loop, loader, b2_paths["phase 4"] = run_training(report, card, save_dir)
+            check_train_step(report, loop, loader)
+            profile_train_step(report, loop, loader)
+            sample_trained(report, save_dir, data)
+            del loop, loader
+        if run("5"):
+            print("phase 5: the offline CMDM (the default --arch) at the flagship width")
+            b2_paths["phase 5"], b1_paths["phase 5"] = run_offline(
+                report, card, Path(tmp) / "offline", data)
+        if run("6"):
+            print("phase 6: eval_cmdm (debug) on phase 4's checkpoint; the ST-GCN trainer's "
+                  "f32 contract")
+            b1_paths["phase 6"] = run_eval(report, card,
+                                           save_dir / f"model{TRAIN['steps']:09d}.pt")
+            check_stgcn_tf32(report, card, Path(tmp))
+        if run("7"):
+            print("phase 7: the gru and mlp trunks at the flagship width")
+            for arch in ("gru", "mlp"):
+                run_trunk(report, card, Path(tmp) / arch, data, arch)
+        if run("8"):
+            print("phase 8: the learning guard (scripts/capability_study_torch.py, smokefit)")
+            guard_worst = check_guard_kernels(report)
+            guard = run_learning_guard(report, card, Path(tmp) / "guard")
+            b1_paths["phase 8"] = guard["fused_attention_btd"]
+            b2_paths["phase 8"] = guard["fused_attention_btd_train"]
+        if run("9"):
+            print("phase 9: bf16 training at the flagship width")
+            bf16_train, b1_paths["phase 9"] = run_bf16_training(report, card,
+                                                                Path(tmp) / "bf16", data)
+            bf16_trunks = [run_bf16_trunk(report, card, Path(tmp) / f"bf16_{arch}", data,
+                                          arch) for arch in ("trans_enc", "gru", "mlp")]
+            b2_paths["phase 9"] = {w: bf16_train[w] + sum(t[w] for t in bf16_trunks)
+                                   for w in ("forward", "backward")}
+        if run("10"):
+            print("phase 10: the single-person a2m path (HumanAct12, UESTC) at the a2m width")
+            a2m_worst = check_a2m_kernels(report)
+            a2m = run_a2m(report, card, Path(tmp) / "a2m")
+            b1_paths["phase 10"], b2_paths["phase 10"] = a2m["b1"], a2m["b2"]
+        if run("11"):
+            print("phase 11: the text-to-motion path (HumanML3D, CLIP, generate) at the CLIs' "
+                  "default width")
+            t2m_worst = check_t2m_kernels(report)
+            t2m = run_t2m(report, card, Path(tmp) / "t2m")
+            b1_paths["phase 11"], b2_paths["phase 11"] = t2m["b1"], t2m["b2"]
+        if run("12"):
+            print("phase 12: the text evaluation (train_t2m_eval, eval_humanml, the "
+                  "in-training route, generate --length_estimator) on phase 11's model")
+            t2m_eval_worst = check_t2m_eval_kernels(report)
+            t2m_eval = run_t2m_eval(report, card, Path(tmp) / "t2m")
+            b1_paths["phase 12"], b2_paths["phase 12"] = t2m_eval["b1"], t2m_eval["b2"]
+        if run("13"):
+            print("phase 13: the comp_v6 generator (train_t2m_gen, eval_humanml and "
+                  "generate's comp_v6 routes, motion_process) at its published widths")
+            run_comp_v6(report, card, Path(tmp) / "t2m")
+        if run("14"):
+            print("phase 14: edit, the Predictor, the ACTOR CVAE (train_cvae, "
+                  "generate_sequences) and mesh rendering")
+            cvae_worst = check_cvae_kernels(report)
+            phase14 = run_phase14(report, card, Path(tmp), data)
+            b1_paths["phase 14"], b2_paths["phase 14"] = phase14["b1"], phase14["b2"]
+        if run("15"):
+            print("phase 15: the ACTOR GAN (train_gan hinge and wgan-gp, "
+                  "gen_samples_per_class), evaluate_cvae on phase 14's CVAE and the SMPLify "
+                  "fit")
+            gan_worst = check_gan_kernels(report)
+            phase15 = run_phase15(report, card, Path(tmp))
+            b1_paths["phase 15"], b2_paths["phase 15"] = phase15["b1"], phase15["b2"]
+        if run("16"):
+            print("phase 16: train_mdm at --data_parallel 2 and --tensor_parallel 2 (two "
+                  "ranks over gloo on this card), --param_sharding fsdp in an NCCL group of "
+                  "one, the sampler extras and the VLB terms, torch_ckpt --check on the "
+                  "earlier phases' files")
+            p16_worst = check_phase16_kernels(report)
+            phase16 = run_phase16(report, card, Path(tmp), kinds=ckpt_kinds(selected))
+            b1_paths["phase 16"], b2_paths["phase 16"] = phase16["b1"], phase16["b2"]
     report["launches_by_path"] = paths
+    if selected != set(PHASES):
+        # a part of the run: its launches and the last line, no kernel line
+        report["phases"] = sorted(selected, key=PHASES.index)
+        report["total_s"] = time.perf_counter() - t_start
+        out_dir = REPO / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+        print(f"total {report['total_s']:.1f} s [{card}]")
+        print(json.dumps({"launches_by_path": paths}))
+        print(json.dumps({"ok": True, "phases": report["phases"], "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     b1 = paths["fused_attention_btd"]
     kernel_rows = [{

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from regennet_torch.models import initializers
 from regennet_torch.models import transformer as tfm
 from regennet_torch.models.cmdm import _freeze_rz_grad
 
@@ -367,6 +368,15 @@ class ActorCVAE(nn.Module):
         for i in range(num_frames):
             x_buf[..., i] = self.decode(z, action, num_frames, x_teacher=x_buf)[..., i]
         return x_buf
+
+
+def random_init_(model: ActorCVAE, generator: torch.Generator) -> ActorCVAE:
+    """Draw a fresh CVAE from `generator` as the JAX package's Flax
+    ActorCVAE is drawn (models/initializers): lecun-normal kernels, zero
+    biases, orthogonal GRU gates, the mu and sigma queries and the action
+    biases from normal(0.02)."""
+    return initializers.init_params_(
+        model, generator, {"muQuery": 0.02, "sigmaQuery": 0.02, "actionBiases": 0.02})
 
 
 def cvae_losses(out: Dict, x: torch.Tensor, mask=None,

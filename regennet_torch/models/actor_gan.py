@@ -5,8 +5,9 @@ A token-upsampling transformer generator and a projection-conditional
 discriminator (logit = psi(f(x)) + <phi(y), f(x)>), both on the port's
 post-LN `transformer.Encoder` with dropout 0 and the erf GELU; the noise,
 frame and output embeddings, the label tables and psi are drawn from
-normal(0, 0.02). Training uses hinge losses (`loss_mode="hinge"`) or a
-Wasserstein critic with a gradient penalty (`"wgan-gp"`), with AdamW
+normal(0, 0.02) by `random_init_`, the encoder by Flax's defaults.
+Training uses hinge losses (`loss_mode="hinge"`) or a Wasserstein critic
+with a gradient penalty (`"wgan-gp"`), with AdamW
 optimisers (betas (beta1, 0.999), a discriminator lr multiplier) and the
 structured noise family (`gen_noise`, host numpy).
 
@@ -29,24 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from regennet_torch.models import initializers
 from regennet_torch.models import transformer as tfm
 from regennet_torch.train.training_loop import ADAM_EPS
 
-GAN_INIT_STD = 0.02
-
-
-def _init_normal_(*tensors):
-    with torch.no_grad():
-        for t in tensors:
-            t.normal_(0.0, GAN_INIT_STD)
-
-
-def _linear(fan_in: int, fan_out: int) -> nn.Linear:
-    """A Dense with a normal(0, 0.02) kernel and a zero bias."""
-    layer = nn.Linear(fan_in, fan_out)
-    _init_normal_(layer.weight)
-    nn.init.zeros_(layer.bias)
-    return layer
+GAN_INIT_STD = 0.02  # the reference's weights_init
 
 
 def upsample_linear(h: torch.Tensor, num_frames: int) -> torch.Tensor:
@@ -74,12 +62,11 @@ class Generator(nn.Module):
         super().__init__()
         self.njoints, self.nfeats, self.num_frames = njoints, nfeats, num_frames
         self.latent_dim = latent_dim
-        self.noise_embed = _linear(noise_dim, latent_dim)
-        self.label_embedding = nn.Parameter(torch.empty(num_actions, latent_dim))
+        self.noise_embed = nn.Linear(noise_dim, latent_dim)
+        self.label_embedding = nn.Parameter(torch.zeros(num_actions, latent_dim))
         self.encoder = tfm.Encoder(num_layers, latent_dim, num_heads, ff_size,
                                    tfm.gelu_exact, 0.0)
-        self.output_head = _linear(latent_dim, njoints * nfeats)
-        _init_normal_(self.label_embedding)
+        self.output_head = nn.Linear(latent_dim, njoints * nfeats)
 
     def forward(self, noise, label, generator: Optional[torch.Generator] = None):
         B, NN = noise.shape[0], noise.shape[-1]
@@ -99,12 +86,11 @@ class Discriminator(nn.Module):
                  ff_size: int = 512, num_layers: int = 2, num_heads: int = 4):
         super().__init__()
         self.latent_dim = latent_dim
-        self.frame_embed = _linear(njoints * nfeats, latent_dim)
+        self.frame_embed = nn.Linear(njoints * nfeats, latent_dim)
         self.encoder = tfm.Encoder(num_layers, latent_dim, num_heads, ff_size,
                                    tfm.gelu_exact, 0.0)
-        self.psi = _linear(latent_dim, 1)
-        self.label_projection = nn.Parameter(torch.empty(num_actions, latent_dim))
-        _init_normal_(self.label_projection)
+        self.psi = nn.Linear(latent_dim, 1)
+        self.label_projection = nn.Parameter(torch.zeros(num_actions, latent_dim))
 
     def forward(self, motion, label, generator: Optional[torch.Generator] = None):
         B, V, C, T = motion.shape
@@ -114,6 +100,17 @@ class Discriminator(nn.Module):
         feat = self.encoder(h, generator).float().mean(dim=1)  # [B, D]
         proj = (self.label_projection[label] * feat).sum(dim=-1)
         return self.psi(feat)[:, 0] + proj
+
+
+def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw a fresh Generator or Discriminator from `generator` as the
+    JAX package's Flax modules are drawn (models/initializers): the
+    embedding, head and label tables from normal(0.02) with zero biases,
+    the transformer encoder by Flax's defaults."""
+    return initializers.init_params_(model, generator, {
+        name: GAN_INIT_STD for name in (
+            "noise_embed.weight", "output_head.weight", "label_embedding",
+            "frame_embed.weight", "psi.weight", "label_projection")})
 
 
 def loss_hinge_dis(dis_fake, dis_real):

@@ -25,6 +25,8 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from regennet_torch.models import initializers
+
 TEXT_PREFIXES = ("token_embedding.", "positional_embedding", "transformer.resblocks.",
                  "ln_final.", "text_projection")
 
@@ -103,32 +105,7 @@ class ClipTextTower(nn.Module):
         self.transformer = Transformer(dim, heads, num_layers)
         self.ln_final = nn.LayerNorm(dim, eps=1e-5)
         self.text_projection = nn.Parameter(torch.empty(dim, proj_dim))
-        self.reset_parameters()
-
-    def reset_parameters(self, generator: torch.Generator = None):
-        """CLIP's initialisation (normal draws from `generator`): tokens
-        0.02, positions 0.01, attention and MLP weights by width and depth,
-        the projection width^-0.5; biases zero, LayerNorms identity."""
-        dim, layers = self.positional_embedding.shape[1], len(self.transformer.resblocks)
-        proj_std = dim ** -0.5 * (2 * layers) ** -0.5
-        attn_std, fc_std = dim ** -0.5, (2 * dim) ** -0.5
-
-        def normal(p, std):
-            with torch.no_grad():
-                p.normal_(0.0, std, generator=generator)
-
-        normal(self.token_embedding.weight, 0.02)
-        normal(self.positional_embedding, 0.01)
-        for block in self.transformer.resblocks:
-            normal(block.attn.in_proj_weight, attn_std)
-            normal(block.attn.out_proj.weight, proj_std)
-            normal(block.mlp.c_fc.weight, fc_std)
-            normal(block.mlp.c_proj.weight, proj_std)
-        normal(self.text_projection, dim ** -0.5)
-        for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                with torch.no_grad():
-                    p.zero_()
+        random_init_(self, torch.Generator().manual_seed(0))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         T = tokens.shape[1]
@@ -136,6 +113,18 @@ class ClipTextTower(nn.Module):
         x = self.ln_final(self.transformer(x))
         pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
         return pooled @ self.text_projection
+
+
+def random_init_(tower: ClipTextTower, generator: torch.Generator) -> ClipTextTower:
+    """Draw a random tower from `generator` as the JAX package's Flax
+    ClipTextTransformer is drawn (models/initializers): tokens from
+    normal(0.02), positions from normal(0.01), the projection from
+    normal(0.02), the attention and MLP kernels lecun-normal, biases zero,
+    LayerNorms identity. A stand-in for tests and the card's smoke run;
+    released weights replace it."""
+    return initializers.init_params_(tower, generator, {
+        "token_embedding.weight": 0.02, "positional_embedding": 0.01,
+        "text_projection": 0.02})
 
 
 def _hf_to_openai(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from regennet_torch.models import initializers
 from regennet_torch.models import transformer as tfm
 
 DECODER_ARCHS = ("online", "trans_dec")
@@ -351,6 +352,15 @@ class CMDM(nn.Module):
             xseq = self._add_pos(torch.cat([memory, xseq], dim=1), generator)
             out = self.seqTransEncoder(xseq, generator)[:, 1:]
         return out
+
+
+def random_init_(model: CMDM, generator: torch.Generator) -> CMDM:
+    """Draw a fresh CMDM from `generator` as the JAX package's Flax CMDM
+    is drawn (models/initializers): lecun-normal kernels (the packed
+    attention projections and the mlp trunk's time mixing included), zero
+    biases, each GRU gate's recurrent kernel orthogonal, LayerNorms at one
+    and zero, the action embedding from normal(1)."""
+    return initializers.init_params_(model, generator, {"action_embedding": 1.0})
 
 
 def make_model_fn(model: CMDM):

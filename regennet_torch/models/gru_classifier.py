@@ -15,9 +15,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 from torch import nn
+
+from regennet_torch.models import initializers
 
 
 class MotionDiscriminator(nn.Module):
@@ -46,16 +47,9 @@ class MotionDiscriminator(nn.Module):
 
 def random_init_(model: MotionDiscriminator,
                  generator: torch.Generator) -> MotionDiscriminator:
-    """Draw every weight and bias from torch's default bounds with
-    `generator`: U(+-1/sqrt(hidden_size)) in the GRU, U(+-1/sqrt(fan_in))
-    in the linear layers."""
-    with torch.no_grad():
-        bound = 1.0 / np.sqrt(model.recurrent.hidden_size)
-        for p in model.recurrent.parameters():
-            p.uniform_(-bound, bound, generator=generator)
-        for lin in (model.linear1, model.linear2):
-            bound = 1.0 / np.sqrt(lin.in_features)
-            lin.weight.uniform_(-bound, bound, generator=generator)
-            lin.bias.uniform_(-bound, bound, generator=generator)
-    return model
+    """Draw a fresh classifier from `generator` as the JAX package's Flax
+    MotionDiscriminator is drawn (models/initializers): lecun-normal input
+    and linear kernels, each GRU gate's recurrent kernel orthogonal, zero
+    biases."""
+    return initializers.init_params_(model, generator)
 

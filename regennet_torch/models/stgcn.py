@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from regennet_torch.models import initializers
 from regennet_torch.models.stgcn_graph import Graph
 
 CHANNELS = (64, 64, 64, 64, 128, 128, 128, 256, 256, 256)
@@ -142,16 +143,11 @@ def make_unconstrained_stgcn(num_class: int = 12) -> STGCN:
 
 
 def random_init_(model: STGCN, generator: torch.Generator) -> STGCN:
-    """Draw every convolution's weight and bias from U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)) with `generator` (torch's default bound); BatchNorm and
-    edge importance keep their identity initialisation."""
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
-                bound = 1.0 / np.sqrt(mod.weight[0].numel())
-                mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
-    return model
+    """Draw a fresh ST-GCN from `generator` as the JAX package's Flax
+    STGCN is drawn (models/initializers): every convolution's kernel
+    lecun-normal and its bias zero, BatchNorm at one and zero; the edge
+    importance keeps its ones."""
+    return initializers.init_params_(model, generator, {"edge_importance": None})
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

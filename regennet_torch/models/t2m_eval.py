@@ -31,7 +31,6 @@ gate.
 from __future__ import annotations
 
 import functools
-import math
 import os
 from typing import Dict, Mapping, Optional, Union
 
@@ -40,6 +39,7 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence
 
+from regennet_torch.models import initializers
 from regennet_torch.models.cmdm import _freeze_rz_grad
 
 T2M_OPT = dict(
@@ -198,28 +198,13 @@ def networks(dim_pose: int, *names: str, length_bins: int = 50):
 
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every weight from torch's default bounds with `generator`:
-    U(+-1/sqrt(fan_in)) for linear and conv layers (a bias where there is
-    one), U(+-1/sqrt(H)) in a GRU or GRUCell, LayerNorm at one and zero,
-    and a tower's `hidden` from N(0, 1)."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
-                fan_in = nn.init._calculate_fan_in_and_fan_out(m.weight)[0]
-                bound = 1.0 / math.sqrt(fan_in)
-                m.weight.uniform_(-bound, bound, generator=generator)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, (nn.GRU, nn.GRUCell)):
-                bound = 1.0 / math.sqrt(m.hidden_size)
-                for p in m.parameters():
-                    p.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            if isinstance(m, _BiGRU):
-                m.hidden.normal_(generator=generator)
-    return module
+    """Draw a fresh evaluator network or comp_v6 generator from
+    `generator` as the JAX package's Flax modules are drawn
+    (models/initializers): lecun-normal linear and convolution kernels
+    (a transposed convolution's fan-in is its input channels times its
+    width), each GRU gate's recurrent kernel orthogonal, zero biases,
+    LayerNorm at one and zero, a tower's `hidden` from normal(1)."""
+    return initializers.init_params_(module, generator, {"hidden": 1.0})
 
 
 def load_torch_file(path: Union[str, os.PathLike]) -> Dict:

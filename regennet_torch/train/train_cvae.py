@@ -36,7 +36,7 @@ from regennet_torch.data.collate import collate
 from regennet_torch.data.get_data import BatchLoader, get_dataset
 from regennet_torch.device import pin_f32_contract, resolve_device
 from regennet_torch.models import actor_losses
-from regennet_torch.models.actor_cvae import ARCH_FAMILIES, ActorCVAE
+from regennet_torch.models.actor_cvae import ARCH_FAMILIES, ActorCVAE, random_init_
 from regennet_torch.ops import body_model as bm
 from regennet_torch.ops.pose_decode import make_rot2xyz
 from regennet_torch.train import checkpoint
@@ -163,7 +163,8 @@ def main(args=None, device=None, data=None):
     args.num_actions = data.num_actions
     save_args(args, args.save_dir)
 
-    model = build_model(args, V, C, data.num_actions)
+    model = random_init_(build_model(args, V, C, data.num_actions),
+                         torch.Generator().manual_seed(int(args.seed)))
     orig_epoch = 0
     if args.duration_finetune:
         checkpoint.load_model(model, args.duration_finetune)

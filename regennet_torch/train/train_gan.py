@@ -38,6 +38,7 @@ from regennet_torch.models.actor_gan import (
     make_gan_steps,
     make_optimizers,
     noise_dim,
+    random_init_,
     write_samples_h5,
 )
 from regennet_torch.train import checkpoint
@@ -122,9 +123,13 @@ def main(args=None, device=None, data=None):
     noise_cfg = dict(NN=args.nnoise, Z=args.noise_channel, lambda_noise=args.lambda_noise,
                      mode=args.noise_mode, length_scale=args.length_scale)
     noise0 = gen_noise(nrng, args.batch_size, **noise_cfg)
-    G = Generator(V, C, data.num_actions, args.num_frames, noise_dim=noise_dim(noise0.shape),
-                  latent_dim=args.latent_dim).to(device)
-    D = Discriminator(V, C, data.num_actions, latent_dim=args.latent_dim).to(device)
+    # G then D from one torch.Generator(seed), by the JAX package's initialisers
+    init = torch.Generator().manual_seed(int(args.seed))
+    G = random_init_(Generator(V, C, data.num_actions, args.num_frames,
+                               noise_dim=noise_dim(noise0.shape), latent_dim=args.latent_dim),
+                     init).to(device)
+    D = random_init_(Discriminator(V, C, data.num_actions, latent_dim=args.latent_dim),
+                     init).to(device)
     n_params = sum(p.numel() for m in (G, D) for p in m.parameters())
     print(f"Total params: {n_params / 1e6:.2f}M", flush=True)
 

@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from regennet_torch.diffusion import DiffusionConfig, Schedule, make_schedule
-from regennet_torch.models.cmdm import CMDM
+from regennet_torch.models.cmdm import CMDM, random_init_
 
 HML_FRAMES = 196  # the window HumanML3D and KIT clips are padded to
 
@@ -125,7 +125,11 @@ def create_gaussian_diffusion(args, num_person: int = None,
 
 
 def create_model_and_diffusion(args, data, device="cpu"):
-    model = CMDM(**get_model_args(args, data))
+    """The CMDM of `args`, drawn from torch.Generator(args.seed) by the
+    JAX package's initialisers (cmdm.random_init_), on the CPU; its
+    schedule and diffusion config on `device`."""
+    model = random_init_(CMDM(**get_model_args(args, data)),
+                         torch.Generator().manual_seed(int(getattr(args, "seed", 0))))
     # the cmdm setting diffuses the single reactor stream
     num_person = 1 if args.setting == "cmdm" else getattr(args, "num_person", 1)
     sched, cfg = create_gaussian_diffusion(args, num_person=num_person,

@@ -273,7 +273,8 @@ def default_respacing(args_t):
 def evaluate_row(args_t, data, evaluator, device, state=None, guidance=1.0, respacing=None,
                  num_samples=32, num_seeds=1, seed_start=0, oracle=False, seed=0):
     """One eval_cmdm protocol run (its summary): the model of `state` (a state
-    dict), or a random initialisation drawn after fixseed(seed); oracle
+    dict), or a random initialisation drawn from torch.Generator(args_t.seed)
+    (create_model_and_diffusion); oracle
     routes the ground-truth reactor through the generated side instead of
     sampling. respacing None: default_respacing."""
     import torch

@@ -894,3 +894,77 @@ def test_stgcn_tf32_check_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert res["logits_max_abs_diff"] == 0.0 and res["argmax_agreement"] == 1.0
     assert res["gt_accuracy_f32"] == res["gt_accuracy_tf32"]
     assert (tmp_path / "stgcn_tf32" / "model000000001.pt").exists()
+
+
+def _cut_fresh_models(monkeypatch, cs):
+    for key, value in dict(latent_dim=64, layers=2).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+        monkeypatch.setitem(cs.CVAE, key, value)
+    for key in ("dim_z", "pri_hidden", "dec_hidden", "text_hidden", "att_vec"):
+        monkeypatch.setitem(cs.COMP_V6, key, 32)
+
+
+def test_fresh_parameters_phase_runs_on_cpu_at_a_cut_size(monkeypatch):
+    """Phase 1b on the CPU (the CMDMs, the CVAE and comp_v6 cut in width):
+    every family's fresh parameters meet their Flax initialisers."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    _cut_fresh_models(monkeypatch, cs)
+    report = {}
+    cs.check_fresh_parameters(report, "cpu", device="cpu")
+    rows = report["fresh_parameters"]
+    assert set(rows) == {name for name, *_ in cs.fresh_models()}
+    for row in rows.values():
+        assert row["std_over_tol"] <= 1.0
+        assert row["max_over_truncation"] <= 1.0 + 1e-6
+        assert row["orthogonality"] <= 1e-5
+    assert rows["cmdm gru"]["orthogonality"] > 0  # its recurrent gates were held
+
+
+def test_fresh_parameters_phase_fails_on_torch_defaults(monkeypatch):
+    """Phase 1b raises on a model left at torch's default initialisation."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    _cut_fresh_models(monkeypatch, cs)
+    what, build, _, own = cs.fresh_models()[0]
+
+    def seeded_build():  # torch's defaults, the same on both builds
+        torch.manual_seed(0)
+        return build()
+
+    monkeypatch.setattr(cs, "fresh_models", lambda: [(what, seeded_build, lambda m, g: m, own)])
+    with pytest.raises(AssertionError, match="std"):
+        cs.check_fresh_parameters({}, "cpu", device="cpu")
+
+
+@pytest.mark.parametrize("arg,expected", [
+    ("", None),
+    ("2,2b", {"2", "2b"}),
+    ("13", {"11", "12", "13"}),
+    ("15", {"3", "4", "11", "14", "15"}),
+    ("6,16", {"3", "4", "6", "16"}),
+])
+def test_phase_selection_adds_what_a_phase_needs(monkeypatch, arg, expected):
+    """--phases runs the phases named and those whose results or files they
+    take; without it every phase runs. Phase 16 then requires the
+    checkpoint kinds of the phases that ran."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    selected = cs.select_phases(["--phases", arg] if arg else [])
+    assert selected == (set(cs.PHASES) if expected is None else expected)
+    kinds = cs.ckpt_kinds(selected)
+    if expected is None:
+        assert kinds == cs.CKPT_KINDS
+    elif arg == "6,16":
+        assert kinds == ("cmdm/online", "stgcn")
+
+
+def test_phase_selection_rejects_an_unknown_phase(monkeypatch):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    with pytest.raises(SystemExit):
+        cs.select_phases(["--phases", "2,17"])
