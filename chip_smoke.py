@@ -36,8 +36,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      10's [64, 61, 512], phase 11's [64, 197, 512] (the forward's and the
      backward's row pass's stored-row routes, P in shared memory; B1 and
      B2 also at bf16 there, as generate and train_mdm --dataset humanml
-     --compute_dtype bfloat16 run them, B2's backward split by pass: no
-     phase runs them at bf16, so the kernel line has no row for them),
+     --compute_dtype bfloat16 run them, B2's backward split by pass: B2's
+     bf16 rows of the kernel line, with phase 11b's launches; no phase
+     samples the text CMDM at bf16, so B1 has no bf16 row there),
      phase 14's CVAE at head dim 64,
      [20, 62, 256] and [20, 60, 256], and phase 15's GAN, D's [32, 60,
      256] and G's [32, 16, 256] (B2 at rate 0); and causal at head dim 32,
@@ -122,6 +123,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      attention; sample.generate on the checkpoint (10 samples of one
      prompt, CFG 2.5, DDPM 1000) and its results.npy; no caption or prompt
      falls back to the hashed text embeddings;
+  11b. the text CMDM's bf16 training on phase 11's data and CLIP tower:
+     train_mdm --dataset humanml --compute_dtype bfloat16 (phase 11's
+     arguments plus the dtype, 16 steps at batch 64), B2's forward and
+     backward launches counted at bf16 [64, 197, 512] (layers x steps each
+     way), a bf16 step through the kernels against the plain attention at
+     phase 2b's bf16 bound, the step's synchronised wall and busy device
+     time;
   12. the text evaluation on phase 11's data, CLIP tower and checkpoint,
      with a seeded GloVe archive of every caption and prompt word in
      ./glove: B1 at [64 and 32, 197, 512] against its plain version;
@@ -198,13 +206,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (finite); torch_ckpt --check on every model file of phases 4-16. One
      card shows the collectives' correctness, not their cost.
 Each kernel's launches are read around each path that runs it (phases 3,
-5, 6, 8, 9, 10, 11, 12, 14 and 15 for B1; 4, 5, 8, 9, 10, 11, 12, 14 and
-15 for B2; phase 16 for both; 2c for B3) and summed in the kernel line;
+5, 6, 8, 9, 10, 11, 12, 14 and 15 for B1; 4, 5, 8, 9, 10, 11, 11b, 12, 14
+and 15 for B2; phase 16 for both; 2c for B3) and summed in the kernel line;
 B1 has a second row at the evaluation's f32 batch-64 shape, with phase 6's
 launches, a third at the a2m evaluations' [64, 61, 512], with phase 10's,
 and a fourth at [64, 197, 512], with phases 11 and 12's; B2 has bf16 rows
 at [64, 150, 512], with phase 9's launches, f32 rows at [64, 61, 512], with
-phase 10's, and f32 rows at [64, 197, 512], with phases 11 and 12's; B1
+phase 10's, f32 rows at [64, 197, 512], with phases 11 and 12's, and bf16
+rows there, with phase 11b's; B1
 and B2 have rows at the CVAE's [20, 62, 256] (the encoder) and [20, 60,
 256] (the decoder), head dim 64, with phase 14's launches there, and at
 the GAN's [32, 60, 256] (D; B1 there: evaluate_cvae's decode) and [32,
@@ -213,7 +222,7 @@ The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 `--phases` runs the named phases (1 always), and the phases whose
 results or files they take (NEEDS: 3 before 4, 5, 7 and 9; 4 before 6;
-11 before 12, 12 before 13; 3, 4 and 11 before 14; 14 before 15); phase
+11 before 11b and 12, 12 before 13; 3, 4 and 11 before 14; 14 before 15); phase
 16 then checks the checkpoint kinds those phases wrote. Such a part of
 the run prints its launches by path in place of the kernel line, and the
 last line with the phases it ran. Without it every phase runs.
@@ -2597,6 +2606,71 @@ def run_t2m(report, card, workdir, device="cuda"):
     return {"b1": counts["b1"], "b2": b2}
 
 
+def run_t2m_bf16(report, card, workdir, device="cuda"):
+    """Phase 11b, the text CMDM's bf16 training on phase 11's synthetic
+    HumanML3D and CLIP tower: train_mdm with t2m_train_args and
+    --compute_dtype bfloat16 (T2M["steps"] steps at batch 64), B2's
+    launches counted by shape and dtype (forward and backward at bf16 [64,
+    197, 512], layers x steps each way on the card); one bf16 step through
+    the kernels against the plain attention (check_train_step); the step's
+    synchronised wall and, on the card, its busy device time under
+    torch.profiler. Returns B2's launches {forward, backward}."""
+    import torch
+
+    from regennet_torch.models import transformer
+    from regennet_torch.ops import attention
+
+    t_phase = time.perf_counter()
+    paths = t2m_paths(workdir)
+    fn = attention.fused_attention_btd_train
+    fn.launches_by_tokens.clear()
+    fn.backward_launches_by_tokens.clear()
+    seen = {}
+
+    def spy(q, *rest, **kw):  # the shapes and dtypes the model's layers attend at
+        key = (*q.shape, str(q.dtype).replace("torch.", ""))
+        seen[key] = seen.get(key, 0) + 1
+        return fn(q, *rest, **kw)
+
+    with clip_tower(paths) as fallbacks:
+        args = t2m_train_args(workdir / "humanml_bf16_run", paths["humanml"])
+        args.compute_dtype = "bfloat16"
+        transformer.fused_attention_btd_train = spy
+        try:
+            loop, loader, b2 = run_training(report, card, workdir / "humanml_bf16_run",
+                                            device, args, key="t2m_bf16_training")
+        finally:
+            transformer.fused_attention_btd_train = fn
+        by_tokens = {"forward": dict(fn.launches_by_tokens),
+                     "backward": dict(fn.backward_launches_by_tokens)}
+        check_train_step(report, loop, loader, key="t2m_bf16_train_step_check")
+        if device != "cpu":
+            profile_train_step(report, loop, loader, key="t2m_bf16_training")
+        del loop, loader
+    if fallbacks:
+        raise AssertionError(f"the hashed text embeddings stood in for CLIP: {fallbacks}")
+    T, steps = T2M["T"] + 1, args.num_steps
+    calls = args.layers * steps
+    want_seen = {(args.batch_size, T, args.latent_dim, "bfloat16"): calls}
+    want = {which: {T: calls} if device != "cpu" else {} for which in b2}
+    if seen != want_seen or by_tokens != want:
+        raise AssertionError(f"bf16 text training attended at {seen} (want {want_seen}), "
+                             f"B2 launches by T {by_tokens} (want {want})")
+    row = report["t2m_bf16_training"]
+    busy = report.get("t2m_bf16_training_profile", {}).get("busy_ms")
+    print(f"  phase 11b: {time.perf_counter() - t_phase:.1f} s; B2 at bf16 [{args.batch_size}"
+          f", {T}, {args.latent_dim}] non-causal: forward {b2['forward']}, backward "
+          f"{b2['backward']} launches (layers x steps = {calls} each); a bf16 step "
+          f"{row['ms_per_step']:.2f} ms synchronised wall, busy "
+          + (f"{busy:.2f} ms" if busy is not None else "not measured (no card)")
+          + f" [{card}]")
+    report["t2m_bf16"] = dict(wall_s=time.perf_counter() - t_phase, launches=b2,
+                              launches_by_tokens=by_tokens, attended={
+                                  "x".join(map(str, k)): v for k, v in seen.items()},
+                              ms_per_step=row["ms_per_step"], busy_ms=busy)
+    return b2
+
+
 # phase 12: the text evaluation on phase 11's data, CLIP tower and checkpoint
 T2M_EVAL = dict(epochs=3, batch=32, train_steps=8, eval_samples=32, lengths=4,
                 guidance=2.5, seed=14)
@@ -4884,10 +4958,11 @@ def path_launches(paths, name, which=None):
     return sum(v if which is None else v[which] for v in paths[name].values())
 
 
-PHASES = ("1b", "2", "2b", "2c", "2d", *map(str, range(3, 17)))
+PHASES = ("1b", "2", "2b", "2c", "2d", *map(str, range(3, 12)), "11b",
+          *map(str, range(12, 17)))
 # the phases whose results or files a phase takes
-NEEDS = {"4": ("3",), "5": ("3",), "6": ("4",), "7": ("3",), "9": ("3",), "12": ("11",),
-         "13": ("12",), "14": ("3", "4", "11"), "15": ("14",)}
+NEEDS = {"4": ("3",), "5": ("3",), "6": ("4",), "7": ("3",), "9": ("3",), "11b": ("11",),
+         "12": ("11",), "13": ("12",), "14": ("3", "4", "11"), "15": ("14",)}
 
 
 def select_phases(argv):
@@ -5025,6 +5100,10 @@ def main(argv=None) -> int:
             t2m_worst = check_t2m_kernels(report)
             t2m = run_t2m(report, card, Path(tmp) / "t2m")
             b1_paths["phase 11"], b2_paths["phase 11"] = t2m["b1"], t2m["b2"]
+        if run("11b"):
+            print("phase 11b: the text CMDM's bf16 training (train_mdm --dataset humanml "
+                  "--compute_dtype bfloat16) on phase 11's data and CLIP tower")
+            b2_paths["phase 11b"] = run_t2m_bf16(report, card, Path(tmp) / "t2m")
         if run("12"):
             print("phase 12: the text evaluation (train_t2m_eval, eval_humanml, the "
                   "in-training route, generate --length_estimator) on phase 11's model")
@@ -5142,6 +5221,29 @@ def main(argv=None) -> int:
             "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
             "launches": sum(paths["fused_attention_btd_train"][p][which] for p in phases),
             "max_abs_err": path_worst["train_forward" if which == "forward" else "backward"],
+            "ms": b2_timing[f"kernel_{which}_ms"],
+            "plain_ms": b2_timing[f"plain_{which}_ms"],
+            "bound_ms": b2_timing[f"{which}_bound_ms"],
+            "bound_by": b2_timing[f"{which}_bound_by"],
+            "library_ms": b2_timing[f"library_{which}_ms"],
+        })
+    # the text CMDM's bf16 training: phase 11b's launches, phase 2d's bf16
+    # times at [64, 197, 512], phase 11's bf16 cases' errors
+    t2m_bf16 = [c for c in report["t2m_kernel_cases"]
+                if c["kernel"] == "fused_attention_btd_train" and c["dtype"] == "bfloat16"]
+    for which, line, source in (("forward", 382, "attention_fwd.cu"),
+                                ("backward", 415, "attention_btd_train.cu")):
+        b2_timing = timings["t2m_bf16"][1]
+        kernel_rows.append({
+            "name": f"fused_attention_btd_train ({which}, bf16 [64, {T2M['T'] + 1}, 512], "
+                    "non-causal, phase 11b)",
+            "route": "cuda",
+            "source": f"regennet_torch/csrc/{source}",
+            "replaces": f"regennet_tpu/ops/pallas_attention.py:{line}",
+            "launches": paths["fused_attention_btd_train"]["phase 11b"][which],
+            "max_abs_err": max(c["out_err"] if which == "forward" else
+                               max(c[f"{g}_vjp_err"] for g in ("dq", "dk", "dv"))
+                               for c in t2m_bf16),
             "ms": b2_timing[f"kernel_{which}_ms"],
             "plain_ms": b2_timing[f"plain_{which}_ms"],
             "bound_ms": b2_timing[f"{which}_bound_ms"],

@@ -53,6 +53,11 @@ def build_model(args, num_class: int) -> STGCN:
                  num_person=2, layout=graph_layout(args), **size)
 
 
+def make_optimizer(model: STGCN, lr: float) -> torch.optim.Adam:
+    """optax.adam(lr): betas 0.9 / 0.999, eps 1e-8 added to sqrt(nu_hat)."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def train_step(model: STGCN, optimizer: torch.optim.Optimizer, motion: torch.Tensor,
                labels: torch.Tensor):
     """One update in train mode -> (loss, accuracy) as 0-dim tensors."""
@@ -108,8 +113,7 @@ def run_training(args, device=None, data=None) -> STGCN:
     model = build_model(args, splits["train"].num_actions)
     random_init_(model, torch.Generator().manual_seed(int(args.seed)))
     model = model.to(device)
-    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, betas=(0.9, 0.999),
-                                 eps=1e-8)
+    optimizer = make_optimizer(model, args.lr)
     os.makedirs(args.save_dir, exist_ok=True)
     # keep_best: the epoch of the best held-out accuracy, as the reference
     # chooses among its per-epoch snapshots; Adam at lr 1e-3 on an easily

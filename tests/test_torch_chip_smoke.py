@@ -358,6 +358,36 @@ def test_t2m_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     assert encoded == [3, 3, 4, 4, 4, 4, 4, 2]
 
 
+def test_t2m_bf16_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
+    """Phase 11b at a cut size on phase 11's assets: train_mdm --dataset
+    humanml --compute_dtype bfloat16, every self-attention call at bf16
+    [B, 197, D] (layers x steps), a bf16 step check, no hashed text
+    embeddings (the CPU runs launch nothing)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    for key, value in dict(layers=2, latent_dim=32, heads=2, steps=5).items():
+        monkeypatch.setitem(cs.FLAGSHIP, key, value)
+    monkeypatch.setitem(cs.TRAIN, "steps_per_call", 2)
+    for key, value in dict(batch=4, steps=4, clips=16, samples=2).items():
+        monkeypatch.setitem(cs.T2M, key, value)
+    for key, value in dict(vocab_size=600, dim=64, heads=1, num_layers=2).items():
+        monkeypatch.setitem(cs.CLIP_TOWER, key, value)
+    monkeypatch.setenv("REGENNET_LOG_FORMAT", "human,csv")  # restored after
+    monkeypatch.delenv("REGENNET_CLIP_PATH", raising=False)
+    cs.write_t2m_assets(tmp_path)
+    report = {}
+    assert cs.run_t2m_bf16(report, "cpu", tmp_path, device="cpu") == {"forward": 0,
+                                                                      "backward": 0}
+    assert "REGENNET_CLIP_PATH" not in os.environ  # restored after the phase
+    training = report["t2m_bf16_training"]
+    assert (training["arch"], training["compute_dtype"], training["steps"],
+            training["batch"]) == ("trans_enc", "bfloat16", 4, 4)
+    assert report["t2m_bf16"]["attended"] == {"4x197x32xbfloat16": 8}
+    check = report["t2m_bf16_train_step_check"]
+    assert check["dtype"] == "bfloat16" and check["worst_gradient"]["ratio"] <= 1.0
+
+
 def test_text_evaluation_phase_runs_on_cpu_at_a_cut_size(monkeypatch, tmp_path):
     """Phase 12 at a cut size, after phase 11 on the same workdir: the GloVe
     archive, train_t2m_eval --stage all (the evaluators at their published
@@ -943,6 +973,7 @@ def test_fresh_parameters_phase_fails_on_torch_defaults(monkeypatch):
     ("", None),
     ("2,2b", {"2", "2b"}),
     ("13", {"11", "12", "13"}),
+    ("11b", {"11", "11b"}),
     ("15", {"3", "4", "11", "14", "15"}),
     ("6,16", {"3", "4", "6", "16"}),
 ])

@@ -312,9 +312,18 @@ def test_text_cfg_model_fn_matches_flax():
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=_atol(ref) * 4)
 
 
-def test_text_train_step_matches_jax(tmp_path):
-    """The second f32 step from the JAX state after one, on t2m_collate
-    batches of synthetic HumanML, at dropout 0 and cond_mask_prob 0."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_text_train_step_matches_jax(tmp_path, dtype):
+    """The second step from the JAX state after one, on t2m_collate
+    batches of synthetic HumanML, at dropout 0 and cond_mask_prob 0: f32 at
+    the tolerances of tests/test_torch_training.py; bf16 (the port's
+    --compute_dtype bfloat16 against CMDM(dtype=jnp.bfloat16): 263
+    features, the CLIP condition, 197 tokens, non-causal, the padding mask
+    on the loss) at those of tests/test_torch_training_bf16.py, the Chi3D
+    trunks' bound of 2^-6."""
+    from tests.test_torch_training_bf16 import hold_bf16_second_step
+
+    bf16 = dtype == "bfloat16"
     root = ds.write_synthetic_humanml(str(tmp_path), num_clips=8, seed=1, min_len=40,
                                       max_len=200)
     data = _seeded(0, lambda: ds.Text2MotionDataset(root, "train"))
@@ -330,9 +339,11 @@ def test_text_train_step_matches_jax(tmp_path):
     assert not b2["cond"]["mask"].all()  # padded frames are masked out of the loss
     lr, wd, anneal, ema_rate = 1e-3, 0.1, 10, 0.99
     kw = {**MODEL, "dropout": 0.0, "cond_mask_prob": 0.0}
-    jm = jcmdm.CMDM(**kw)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(b1["motion"]), jnp.asarray(b1["t"]),
-                     {k: jnp.asarray(v) for k, v in b1["cond"].items()})["params"]
+    jm32 = jcmdm.CMDM(**kw)
+    jm = jcmdm.CMDM(**kw, dtype=jnp.bfloat16) if bf16 else jm32
+    params = jm32.init(jax.random.PRNGKey(0), jnp.asarray(b1["motion"]),
+                       jnp.asarray(b1["t"]),
+                       {k: jnp.asarray(v) for k, v in b1["cond"].items()})["params"]
     cfg = dict(data_rep="hml_vec", lambda_rcxyz=0.0, lambda_vel=0.0, lambda_fc=0.0,
                lambda_orient=0.0, lambda_body=0.0, lambda_transl=0.0)
     jsched, jcfg = jmake_schedule("cosine", 1000), JConfig(**cfg)
@@ -342,52 +353,63 @@ def test_text_train_step_matches_jax(tmp_path):
                   ema_params=jax.tree_util.tree_map(jnp.array, params),
                   step=jnp.zeros((), jnp.int32))
     rng = jax.random.PRNGKey(7)
-    state1, _ = step_fn(state0, b1, rng)
-    state2, jm2 = step_fn(state1, b2, rng)
+    state1 = jax.device_get(step_fn(state0, b1, rng)[0])
+    state2, jm2 = jax.device_get(step_fn(state1, b2, rng))
 
     drng, crng, nrng = jax.random.split(jax.random.fold_in(rng, 1), 3)
     noise = np.asarray(jax.random.normal(nrng, b2["motion"].shape, jnp.float32))
 
-    def jloss(p):
+    def jloss(p):  # the f32 loss of the second step
         def model_fn(x, t, cond):
-            return jm.apply({"params": p}, x, t, cond, train=True,
-                            rngs={"dropout": drng, "cond_mask": crng})
+            return jm32.apply({"params": p}, x, t, cond, train=True,
+                              rngs={"dropout": drng, "cond_mask": crng})
         terms = jlosses.training_losses(jsched, jcfg, model_fn, b2["motion"], b2["t"],
                                         b2["cond"], nrng)
         return jnp.mean(terms["loss"] * b2["weights"])
 
-    jgrads = cmdm_state_dict_from_flax(
+    jgrads32 = cmdm_state_dict_from_flax(
         jax.device_get(jax.jit(jax.grad(jloss))(state1["params"])))
 
     model = cmdm.CMDM(**kw)
     optimizer = training_loop.make_optimizer(model.parameters(), lr, wd)
     ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-    tstate = train_state_from_flax(jax.device_get(state1))
+    tstate = train_state_from_flax(state1)
     training_loop.load_train_state(model, optimizer, ema, tstate)
+    before = {n: p.detach().double().clone() for n, p in model.named_parameters()}
     step = training_loop.make_train_step(
         model, make_schedule("cosine", 1000), DiffusionConfig(**cfg), optimizer, None, ema,
-        ema_rate=ema_rate, lr_schedule=lambda s: training_loop.learning_rate(lr, anneal, s))
+        ema_rate=ema_rate, lr_schedule=lambda s: training_loop.learning_rate(lr, anneal, s),
+        dtype=torch.bfloat16 if bf16 else torch.float32)
     tb2 = {"motion": torch.tensor(b2["motion"]), "t": torch.tensor(b2["t"]).long(),
            "weights": torch.tensor(b2["weights"]),
            "cond": {k: torch.tensor(v) for k, v in b2["cond"].items()}}
     metrics = step(tb2, torch.Generator().manual_seed(0), tstate["step"],
                    noise=torch.tensor(noise))
+    named = dict(model.named_parameters())
+    assert set(named) == set(jgrads32) and "embed_text.weight" in named
 
-    for name, ref in jax.device_get(jm2).items():
+    if bf16:
+        # the bf16 step's gradients from its first moment: mu' = 0.9 mu + 0.1 g
+        jgrads = cmdm_state_dict_from_flax(jax.tree_util.tree_map(
+            lambda m1, m0: (np.asarray(m1, np.float64) - 0.9 * np.asarray(m0, np.float64))
+            / 0.1, state2["opt_state"][0].mu, state1["opt_state"][0].mu))
+        hold_bf16_second_step(model, optimizer, ema, before, metrics, jm2, state2, jgrads,
+                              jgrads32, training_loop.learning_rate(lr, anneal, 1), wd=wd,
+                              ema_rate=ema_rate)
+        return
+    for name, ref in jm2.items():
         rtol = 1e-5
         if name == "loss_per_elem":
             np.testing.assert_allclose(metrics[name].numpy(), ref, rtol=rtol)
         else:
             np.testing.assert_allclose(float(metrics[name]), float(ref), rtol=rtol,
                                        err_msg=name)
-    named = dict(model.named_parameters())
-    assert set(named) == set(jgrads) and "embed_text.weight" in named
-    want = {k: cmdm_state_dict_from_flax(jax.device_get(v)) for k, v in (
+    want = {k: cmdm_state_dict_from_flax(v) for k, v in (
         ("params", state2["params"]), ("ema", state2["ema_params"]),
         ("mu", state2["opt_state"][0].mu))}
     flips = 0
     for name, p in named.items():
-        g, jg = p.grad.numpy(), jgrads[name]
+        g, jg = p.grad.numpy(), jgrads32[name]
         np.testing.assert_allclose(g, jg, rtol=0, atol=2e-5 * max(1.0, np.abs(jg).max()),
                                    err_msg=name)
         np.testing.assert_allclose(optimizer.state[p]["exp_avg"].numpy(), want["mu"][name],

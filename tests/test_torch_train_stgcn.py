@@ -10,6 +10,9 @@ learnable synthetic clips.
   one, so the port's running_var exceeds flax's by the flax update term
   over n - 1 (n: the values each channel's statistics pool, 32 x 24 = 768
   at data_bn); the test holds exactly that, within 1e-5.
+* A whole run: the learning guard's first two epochs (16 steps) by each
+  package's train step from JAX's .init on the same batches, within 4x
+  the JAX package's own chaos floor (scripts/stgcn_chaos_floor.py).
 * keep_best, the checkpoint the evaluation loads, and the CLI's clips.
 """
 
@@ -125,6 +128,120 @@ def test_one_train_step_matches_flax():
         np.testing.assert_allclose(state[var].numpy() - after[var], update / (n - 1),
                                    rtol=1e-3, atol=1e-5 * np.abs(after[var]).max(),
                                    err_msg=var)
+
+
+# The JAX package's own chaos floor for the learning guard's first two
+# epochs (16 steps at batch 32), printed by scripts/stgcn_chaos_floor.py on
+# the CPU: each distance between the JAX run and the same run with every
+# initial parameter one f32 ulp up ("ulp"), or with every batch's rows in
+# another order ("reorder": the data BatchNorm's statistics depend on the
+# data alone, and flax's E[x^2] - E[x]^2 variance cancels on the clips'
+# near-constant channels, so only this one moves them).
+CHAOS_FLOOR = {
+    "ulp": {"loss": 2.612e-04, "params": 2.530e-02, "cancelled": 1.383e-02,
+            "running_mean": 4.013e-02, "running_var": 8.398e-03, "logits": 1.013e-02},
+    "reorder": {"loss": 2.452e-03, "params": 1.346e-01, "cancelled": 1.988e-02,
+                "running_mean": 7.304e-02, "running_var": 4.115e-02, "logits": 4.176e-02},
+}
+FLOOR_FACTOR = 4  # the port may be 4x as far from JAX as JAX is from itself
+
+
+def _port_summary(model, losses, logits):
+    """The port's run in floor.distances' form, keyed by the torch names."""
+    state = {k: v.detach().numpy() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    return _split_torch(state, losses, logits)
+
+
+def _split_torch(state, losses, logits):
+    cancelled = (".tcn.2.bias", ".residual.0.bias")  # floor.CANCELLED in torch's names
+    stats = ("running_mean", "running_var")
+    return {"losses": np.asarray(losses), "logits": np.asarray(logits),
+            "params": {k: v for k, v in state.items()
+                       if not k.endswith(cancelled + stats)},
+            "cancelled": {k: v for k, v in state.items() if k.endswith(cancelled)},
+            "means": {k: v for k, v in state.items() if k.endswith("running_mean")},
+            "vars": {k: v for k, v in state.items() if k.endswith("running_var")}}
+
+
+def test_a_whole_run_follows_jax_within_its_chaos_floor(tmp_path):
+    """The learning guard's ST-GCN (the reduced classifier) trained 16 steps,
+    two of the guard's epochs, by each package's train step from JAX's
+    .init, on the same batches (the guard's learnable clips, its loader's
+    order): the per-step loss, the parameters, the running means and
+    variances after the run, and the eval-mode logits and classes on 32
+    held-out clips are within FLOOR_FACTOR x the JAX package's own chaos
+    floor (the larger of CHAOS_FLOOR's two). The port's running variances
+    are held less the unbiased-variance fold it keeps on purpose (as
+    test_one_train_step_matches_flax holds it), summed over the steps."""
+    import threading
+
+    from scripts import stgcn_chaos_floor as floor
+
+    # the JAX step compiles (one core) while the batches are made
+    compiling = threading.Thread(target=floor.compile_step)
+    compiling.start()
+    batches, held_out = floor.smokefit_batches(str(tmp_path))
+    variables = floor.init_variables(batches)
+    compiling.join()
+    start = {k: torch.tensor(v) for k, v in stgcn_state_dict_from_flax(variables).items()}
+    model = STGCN(in_channels=12, num_class=8, num_person=2, layout="smplx", **REDUCED)
+    model.load_state_dict(start, strict=False)
+    counts = _bn_counts(model)
+    model.load_state_dict(start, strict=False)
+    port = {}
+
+    def train_port():
+        try:
+            optimizer = train_stgcn.make_optimizer(model, floor.LR)
+            port["losses"] = [float(train_stgcn.train_step(
+                model, optimizer, torch.tensor(m), torch.tensor(l))[0]) for m, l in batches]
+            with torch.no_grad():
+                port["logits"] = model.eval()(torch.tensor(held_out))["yhat"].numpy()
+        except BaseException as e:  # raised again below
+            port["error"] = e
+
+    # the port's run goes beside the JAX step's compilation and run (both
+    # release the GIL); they share nothing but the inputs
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # the cores XLA's step leaves idle
+    worker = threading.Thread(target=train_port)
+    worker.start()
+    try:
+        ref = floor.run(variables, batches, held_out)
+    finally:
+        worker.join()
+        torch.set_num_threads(threads)
+    if "error" in port:
+        raise port["error"]
+    losses, logits = port["losses"], port["logits"]
+
+    # flax's running variances plus the port's fold: d_k = 0.9 d_(k-1) +
+    # (r_k - 0.9 r_(k-1)) / (n - 1), r_k flax's after step k
+    def torch_vars(stats):
+        sd = stgcn_state_dict_from_flax({"params": variables["params"], "batch_stats": stats})
+        return {k: v for k, v in sd.items() if k.endswith("running_var")}
+
+    fold, before = {}, torch_vars(variables["batch_stats"])
+    for stats in ref["stats"]:
+        after = torch_vars(stats)
+        for k, r in after.items():
+            n = counts[k[: -len(".running_var")]]
+            fold[k] = 0.9 * fold.get(k, 0.0) + (r - 0.9 * before[k]) / (n - 1)
+        before = after
+    jax_state = stgcn_state_dict_from_flax(ref["variables"])
+    jax_state.update({k: v + fold[k] for k, v in after.items()})
+    dist = floor.distances(_port_summary(model, losses, logits),
+                           _split_torch(jax_state, ref["losses"], ref["logits"]))
+    tol = {key: FLOOR_FACTOR * max(CHAOS_FLOOR["ulp"][key], CHAOS_FLOOR["reorder"][key])
+           for key in dist}
+    for key, d in dist.items():
+        assert d <= tol[key], (key, d, tol[key])
+    # the classes agree wherever JAX's top two logits are further apart than
+    # twice the logits' tolerance
+    top2 = np.sort(ref["logits"], axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol["logits"]
+    np.testing.assert_array_equal(logits.argmax(1)[clear], ref["logits"].argmax(1)[clear])
 
 
 def _args(tmp_path, **over):

@@ -126,6 +126,23 @@ def test_bf16_train_step_matches_jax(arch):
     metrics = step(_torch_batch(b2), torch.Generator().manual_seed(0), tstate["step"],
                    noise=torch.tensor(noise))
 
+    hold_bf16_second_step(model, optimizer, ema, before, metrics, jmetrics, state2, jgrads,
+                          jgrads32, LR)
+    if arch == "gru":
+        named = dict(model.named_parameters())
+        for i in range(2):
+            name = f"gru.bias_hh_l{i}"
+            assert torch.equal(named[name][: 2 * D].double(), before[name][: 2 * D])
+
+
+def hold_bf16_second_step(model, optimizer, ema, before, metrics, jmetrics, state2, jgrads,
+                          jgrads32, lr, wd=WD, ema_rate=EMA):
+    """The port's bf16 second step (its metrics, the model's gradients,
+    AdamW's moments, the parameters and `ema` after it; `before`: the f64
+    parameters before it; `lr`: the step's learning rate) against the JAX
+    bf16 step's (jmetrics, state2, the gradients jgrads), with the JAX f32
+    gradients jgrads32 as the measure of bf16 noise, at the tolerances of
+    the module docstring."""
     for name, ref in jmetrics.items():
         if name != "loss_per_elem":
             np.testing.assert_allclose(float(metrics[name]), float(ref), rtol=TERM_RTOL,
@@ -156,24 +173,20 @@ def test_bf16_train_step_matches_jax(arch):
                   + (1 - B2) * (2 * np.abs(jg) * noise_g + noise_g ** 2))
         assert (np.abs(nu - want["nu"][name]) <= nu_tol).all(), name
         # the f32 master weights take AdamW's update of the port's own moments
-        update = LR * ((mu / bc1) / (np.sqrt(nu / bc2) + EPS) + WD * before[name].numpy())
+        update = lr * ((mu / bc1) / (np.sqrt(nu / bc2) + EPS) + wd * before[name].numpy())
         np.testing.assert_allclose(p.detach().double().numpy(),
                                    before[name].numpy() - update, rtol=0, atol=1e-6,
                                    err_msg=name)
         diff = np.abs(p.detach().numpy() - want["params"][name])
         clear = np.abs(jg) > 64 * noise_g
-        assert (diff[clear] <= LR / 16).all(), (name, float(diff[clear].max()))
-        assert (diff <= 2 * LR * 1.01).all(), name
+        assert (diff[clear] <= lr / 16).all(), (name, float(diff[clear].max()))
+        assert (diff <= 2 * lr * 1.01).all(), name
         ema_diff = np.abs(ema[name].numpy() - want["ema"][name])
-        assert (ema_diff <= 1e-6 + (1 - EMA) * diff).all(), name
+        assert (ema_diff <= 1e-6 + (1 - ema_rate) * diff).all(), name
     # the port's bf16 step is at most twice as far from the JAX bf16 step as
     # the JAX f32 step is (two independent bf16 roundings of one size put
     # it at sqrt(2) times)
     assert to_bf16 <= 4 * to_f32, (to_bf16 ** 0.5, to_f32 ** 0.5)
-    if arch == "gru":
-        for i in range(2):
-            name = f"gru.bias_hh_l{i}"
-            assert torch.equal(named[name][: 2 * D].double(), before[name][: 2 * D])
 
 
 def _bf16_loop(tmp_path, arch="online", **over):
