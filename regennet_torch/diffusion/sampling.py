@@ -12,6 +12,9 @@ Classifier guidance: `cond_fn(x, t, cond)` returns the gradient of a log
 probability with respect to x. The loops run without autograd; each call
 of cond_fn runs with it enabled, on a detached copy of x that requires
 grad, and its result comes back detached.
+
+Each step of every loop runs in a `sample.step` span (utils/profiling);
+the steps of one call share the call's request id.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from regennet_torch.diffusion import gaussian
 from regennet_torch.diffusion.schedule import DiffusionConfig, Schedule
+from regennet_torch.utils import profiling
 
 ModelFn = gaussian.ModelFn
 
@@ -127,19 +131,21 @@ def p_sample_loop(
     cond_fn = _with_grad(cond_fn)
     draws = _Noise(shape, sched.device, generator, noise, step_noise, rows)
     x = _start(sched, draws, init_image, skip_timesteps)
+    request = profiling.new_request()
     for i in range(sched.num_timesteps - skip_timesteps - 1, -1, -1):
-        t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
-        out = gaussian.p_mean_variance(
-            sched, cfg, model_fn, x, t, cond, clip_denoised, denoised_fn
-        )
-        if cond_fn is not None:
-            out["mean"] = gaussian.condition_mean(sched, cfg, cond_fn, out, x, t, cond)
-        z = draws.step()
-        if const_noise:
-            z = z[:1].expand(z.shape)
-        x = out["mean"] + _nonzero_mask(t, x.ndim) * torch.exp(
-            0.5 * out["log_variance"]
-        ) * z
+        with profiling.span("sample.step", request):
+            t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
+            out = gaussian.p_mean_variance(
+                sched, cfg, model_fn, x, t, cond, clip_denoised, denoised_fn
+            )
+            if cond_fn is not None:
+                out["mean"] = gaussian.condition_mean(sched, cfg, cond_fn, out, x, t, cond)
+            z = draws.step()
+            if const_noise:
+                z = z[:1].expand(z.shape)
+            x = out["mean"] + _nonzero_mask(t, x.ndim) * torch.exp(
+                0.5 * out["log_variance"]
+            ) * z
     return x
 
 
@@ -165,26 +171,28 @@ def ddim_sample_loop(
     cond_fn = _with_grad(cond_fn)
     draws = _Noise(shape, sched.device, generator, noise, step_noise)
     x = _start(sched, draws, init_image, skip_timesteps)
+    request = profiling.new_request()
     for i in range(sched.num_timesteps - skip_timesteps - 1, -1, -1):
-        t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
-        out = gaussian.p_mean_variance(
-            sched, cfg, model_fn, x, t, cond, clip_denoised, denoised_fn
-        )
-        if cond_fn is not None:
-            out = gaussian.condition_score(sched, cfg, cond_fn, out, x, t, cond)
-        eps = gaussian.predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
-        alpha_bar = gaussian._extract(sched.alphas_cumprod, t, x.ndim)
-        alpha_bar_prev = gaussian._extract(sched.alphas_cumprod_prev, t, x.ndim)
-        sigma = (
-            eta
-            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
-        )
-        mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            torch.clamp(1 - alpha_bar_prev - sigma**2, min=0.0)
-        ) * eps
-        z = draws.step()
-        x = mean_pred + _nonzero_mask(t, x.ndim) * sigma * z
+        with profiling.span("sample.step", request):
+            t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
+            out = gaussian.p_mean_variance(
+                sched, cfg, model_fn, x, t, cond, clip_denoised, denoised_fn
+            )
+            if cond_fn is not None:
+                out = gaussian.condition_score(sched, cfg, cond_fn, out, x, t, cond)
+            eps = gaussian.predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
+            alpha_bar = gaussian._extract(sched.alphas_cumprod, t, x.ndim)
+            alpha_bar_prev = gaussian._extract(sched.alphas_cumprod_prev, t, x.ndim)
+            sigma = (
+                eta
+                * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+            )
+            mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                torch.clamp(1 - alpha_bar_prev - sigma**2, min=0.0)
+            ) * eps
+            z = draws.step()
+            x = mean_pred + _nonzero_mask(t, x.ndim) * sigma * z
     return x
 
 
@@ -201,14 +209,16 @@ def ddim_reverse_sample_loop(
     to T-1. The conditioning goes to model_fn as given (no `prepare`, as
     in the JAX loop)."""
     x = x0
+    request = profiling.new_request()
     for i in range(sched.num_timesteps):
-        t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
-        out = gaussian.p_mean_variance(sched, cfg, model_fn, x, t, cond, clip_denoised)
-        eps = gaussian.predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
-        alpha_bar_next = gaussian._extract(sched.alphas_cumprod_next, t, x.ndim)
-        x = out["pred_xstart"] * torch.sqrt(alpha_bar_next) + torch.sqrt(
-            1 - alpha_bar_next
-        ) * eps
+        with profiling.span("sample.step", request):
+            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+            out = gaussian.p_mean_variance(sched, cfg, model_fn, x, t, cond, clip_denoised)
+            eps = gaussian.predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
+            alpha_bar_next = gaussian._extract(sched.alphas_cumprod_next, t, x.ndim)
+            x = out["pred_xstart"] * torch.sqrt(alpha_bar_next) + torch.sqrt(
+                1 - alpha_bar_next
+            ) * eps
     return x
 
 
@@ -256,26 +266,28 @@ def plms_sample_loop(
         return gaussian.predict_eps_from_xstart(sched, x, t, out["pred_xstart"]), out
 
     history: List[torch.Tensor] = []  # earlier steps' eps, newest first
+    request = profiling.new_request()
     for i in range(sched.num_timesteps - skip_timesteps - 1, -1, -1):
-        t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
-        alpha_bar_prev = gaussian._extract(sched.alphas_cumprod_prev, t, x.ndim)
-        eps, out = model_eps(x, t)
-        if order > 1 and not history:
-            # pseudo improved Euler
-            mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+        with profiling.span("sample.step", request):
+            t = torch.full((shape[0],), i, dtype=torch.long, device=x.device)
+            alpha_bar_prev = gaussian._extract(sched.alphas_cumprod_prev, t, x.ndim)
+            eps, out = model_eps(x, t)
+            if order > 1 and not history:
+                # pseudo improved Euler
+                mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                    1 - alpha_bar_prev
+                ) * eps
+                eps2, _ = model_eps(mean_pred, torch.clamp(t - 1, min=0))
+                eps_prime = (eps + eps2) / 2
+            else:
+                hist = [eps] + history
+                coeffs = _ADAMS_BASHFORTH[len(hist) - 1]
+                eps_prime = sum(c * e for c, e in zip(coeffs, hist))
+            pred_prime = gaussian.predict_xstart_from_eps(sched, x, t, eps_prime)
+            mean_pred = pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(
                 1 - alpha_bar_prev
-            ) * eps
-            eps2, _ = model_eps(mean_pred, torch.clamp(t - 1, min=0))
-            eps_prime = (eps + eps2) / 2
-        else:
-            hist = [eps] + history
-            coeffs = _ADAMS_BASHFORTH[len(hist) - 1]
-            eps_prime = sum(c * e for c, e in zip(coeffs, hist))
-        pred_prime = gaussian.predict_xstart_from_eps(sched, x, t, eps_prime)
-        mean_pred = pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            1 - alpha_bar_prev
-        ) * eps_prime
-        nz = _nonzero_mask(t, x.ndim)
-        x = mean_pred * nz + out["pred_xstart"] * (1 - nz)
-        history = [eps] + history[:order - 2] if order > 1 else []
+            ) * eps_prime
+            nz = _nonzero_mask(t, x.ndim)
+            x = mean_pred * nz + out["pred_xstart"] * (1 - nz)
+            history = [eps] + history[:order - 2] if order > 1 else []
     return x

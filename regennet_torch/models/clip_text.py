@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from regennet_torch.device import DeviceLike, resolve_device
+from regennet_torch.utils import profiling
 
 DEFAULT_CLIP = "openai/clip-vit-base-patch32"
 
@@ -88,22 +89,31 @@ class ClipTextEncoder:
 
     @torch.no_grad()
     def __call__(self, texts: List[str]) -> np.ndarray:
-        """texts -> float32 embeddings [B, proj_dim] (numpy)."""
-        if self._backend == "file":
-            # the reference's encode_text: context max_text_len + 2 with
-            # truncation, zero-padded to the full context
-            ctx = self.model.context_length
-            short = min(self.max_text_len + 2, ctx) if self.max_text_len is not None else ctx
-            tokens = self.tokenizer.tokenize(texts, context_length=short, truncate=True)
-            if short < ctx:
-                tokens = np.pad(tokens, ((0, 0), (0, ctx - short)))
-            out = self.model(torch.as_tensor(tokens, dtype=torch.long, device=self.device))
-            return out.float().cpu().numpy()
-        kwargs = dict(padding="max_length", truncation=True, return_tensors="pt")
-        if self.max_text_len is not None:
-            kwargs["max_length"] = self.max_text_len + 2
-        tokens = {k: v.to(self.device) for k, v in self.tokenizer(texts, **kwargs).items()}
-        return self.model(**tokens).text_embeds.float().cpu().numpy()
+        """texts -> float32 embeddings [B, proj_dim] (numpy), in a
+        `clip.encode` span: the tokenizer, the tokens' copy to the device,
+        the tower and the read-back (each copy a `sync` span)."""
+        with profiling.span("clip.encode"):
+            if self._backend == "file":
+                # the reference's encode_text: context max_text_len + 2 with
+                # truncation, zero-padded to the full context
+                ctx = self.model.context_length
+                short = min(self.max_text_len + 2, ctx) if self.max_text_len is not None else ctx
+                tokens = self.tokenizer.tokenize(texts, context_length=short, truncate=True)
+                if short < ctx:
+                    tokens = np.pad(tokens, ((0, 0), (0, ctx - short)))
+                with profiling.blocking():
+                    tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+                out = self.model(tokens)
+            else:
+                kwargs = dict(padding="max_length", truncation=True, return_tensors="pt")
+                if self.max_text_len is not None:
+                    kwargs["max_length"] = self.max_text_len + 2
+                tokens = self.tokenizer(texts, **kwargs)
+                with profiling.blocking():
+                    tokens = {k: v.to(self.device) for k, v in tokens.items()}
+                out = self.model(**tokens).text_embeds
+            with profiling.blocking():
+                return out.float().cpu().numpy()
 
 
 # encoders, and the routes whose CLIP probe failed, per (path, merge table,

@@ -36,6 +36,7 @@ from torch import nn
 
 from regennet_torch.models import initializers
 from regennet_torch.models import transformer as tfm
+from regennet_torch.utils import profiling
 
 DECODER_ARCHS = ("online", "trans_dec")
 TRANSFORMER_ARCHS = DECODER_ARCHS + ("offline", "trans_enc")
@@ -282,35 +283,37 @@ class CMDM(nn.Module):
     def forward(self, x, timesteps, cond: Optional[Dict] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None):
         """train=True needs `generator`, the source of every dropout draw;
-        it uses no prepare_cond fold (the weights change every step)."""
-        cond = cond or {}
-        if train:
-            if generator is None:
-                raise ValueError("the training forward needs a torch.Generator")
-            cond = {k: v for k, v in cond.items()
-                    if k not in ("cond_emb_seq", "fold_in_kernel")}
-        else:
-            generator = None
-        B, J, F, T = x.shape
-        dtype = self.dtype
-        emb = self.embed_timestep(timesteps)  # [B, D]
-        if "text" in self.cond_mode:
-            text_emb = self.embed_text(cond["text_emb"].to(dtype))
-            emb = emb + self._mask_cond(text_emb, cond.get("uncond"), generator)
-        if "action" in self.cond_mode:
-            idx = cond["action"][:, 0].long()
-            action_emb = self.embed_action.action_embedding[idx]
-            emb = emb + self._mask_cond(action_emb, cond.get("uncond"), generator)
+        it uses no prepare_cond fold (the weights change every step). The
+        forward runs in a `denoiser` span (utils/profiling)."""
+        with profiling.span("denoiser"):
+            cond = cond or {}
+            if train:
+                if generator is None:
+                    raise ValueError("the training forward needs a torch.Generator")
+                cond = {k: v for k, v in cond.items()
+                        if k not in ("cond_emb_seq", "fold_in_kernel")}
+            else:
+                generator = None
+            B, J, F, T = x.shape
+            dtype = self.dtype
+            emb = self.embed_timestep(timesteps)  # [B, D]
+            if "text" in self.cond_mode:
+                text_emb = self.embed_text(cond["text_emb"].to(dtype))
+                emb = emb + self._mask_cond(text_emb, cond.get("uncond"), generator)
+            if "action" in self.cond_mode:
+                idx = cond["action"][:, 0].long()
+                action_emb = self.embed_action.action_embedding[idx]
+                emb = emb + self._mask_cond(action_emb, cond.get("uncond"), generator)
 
-        x_feats = self._to_seq(x).to(dtype)
-        if self.arch == "gru":
-            out = self._gru(x_feats, cond, emb, generator)
-        elif self.arch == "mlp":
-            out = self._mlp(x_feats, cond, emb)
-        else:
-            out = self._transformer(x_feats, cond, emb, generator)
-        out = self.output_process.poseFinal(out).float()
-        return out.reshape(B, T, J, F).permute(0, 2, 3, 1)
+            x_feats = self._to_seq(x).to(dtype)
+            if self.arch == "gru":
+                out = self._gru(x_feats, cond, emb, generator)
+            elif self.arch == "mlp":
+                out = self._mlp(x_feats, cond, emb)
+            else:
+                out = self._transformer(x_feats, cond, emb, generator)
+            out = self.output_process.poseFinal(out).float()
+            return out.reshape(B, T, J, F).permute(0, 2, 3, 1)
 
     def _cmotion_feats(self, cond, dtype):
         return self._to_seq(cond["cmotion"]).to(dtype)

@@ -29,6 +29,10 @@ dropout bits are Philox4x32-10 keyed by each batch row's two int32 seed
 words, with counter (key, query, head, 0): `dropout_bits` computes them
 in plain torch, bit for bit as the kernels do.
 
+`fused_attention_btd` and `fused_attention_btd_train` run in an
+`attention.forward` span, the GPU backward of the latter in an
+`attention.backward` span (utils/profiling).
+
 `fused_causal_attention` is the legacy [B, H, T, hd] attention that no
 model path reaches: unscaled q, the f32 score multiplied by 1/sqrt(hd) in
 f32 after the dot, an f32 softmax, causal or not; plain version
@@ -46,6 +50,7 @@ import numpy as np
 import torch
 
 from regennet_torch.ops import kernels
+from regennet_torch.utils import profiling
 
 NEG_FILL = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -241,22 +246,23 @@ def fused_attention_btd(q, k, v, num_heads: int, causal: bool = True,
     k and v may be strided views whose last dimension is contiguous.
     `fused_attention_btd.launches` counts kernel launches, and
     `.launches_by_tokens` the same by T."""
-    _check(q, k, v, num_heads, kv_len)
-    if q.device.type == "cpu":
-        return attention_btd_reference(q, k, v, num_heads, causal,
-                                       softmax_f32, kv_len)
-    _check_device(q)
-    B, T, D = q.shape
-    hd = D // num_heads
-    out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
-    args = forward_args((B, num_heads, T, hd),
-                        _head_strides([x.stride() for x in (q, k, v, out)], hd), q.dtype,
-                        [x.data_ptr() for x in (q, k, v)], _scale_in(q.dtype, hd), 1.0,
-                        causal, kv_len, softmax_f32)
-    _launch_attention(q, k, v, out, args, "fused_attention_btd")
-    fused_attention_btd.launches += 1
-    _count_tokens(fused_attention_btd.launches_by_tokens, T)
-    return out
+    with profiling.span("attention.forward"):
+        _check(q, k, v, num_heads, kv_len)
+        if q.device.type == "cpu":
+            return attention_btd_reference(q, k, v, num_heads, causal,
+                                           softmax_f32, kv_len)
+        _check_device(q)
+        B, T, D = q.shape
+        hd = D // num_heads
+        out = torch.empty((B, T, D), dtype=q.dtype, device=q.device)
+        args = forward_args((B, num_heads, T, hd),
+                            _head_strides([x.stride() for x in (q, k, v, out)], hd), q.dtype,
+                            [x.data_ptr() for x in (q, k, v)], _scale_in(q.dtype, hd), 1.0,
+                            causal, kv_len, softmax_f32)
+        _launch_attention(q, k, v, out, args, "fused_attention_btd")
+        fused_attention_btd.launches += 1
+        _count_tokens(fused_attention_btd.launches_by_tokens, T)
+        return out
 
 
 def _count_tokens(by_tokens: dict, T: int) -> None:
@@ -440,19 +446,20 @@ def fused_attention_btd_train(q, k, v, num_heads: int, dropout_rate: float,
     `.backward_launches_by_tokens` the same by T. The GPU backward is itself
     differentiable (a gradient penalty's `create_graph=True`): its VJP runs
     in PyTorch ops, counted by `.double_backward_launches`."""
-    _check(q, k, v, num_heads, kv_len)
-    _check_seed(seed, q.shape[0])
-    if not 0.0 <= dropout_rate < 1.0:
-        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
-    if seed.device != q.device:
-        raise ValueError("seed must lie on the device of q, k, v")
-    if q.device.type == "cpu":
-        return attention_btd_train_reference(
-            q, k, v, num_heads, dropout_rate, seed, causal, softmax_f32, kv_len)
-    _check_kernel_inputs(q, k, v, q.shape[0], num_heads, q.shape[2] // num_heads)
-    cfg = _TrainConfig(num_heads, float(dropout_rate), bool(causal),
-                       bool(softmax_f32), 0 if kv_len is None else int(kv_len))
-    return _AttentionTrain.apply(q, k, v, seed.contiguous(), cfg)
+    with profiling.span("attention.forward"):
+        _check(q, k, v, num_heads, kv_len)
+        _check_seed(seed, q.shape[0])
+        if not 0.0 <= dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
+        if seed.device != q.device:
+            raise ValueError("seed must lie on the device of q, k, v")
+        if q.device.type == "cpu":
+            return attention_btd_train_reference(
+                q, k, v, num_heads, dropout_rate, seed, causal, softmax_f32, kv_len)
+        _check_kernel_inputs(q, k, v, q.shape[0], num_heads, q.shape[2] // num_heads)
+        cfg = _TrainConfig(num_heads, float(dropout_rate), bool(causal),
+                           bool(softmax_f32), 0 if kv_len is None else int(kv_len))
+        return _AttentionTrain.apply(q, k, v, seed.contiguous(), cfg)
 
 
 fused_attention_btd_train.launches = 0
@@ -520,9 +527,10 @@ class _AttentionTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, seed = ctx.saved_tensors
-        dq, dk, dv = _AttentionTrainBackward.apply(q, k, v, dout.to(q.dtype).contiguous(),
-                                                   seed, ctx.cfg)
+        with profiling.span("attention.backward"):
+            q, k, v, seed = ctx.saved_tensors
+            dq, dk, dv = _AttentionTrainBackward.apply(
+                q, k, v, dout.to(q.dtype).contiguous(), seed, ctx.cfg)
         return dq, dk, dv, None, None
 
 

@@ -38,7 +38,13 @@ whatever the sharding, and loads back into any layout.
 `--eval_during_training` runs the debug evaluation of the dataset after
 every save (humanml and kit: the T2M evaluation of eval/eval_humanml.py);
 `--profile_steps` writes a Chrome trace of a window of steps
-(utils.profiling.trace).
+(utils.profiling.trace) with the program's spans recorded in it as
+`regennet/<span>` ranges (utils.profiling.recording: `train.block`,
+`train.host_batch`, `clip.encode`, `train.to_device`, `train.step` with
+its `train.loss`, `denoiser`, `train.backward` and `train.optimizer`, the
+attention's spans, and a `sync` around each copy that waits for the
+device), and logs the window's counter totals (`host_syncs`) when it
+closes.
 """
 
 from __future__ import annotations
@@ -133,7 +139,9 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
     process's (parallel.mesh.one_process) by default. fsdp:
     the flat shard that the optimizer updates (ema then holds {"flat":
     its EMA}); the module's parameters are gathered for the step and
-    released after it."""
+    released after it. The step runs in a `train.step` span (utils/profiling)
+    holding `train.loss` (the forward and the loss terms), `train.backward`
+    and `train.optimizer` (the rest)."""
     if layout is None:
         layout = mesh.one_process()
     names = [n for n, _ in model.named_parameters()]
@@ -147,27 +155,9 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
     def norm(tensors):
         return mesh.global_norm(tensors, sharded, layout, over_data=fsdp is not None)
 
-    def train_step(batch, generator: torch.Generator, step: int,
-                   noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        x, t, weights = batch["motion"], batch["t"], batch["weights"]
-        draws = layout.draws(generator, x.shape[0])
-        if noise is None:
-            noise = draws.randn(x.shape, x.device, x.dtype)
-        if fsdp is not None:
-            fsdp.gather_()
-
-        def model_fn(x_t, ts, cond):
-            kwargs = dict(train=True, generator=draws)
-            if dtype == torch.float32:
-                return model(x_t, ts, cond, **kwargs)
-            cast = {n: p.to(dtype) for n, p in zip(names, params)}
-            return functional_call(model, cast, (x_t, ts, cond), kwargs)
-
-        optimizer.zero_grad(set_to_none=True)
-        terms = losses.training_losses(sched, cfg, model_fn, x, t, batch["cond"],
-                                       noise, rot2xyz_fn=rot2xyz_fn)
-        loss = torch.mean(terms["loss"] * weights)
-        loss.backward()
+    def update(terms, loss, t, weights, step: int) -> Dict[str, torch.Tensor]:
+        """The gradient exchange, the gradient norm, AdamW, the EMA and the
+        step's metrics, once the gradients are on the parameters."""
         if fsdp is not None:
             fsdp.reduce_grads_()
         else:
@@ -203,6 +193,33 @@ def make_train_step(model, sched, cfg, optimizer: torch.optim.Optimizer,
             for q in range(4):
                 metrics[f"loss_q{q}"] = sums[2 * q] / torch.clamp(sums[2 * q + 1], min=1.0)
         return metrics
+
+    def train_step(batch, generator: torch.Generator, step: int,
+                   noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        with profiling.span("train.step"):
+            x, t, weights = batch["motion"], batch["t"], batch["weights"]
+            draws = layout.draws(generator, x.shape[0])
+            if noise is None:
+                noise = draws.randn(x.shape, x.device, x.dtype)
+            if fsdp is not None:
+                fsdp.gather_()
+
+            def model_fn(x_t, ts, cond):
+                kwargs = dict(train=True, generator=draws)
+                if dtype == torch.float32:
+                    return model(x_t, ts, cond, **kwargs)
+                cast = {n: p.to(dtype) for n, p in zip(names, params)}
+                return functional_call(model, cast, (x_t, ts, cond), kwargs)
+
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.loss"):
+                terms = losses.training_losses(sched, cfg, model_fn, x, t, batch["cond"],
+                                               noise, rot2xyz_fn=rot2xyz_fn)
+                loss = torch.mean(terms["loss"] * weights)
+            with profiling.span("train.backward"):
+                loss.backward()
+            with profiling.span("train.optimizer"):
+                return update(terms, loss, t, weights, step)
 
     return train_step
 
@@ -282,6 +299,7 @@ class TrainLoop:
         self._block_buf = []
         self._last_save_at = None  # self.step value (pre-increment) last saved
         self._profiler = None
+        self._recording = None  # the profiled window's spans and counters
         self._hml_eval = None  # the text evaluation's (wrapper, split), built once
 
     # -- state ----------------------------------------------------------
@@ -398,42 +416,47 @@ class TrainLoop:
     # -- stepping -------------------------------------------------------
 
     def _make_host_batch(self, motion, cond) -> Dict:
-        B = motion.shape[0]
-        # the global batch's draw, this rank's rows
-        t, weights = self.schedule_sampler.sample(B * self.layout.data_size, self._host_rng)
-        rows = slice(self.layout.data_rank * B, (self.layout.data_rank + 1) * B)
-        t, weights = t[rows], weights[rows]
-        y = cond["y"]
-        cond_np = {
-            "mask": np.asarray(y["mask"]),
-            "cmotion": (np.asarray(y["cmotion"]) if "cmotion" in y
-                        else np.zeros_like(np.asarray(motion))),
-        }
-        if "action" in y:
-            cond_np["action"] = np.asarray(y["action"])
-        if "text" in self.model.cond_mode:
-            cond_np["text_emb"] = encode_text_or_fallback(
-                [str(c) for c in y.get("text", [""] * len(motion))], self.device)
-        return {"motion": np.asarray(motion), "t": t, "weights": weights,
-                "cond": cond_np}
+        with profiling.span("train.host_batch"):
+            B = motion.shape[0]
+            # the global batch's draw, this rank's rows
+            t, weights = self.schedule_sampler.sample(B * self.layout.data_size, self._host_rng)
+            rows = slice(self.layout.data_rank * B, (self.layout.data_rank + 1) * B)
+            t, weights = t[rows], weights[rows]
+            y = cond["y"]
+            cond_np = {
+                "mask": np.asarray(y["mask"]),
+                "cmotion": (np.asarray(y["cmotion"]) if "cmotion" in y
+                            else np.zeros_like(np.asarray(motion))),
+            }
+            if "action" in y:
+                cond_np["action"] = np.asarray(y["action"])
+            if "text" in self.model.cond_mode:
+                cond_np["text_emb"] = encode_text_or_fallback(
+                    [str(c) for c in y.get("text", [""] * len(motion))], self.device)
+            return {"motion": np.asarray(motion), "t": t, "weights": weights,
+                    "cond": cond_np}
 
     def _to_device(self, host: Dict) -> Dict:
         def put(v):
-            return torch.as_tensor(v, device=self.device)
+            with profiling.blocking():  # a pageable copy waits for the stream
+                return torch.as_tensor(v, device=self.device)
 
-        return {
-            "motion": put(host["motion"]).float(),
-            "t": put(host["t"]).long(),
-            "weights": put(host["weights"]).float(),
-            "cond": {k: put(v) for k, v in host["cond"].items()},
-        }
+        with profiling.span("train.to_device"):
+            return {
+                "motion": put(host["motion"]).float(),
+                "t": put(host["t"]).long(),
+                "weights": put(host["weights"]).float(),
+                "cond": {k: put(v) for k, v in host["cond"].items()},
+            }
 
     def _finish(self, host_batches: List[Dict], per_step: List[Dict], snapshot):
         """NaN guard and loss-aware sampler update of one device call."""
         losses_per_elem = [m.pop("loss_per_elem") for m in per_step]
         if self._nan_guard:
-            loss = torch.stack([m["loss"] for m in per_step]).cpu().numpy()
-            gnorm = torch.stack([m["grad_norm"] for m in per_step]).cpu().numpy()
+            with profiling.blocking():
+                loss = torch.stack([m["loss"] for m in per_step]).cpu().numpy()
+            with profiling.blocking():
+                gnorm = torch.stack([m["grad_norm"] for m in per_step]).cpu().numpy()
             if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(gnorm))):
                 self._nan_skips += 1
                 logger.log(
@@ -452,18 +475,21 @@ class TrainLoop:
             self._nan_skips = 0
         if isinstance(self.schedule_sampler, LossAwareSampler):
             for host, lpe in zip(host_batches, losses_per_elem):
+                with profiling.blocking():
+                    lpe = lpe.cpu().numpy()
                 self.schedule_sampler.update_with_local_losses(
-                    host["t"], lpe.cpu().numpy(), group=self.layout.data_group)
+                    host["t"], lpe, group=self.layout.data_group)
         return per_step
 
     def _run(self, items) -> List[Dict]:
-        hosts = [self._make_host_batch(m, c) for m, c in items]
-        snapshot = self._snapshot() if self._nan_guard else None
-        per_step = [
-            self._train_step(self._to_device(h), self.generator, self.state_step + i)
-            for i, h in enumerate(hosts)
-        ]
-        return self._finish(hosts, per_step, snapshot)
+        with profiling.span("train.block"):
+            hosts = [self._make_host_batch(m, c) for m, c in items]
+            snapshot = self._snapshot() if self._nan_guard else None
+            per_step = [
+                self._train_step(self._to_device(h), self.generator, self.state_step + i)
+                for i, h in enumerate(hosts)
+            ]
+            return self._finish(hosts, per_step, snapshot)
 
     def run_step(self, motion, cond) -> Dict:
         """One optimizer step on one (motion, cond) batch."""
@@ -524,7 +550,8 @@ class TrainLoop:
                 continue  # a dropped update: no logging, no step
             if self.step % self.log_interval == 0 and self._is_main:
                 for k, v in metrics.items():
-                    v = float(v)
+                    with profiling.blocking():
+                        v = float(v)
                     logger.logkv_mean(k, v)
                     if k == "loss":
                         logger.log(f"step[{self.state_step}]: loss[{v:0.5f}]")
@@ -588,17 +615,22 @@ class TrainLoop:
 
             self._profiler = contextlib.ExitStack()
             self._profiler.enter_context(profiling.trace(profile_dir, on_trace_ready=write))
+            self._recording = self._profiler.enter_context(profiling.recording())
         elif self.step >= start + n and self._profiler is not None:
             self._stop_profile()
 
     def _stop_profile(self):
-        """Close an open trace, which writes it."""
+        """Close an open trace, which writes it, and log the window's
+        counter totals."""
         if self._profiler is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         window, self._profiler = self._profiler, None
         window.close()
+        counters = ", ".join(f"{k} {v}" for k, v in sorted(self._recording.counters.items()))
+        logger.log(f"profiled window's counters: {counters or 'none'}")
+        self._recording = None
 
     def _eval_model(self):
         """A copy of the current parameters at the compute dtype, for

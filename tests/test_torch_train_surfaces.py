@@ -405,7 +405,8 @@ def _jax_profile_window(num_batches, num_steps, steps_per_call, start, n, monkey
 def test_profile_window_and_trace(monkeypatch, tmp_path, start, n):
     """--profile_steps n --profile_start start --steps_per_call 2 over 6
     steps: the trace opens and closes where the JAX loop's does ((4, 10)
-    closes at the end of the run) and is a Chrome trace of the steps."""
+    closes at the end of the run) and is a Chrome trace of the steps, with
+    the program's spans in it and its counters logged."""
     from torch import profiler
 
     events = []
@@ -423,7 +424,12 @@ def test_profile_window_and_trace(monkeypatch, tmp_path, start, n):
             super().stop()
 
     monkeypatch.setattr(profiler, "profile", Watched)
+    logged = []
+    monkeypatch.setattr(training_loop.logger, "log",
+                        lambda *a, **k: logged.append(" ".join(map(str, a))))
     loop.run_loop()
+    counted = [line for line in logged if line.startswith("profiled window's counters")]
+    assert len(counted) == 1 and "host_syncs" in counted[0]
     assert loop.state_step == 6 and loop._profiler is None
     assert events == _jax_profile_window(6, 6, 2, start, n, monkeypatch)
     first, last = events
@@ -433,3 +439,6 @@ def test_profile_window_and_trace(monkeypatch, tmp_path, start, n):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in name for name in names)
+    # the program's own spans, recorded for the window alone
+    assert {"regennet/train.block", "regennet/train.step", "regennet/denoiser",
+            "regennet/train.backward", "regennet/sync"} <= names
